@@ -1,0 +1,466 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port (`src/repro_torch`) on one NVIDIA GPU.
+
+    python3 chip_smoke.py
+
+Phases (any failure raises and exits non-zero; nothing is caught):
+  1. the card's name and power limit (nvidia-smi); fail without CUDA;
+  2. build the CUDA kernels from the sources in this checkout;
+  3. each kernel against its plain PyTorch version at the main path's
+     shapes, timed beside its bound: diagonal-parity encode and scrub over a
+     full phi3-mini fp32 arena (3.8e9 words) with planted single data-bit,
+     single parity-word and double errors, plus the 3-copy shared-parity
+     scrub; the TMR vote over token ids and the phi3-mini KV cache; flash
+     attention at the prefill shape (B=4, H=32, S=256, hd=96, bf16) and a
+     GQA + sliding-window shape.  Rows 1-3 must match bit for bit, flash
+     within |kernel - plain| <= 1e-2 + 1e-2 |plain| (bf16 output rounding);
+  4. the main path: phi3-mini-3.8b at full width and depth, random init on a
+     seeded generator, attention_impl="pallas", batch 4, prompt 256, gen 32:
+     the clean `off` run, `ecc` and `ecc+tmr-parallel --vote-every 8
+     --vote-cache`, both at p_bit 1e-9.  Every kernel's launch count must
+     grow on the protected run, ecc_corrected > 0, ecc_uncorrectable == 0,
+     every scrubbed copy equals the clean arena bit for bit and the tokens
+     equal the clean run's;
+  5. a small-input reference: the phi3 smoke config in float32 through the
+     kernels and through the plain versions must give the same tokens and
+     counters and logits within 1e-4.
+
+The second-to-last line is a JSON object of per-kernel numbers; the last is
+{"ok": true, "device": {...}}.  Times are CUDA-event means on this card.
+"""
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+sys.path.insert(0, str(ROOT / "src"))
+
+# H100 SXM peaks at the full 700 W power limit (NVIDIA data sheet): device
+# memory rate, dense bf16 tensor-core rate, fp32 rate outside tensor cores
+HBM_BYTES_S = 3.35e12
+PEAK = {"bf16": 989e12, "fp32": 67e12}
+SEED = 0
+
+
+def check(cond, msg: str) -> None:
+    if not cond:
+        raise RuntimeError(f"chip_smoke: {msg}")
+
+
+def log(msg: str) -> None:
+    print(f"[smoke] {msg}", flush=True)
+
+
+def bound_ms(n_bytes: float, n_ops: float = 0.0, peak: str = "fp32"):
+    t_bytes = n_bytes / HBM_BYTES_S * 1e3
+    t_ops = n_ops / PEAK[peak] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def main() -> int:
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    try:
+        import repro_torch  # noqa: F401  (the port must be in this checkout)
+    except ImportError as e:
+        print(f"chip_smoke: the port is not here ({e})", file=sys.stderr)
+        return 1
+    from repro_torch import kernels
+
+    dev = torch.device("cuda")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    # 1. the card
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True, timeout=60)
+    card = smi.stdout.strip().splitlines()[0]
+    print(card, flush=True)
+    log(f"torch {torch.__version__} cuda {torch.version.cuda}, "
+        f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
+
+    # 2. build
+    t0 = time.perf_counter()
+    build_s = kernels.build()
+    log(f"kernels built in {build_s:.1f}s (step {time.perf_counter() - t0:.1f}s)")
+
+    # 3. kernels against their plain versions
+    rows = {}
+    rows.update(check_diag_parity(torch, dev))
+    rows.update(check_vote(torch, dev))
+    rows.update(check_flash(torch, dev))
+
+    # 4. the main path
+    launches = run_main_path(torch, dev)
+    for name, row in rows.items():
+        row["launches"] = launches.get(name, 0)
+        check(row["launches"] > 0, f"{name} never launched on the main path")
+
+    # 5. small-input reference
+    check_small_reference(torch, dev)
+
+    print(json.dumps({"kernels": list(rows.values())}), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+# ----------------------------------------------------------------------------
+# timing helpers
+# ----------------------------------------------------------------------------
+
+def time_ms(torch, fn, reps: int = 5, warmup: int = 1) -> float:
+    """Mean CUDA-event time of fn() over `reps` calls after `warmup`."""
+    for _ in range(warmup):
+        fn()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def timed_once(torch, fn):
+    """(result, CUDA-event ms) of one call."""
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    torch.cuda.synchronize()
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def row(name, source, replaces, ms, plain_ms, bound, err, library_ms=None):
+    return {"name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": 0, "max_abs_err": err,
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound[0],
+            "bound_by": bound[1], "library_ms": library_ms}
+
+
+def random_words(torch, n: int, g, dev):
+    """n uniformly random 32-bit words (int32 storage), drawn in chunks."""
+    out = torch.empty(n, dtype=torch.int32, device=dev)
+    step = 1 << 28
+    for i in range(0, n, step):
+        j = min(n, i + step)
+        out[i:j] = torch.randint(-2**31, 2**31, (j - i,), dtype=torch.int64,
+                                 device=dev, generator=g).to(torch.int32)
+    return out
+
+
+def flip_bits(torch, words, idx, bit):
+    """words[idx] ^= 1 << bit (distinct idx), in place."""
+    words[idx] ^= (torch.ones_like(bit) << bit).to(torch.int32)
+
+
+# ----------------------------------------------------------------------------
+# 3. kernels vs plain versions
+# ----------------------------------------------------------------------------
+
+def check_diag_parity(torch, dev):
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import diag_parity as D
+    from repro_torch.models import transformer as T
+    from repro_torch.models.params import layout
+
+    cfg = get_config("phi3-mini-3.8b")
+    spec = layout(T.model_specs(cfg), cfg.param_dtype)
+    n, nb = spec.n_words, spec.n_blocks
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    words = random_words(torch, n, g, dev)
+    log(f"diag_parity: phi3-mini arena {n} words ({n * 4 / 1e9:.2f} GB), "
+        f"{nb} blocks")
+
+    parity = D.encode_parity(words)
+    plain, enc_plain_ms = timed_once(torch, lambda: D.encode_parity_ref(words))
+    check(torch.equal(parity, plain), "encode kernel != plain version")
+    del plain
+    enc_ms = time_ms(torch, lambda: D.encode_parity(words))
+    enc_bound = bound_ms(n * 4 + nb * 12, 6 * n)
+    log(f"encode_parity: kernel {enc_ms:.3f} ms, plain {enc_plain_ms:.1f} ms, "
+        f"bound {enc_bound[0]:.3f} ms ({enc_bound[1]}); bit-exact")
+
+    # plant 1000 single data-bit errors, 100 single parity-word errors and
+    # 100 double errors, each in its own block
+    blocks = torch.randperm(nb, device=dev, generator=g)[:1200]
+    single, pblk, double = blocks[:1000], blocks[1000:1100], blocks[1100:]
+
+    def rint(hi, k):
+        return torch.randint(0, hi, (k,), device=dev, generator=g)
+
+    flip_bits(torch, words, single * 32 + rint(32, 1000), rint(32, 1000))
+    i1 = rint(32, 100)
+    i2 = (i1 + 1 + rint(31, 100)) % 32
+    d_idx = torch.cat([double * 32 + i1, double * 32 + i2])
+    d_bit = rint(32, 200)
+    flip_bits(torch, words, d_idx, d_bit)
+    bad_par = parity.clone()
+    flip_bits(torch, bad_par.view(-1), pblk * 3 + rint(3, 100), rint(32, 100))
+
+    words_p, bad_par_p = words.clone(), bad_par.clone()
+    _, _, counts = D.scrub(words, bad_par)
+    (_, _, counts_p), scrub_plain_ms = timed_once(
+        torch, lambda: D.scrub_ref(words_p, bad_par_p))
+    check(torch.equal(words, words_p) and torch.equal(bad_par, bad_par_p)
+          and torch.equal(counts, counts_p), "scrub kernel != plain version")
+    check(counts.tolist() == [1000, 100, 100],
+          f"scrub counts {counts.tolist()} != planted [1000, 100, 100]")
+    del words_p, bad_par_p
+    flip_bits(torch, words, d_idx, d_bit)      # undo the uncorrectable pairs
+    check(torch.equal(bad_par, parity), "parity words not healed")
+    check(torch.equal(D.encode_parity(words), parity),
+          "scrubbed arena does not re-encode to the clean parity")
+    scrub_ms = time_ms(torch, lambda: D.scrub(words, parity))
+    scrub_bound = bound_ms(n * 4 + nb * 12 + (1000 + 100) * 4, 8 * n)
+    log(f"scrub: kernel {scrub_ms:.3f} ms (clean arena), plain "
+        f"{scrub_plain_ms:.1f} ms, bound {scrub_bound[0]:.3f} ms; counts "
+        f"{counts.tolist()} bit-exact")
+    del words, parity, bad_par
+    torch.cuda.empty_cache()
+
+    # three stacked copies of a quarter arena against one shared table, the
+    # engine's Compose layout (parity row b mod n_blocks, corrections dropped)
+    nq = (n // 4) // 32 * 32
+    base = random_words(torch, nq, g, dev)
+    par = D.encode_parity(base)
+    w3 = base.repeat(3)
+    idx = torch.randperm(3 * nq // 32, device=dev, generator=g)[:3000] * 32 \
+        + rint(32, 3000)
+    flip_bits(torch, w3, idx, rint(32, 3000))
+    w3_p = w3.clone()
+    _, none_p, c3 = D.scrub(w3, par)
+    _, _, c3_p = D.scrub_ref(w3_p, par)
+    check(none_p is None and torch.equal(w3, w3_p) and torch.equal(c3, c3_p),
+          "shared-parity scrub kernel != plain version")
+    check(c3.tolist() == [3000, 0, 0]
+          and all(torch.equal(r, base) for r in w3.view(3, nq)),
+          f"shared-parity scrub counts {c3.tolist()}")
+    shared_ms = time_ms(torch, lambda: D.scrub(w3, par))
+    log(f"scrub (3 copies x {nq} words, shared parity): kernel "
+        f"{shared_ms:.3f} ms, bound "
+        f"{bound_ms(3 * nq * 4 + nq // 32 * 12)[0]:.3f} ms; bit-exact")
+    del base, par, w3, w3_p
+    torch.cuda.empty_cache()
+
+    src = "src/repro_torch/kernels/csrc/diag_parity.cu"
+    return {
+        "encode_parity": row("encode_parity", src,
+                             "src/repro/kernels/diag_parity/kernel.py:48",
+                             enc_ms, enc_plain_ms, enc_bound, 0.0),
+        "scrub": row("scrub", src,
+                     "src/repro/kernels/diag_parity/kernel.py:130",
+                     scrub_ms, scrub_plain_ms, scrub_bound, 0.0),
+    }
+
+
+def check_vote(torch, dev):
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.tmr_vote import vote, vote_ref
+
+    cfg = get_config("phi3-mini-3.8b")
+    g = torch.Generator(device=dev).manual_seed(SEED + 1)
+    shape = (cfg.n_layers, 4, 256 + 32, cfg.n_kv, cfg.head_dim)
+    base = torch.randn(shape, device=dev, generator=g).to(torch.bfloat16)
+    caches = []
+    for _ in range(3):
+        c = base.clone()
+        bits = c.view(torch.int16).view(-1)
+        idx = torch.randint(0, bits.numel(), (1 << 20,), device=dev,
+                            generator=g)
+        bits[idx] ^= torch.randint(1, 1 << 15, (1 << 20,), device=dev,
+                                   generator=g).to(torch.int16)
+        caches.append(c)
+    toks = [torch.randint(0, cfg.vocab, (4, 1), dtype=torch.int32,
+                          device=dev, generator=g) for _ in range(3)]
+    def bits(x):
+        return x.view(torch.int16 if x.element_size() == 2 else torch.int32)
+
+    for a, b, c in (caches, toks):
+        check(torch.equal(bits(vote(a, b, c)), bits(vote_ref(a, b, c))),
+              "vote kernel != plain version")
+    ms = time_ms(torch, lambda: vote(*caches), reps=20)
+    plain_ms = time_ms(torch, lambda: vote_ref(*caches), reps=20)
+    nbytes = base.numel() * 2
+    bnd = bound_ms(4 * nbytes, 5 * base.numel() / 2)
+    log(f"tmr_vote: KV cache {tuple(shape)} bf16: kernel {ms:.3f} ms, plain "
+        f"{plain_ms:.3f} ms, bound {bnd[0]:.3f} ms; tokens and cache "
+        f"bit-exact")
+    return {"tmr_vote": row("tmr_vote", "src/repro_torch/kernels/csrc/"
+                            "tmr_vote.cu",
+                            "src/repro/kernels/tmr_vote/kernel.py:24",
+                            ms, plain_ms, bnd, 0.0)}
+
+
+def check_flash(torch, dev):
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_ref)
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 2)
+
+    def qkv(B, S, H, KV, hd):
+        return [torch.randn((B, S, h, hd), device=dev, generator=g)
+                .to(torch.bfloat16) for h in (H, KV, KV)]
+
+    def compare(q, k, v, window):
+        got = flash_attention(q, k, v, causal=True, window=window)
+        want = flash_attention_ref(q, k, v, causal=True, window=window)
+        diff = (got.float() - want.float()).abs()
+        check(bool((diff <= 1e-2 + 1e-2 * want.float().abs()).all()),
+              f"flash kernel != plain version (max abs err "
+              f"{diff.max().item():.3g})")
+        return diff.max().item()
+
+    B, S, H, hd = 4, 256, 32, 96
+    q, k, v = qkv(B, S, H, H, hd)
+    err = compare(q, k, v, 0)
+    ms = time_ms(torch, lambda: flash_attention(q, k, v, causal=True),
+                 reps=20)
+    plain_ms = time_ms(torch, lambda: flash_attention_ref(q, k, v,
+                                                          causal=True),
+                       reps=20)
+    qh, kh, vh = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    lib_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(
+        qh, kh, vh, is_causal=True), reps=20)
+    pairs = S * (S + 1) // 2
+    bnd = bound_ms(4 * B * S * H * hd * 2, 4 * B * H * hd * pairs, "bf16")
+    log(f"flash_attention: B={B} S={S} H={H} hd={hd} bf16 causal: kernel "
+        f"{ms:.3f} ms, plain {plain_ms:.3f} ms, SDPA {lib_ms:.3f} ms, bound "
+        f"{bnd[0]:.4f} ms ({bnd[1]}); max abs err {err:.3g}")
+    q2, k2, v2 = qkv(2, 512, 40, 8, 128)
+    err2 = compare(q2, k2, v2, 128)
+    log(f"flash_attention: GQA H=40 KV=8 hd=128 window=128 S=512: max abs "
+        f"err {err2:.3g}")
+    return {"flash_attention": row(
+        "flash_attention", "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "src/repro/kernels/flash_attention/kernel.py:84", ms, plain_ms, bnd,
+        err, lib_ms)}
+
+
+# ----------------------------------------------------------------------------
+# 4. the main path
+# ----------------------------------------------------------------------------
+
+def run_main_path(torch, dev):
+    from repro_torch.configs import get_config
+    from repro_torch.core import arena
+    from repro_torch.launch.serve import make_inputs
+
+    cfg = get_config("phi3-mini-3.8b").replace(attention_impl="pallas")
+    t0 = time.perf_counter()
+    inputs = make_inputs(cfg, batch=4, prompt_len=256, seed=SEED, device=dev)
+    params, tokens = inputs["params"], inputs["tokens"]
+    clean, spec = arena.words_of(params)
+    torch.cuda.synchronize()
+    log(f"{cfg.name}: {spec.n_words} arena words ({spec.n_words * 4 / 1e9:.2f}"
+        f" GB fp32), random init in {time.perf_counter() - t0:.1f}s")
+
+    runs = [("off", 0.0, {}), ("ecc", 1e-9, {}),
+            ("ecc+tmr-parallel", 1e-9, dict(vote_every=8, vote_cache=True))]
+    clean_tokens, counts = None, {}
+    for spec_s, p_bit, kw in runs:
+        out, counts[spec_s] = serve_and_check(
+            torch, cfg, params, tokens, clean, spec_s, p_bit, kw,
+            clean_tokens)
+        clean_tokens = out if clean_tokens is None else clean_tokens
+    main = counts["ecc+tmr-parallel"]
+    log(f"main path (ecc+tmr-parallel) launches: {main}")
+    return main
+
+
+def serve_and_check(torch, cfg, params, tokens, clean, spec_s, p_bit, kw,
+                    clean_tokens):
+    """One serve run with its launch counts and checks; the store it built
+    is freed on return.  Returns (tokens, launch counts)."""
+    from repro_torch import kernels
+    from repro_torch.core import arena
+    from repro_torch.launch.serve import serve
+    from repro_torch.reliability import parse_scheme
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    res = serve(cfg, params, tokens, parse_scheme(spec_s), gen=32,
+                p_bit=p_bit, seed=SEED, device=clean.device, **kw)
+    counts = kernels.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    log(f"{spec_s}: launches {counts}, peak device memory "
+        f"{peak / 1e9:.2f} GB")
+    out, stats = res["tokens"], res["stats"]
+    check(tuple(out.shape) == (4, 32) and out.dtype == torch.int32
+          and int(out.min()) >= 0 and int(out.max()) < cfg.vocab,
+          f"{spec_s}: bad tokens {tuple(out.shape)} {out.dtype}")
+    check(res["agreement"] == 1.0, f"{spec_s}: agreement "
+          f"{res['agreement']} with the clean run")
+    if spec_s != "off":
+        check(int(stats["ecc_corrected"]) > 0, f"{spec_s}: no corrections")
+        check(int(stats["ecc_uncorrectable"]) == 0,
+              f"{spec_s}: uncorrectable blocks")
+        copies = 3 if "tmr" in spec_s else 0
+        store, _ = arena.words_of(res["store"], copies=copies)
+        for i, w in enumerate(store if copies else [store]):
+            check(torch.equal(w, clean),
+                  f"{spec_s}: scrubbed copy {i} != clean arena")
+        check(torch.equal(out, clean_tokens),
+              f"{spec_s}: tokens differ from the clean run")
+    if "tmr" in spec_s:
+        check(int(stats["tmr_final_disagreements"]) == 0
+              and int(stats["tmr_step_disagreements"].sum()) == 0,
+              f"{spec_s}: copies disagree after the scrub")
+    return out, counts
+
+
+# ----------------------------------------------------------------------------
+# 5. small-input reference: kernels vs plain versions end to end
+# ----------------------------------------------------------------------------
+
+def check_small_reference(torch, dev):
+    from repro_torch.configs import get_config
+    from repro_torch.core import tree
+    from repro_torch.faults import TransientBitFlips
+    from repro_torch.launch.engine import GenerationEngine, fetch_telemetry
+    from repro_torch.launch.serve import make_inputs
+    from repro_torch.models.steps import make_prefill_step
+    from repro_torch.reliability import parse_scheme
+
+    base = get_config("phi3-mini-3.8b").smoke().replace(
+        compute_dtype="float32")
+    inputs = make_inputs(base, batch=2, prompt_len=32, seed=SEED, device=dev)
+    outs = []
+    for impl, attn in (("kernel", "pallas"), ("torch", "naive")):
+        cfg = base.replace(attention_impl=attn)
+        eng = GenerationEngine(cfg, parse_scheme("ecc+tmr-parallel", impl),
+                               gen=8, vote_every=2, vote_cache=True,
+                               device=dev)
+        fault_gen = torch.Generator(device=dev).manual_seed(1)
+        store, prep = eng.prepare(inputs["params"], generator=fault_gen,
+                                  fault=TransientBitFlips(3e-6))
+        tok, tel = eng.generate(store, {"tokens": inputs["tokens"]})
+        _, logits, _ = make_prefill_step(cfg)(
+            tree.map_tree(lambda x: x[0], store), {"tokens": inputs["tokens"]})
+        outs.append((tok, fetch_telemetry({**prep, **tel}), logits))
+    (tk, sk, lk), (tp, sp, lp) = outs
+    check(torch.equal(tk, tp), "smoke: kernel path tokens != plain path")
+    check(sorted(sk) == sorted(sp) and all((sk[k] == sp[k]).all() for k in sk),
+          f"smoke: telemetry {sk} != {sp}")
+    err = (lk - lp).abs().max().item()
+    check(err <= 1e-4, f"smoke: logits differ by {err:.3g}")
+    log(f"small reference (phi3 smoke, fp32, ecc+tmr-parallel): kernel path "
+        f"== plain path, tokens and counters {sk}; logits max abs err "
+        f"{err:.3g}")
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,126 @@
+"""Fault models (port of `repro.faults.models`: `FaultModel`,
+`TransientBitFlips`, `word_mask` and `corrupt`).
+
+Sampling takes an explicit `torch.Generator`.  The reference draws a dense
+(n_words, 32) Bernoulli plane per leaf; at phi3-mini width the largest leaf
+(w_up, 1.6e9 words) would need 5e10 booleans, so `TransientBitFlips`
+samples sparsely instead: a binomial flip count per leaf, then that many
+distinct uniform bit positions, XORed in place.  That is the same
+distribution, not the same bits as the reference's threefry stream; the
+tests feed JAX's own masks through `word_mask`.
+
+Where the reference returns a corrupted copy, `corrupt` flips the bits of
+the given tree in place (its leaves are views of an arena) and returns it.
+A bf16 leaf keeps the reference's word view: a mask over its packed words,
+whose unused top half in an odd-length leaf is dropped.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any
+
+import torch
+
+from ..core import arena
+from ..core import tree as T
+
+__all__ = ["FaultModel", "TransientBitFlips", "flip_random_bits_"]
+
+
+def _p_interval(p: float, dt: float) -> float:
+    """Per-interval flip probability for a per-unit-time rate p over dt."""
+    if dt == 1.0 or p <= 0.0:
+        return p
+    if p >= 1.0:
+        return 1.0
+    return -math.expm1(dt * math.log1p(-p))
+
+
+def _bits_view(x: torch.Tensor) -> torch.Tensor:
+    """Flat integer view of a leaf's stored bits (int32 or, for bf16,
+    int16 half-words)."""
+    if not x.is_contiguous():
+        raise ValueError("corrupt: leaves must be contiguous views")
+    bits = torch.int16 if x.dtype == torch.bfloat16 else torch.int32
+    return x.view(bits).view(-1)
+
+
+def flip_random_bits_(bits: torch.Tensor, p: float,
+                      generator: torch.Generator) -> int:
+    """Flip each bit of the flat int16/int32 tensor `bits` independently
+    with probability p, in place: a Binomial(n_bits, p) count of distinct
+    uniform positions.  Draws on the generator's device.  Returns the flip
+    count (a host int; the count is read once per call)."""
+    width = bits.element_size() * 8
+    total = bits.numel() * width
+    if p <= 0.0 or total == 0:
+        return 0
+    dev = generator.device
+    k = int(torch.binomial(
+        torch.tensor(float(total), dtype=torch.float64, device=dev),
+        torch.tensor(min(p, 1.0), dtype=torch.float64, device=dev),
+        generator=generator).item())
+    if k == 0:
+        return 0
+    pos = torch.unique(torch.randint(0, total, (k,), generator=generator,
+                                     device=dev))
+    while pos.numel() < k:      # distinct positions: redraw duplicates
+        more = torch.randint(0, total, (k - pos.numel(),),
+                             generator=generator, device=dev)
+        pos = torch.unique(torch.cat([pos, more]))
+    pos = pos.to(bits.device)
+    elem, inverse = torch.unique(pos // width, return_inverse=True)
+    # distinct bits of one element: their sum is their OR
+    masks = torch.zeros(elem.numel(), dtype=torch.int64, device=bits.device)
+    masks.index_add_(0, inverse, torch.ones_like(pos) << (pos % width))
+    bits[elem] ^= masks.to(bits.dtype)
+    return k
+
+
+class FaultModel:
+    """Abstract error process over stored bits.  Subclasses are frozen
+    dataclasses; sampling draws from the caller's generator."""
+
+    def word_mask(self, generator: torch.Generator, words: torch.Tensor,
+                  dt: float = 1.0) -> torch.Tensor:
+        """int32 XOR mask over the packed words of one leaf."""
+        raise NotImplementedError
+
+    def corrupt_leaf_(self, x: torch.Tensor, generator: torch.Generator,
+                      dt: float = 1.0) -> None:
+        """Corrupt one leaf in place through `word_mask` over its words."""
+        bits = _bits_view(x)
+        mask = self.word_mask(generator, arena.leaf_to_words(x), dt)
+        mask = mask.to(bits.device)
+        if x.dtype == torch.bfloat16:    # word mask -> LSB-first halves
+            m = mask.to(torch.int64) & 0xFFFFFFFF
+            halves = torch.stack([m & 0xFFFF, m >> 16], -1).reshape(-1)
+            mask = halves[:bits.numel()].to(torch.int16)
+        bits ^= mask
+
+    def corrupt(self, params: Any, generator: torch.Generator,
+                dt: float = 1.0) -> Any:
+        """Corrupt every leaf of a tree in place (leaf order = the
+        reference's flatten order) and return the tree."""
+        for x in T.leaves(params):
+            self.corrupt_leaf_(x, generator, dt)
+        return params
+
+
+@dataclasses.dataclass(frozen=True)
+class TransientBitFlips(FaultModel):
+    """Indirect soft errors: each stored bit flips i.i.d. w.p. p_bit per
+    interval (read disturb / access corruption, paper §II-B)."""
+
+    p_bit: float = 0.0
+
+    def word_mask(self, generator, words, dt: float = 1.0):
+        mask = torch.zeros_like(words)
+        flip_random_bits_(mask.view(-1), _p_interval(self.p_bit, dt),
+                          generator)
+        return mask
+
+    def corrupt_leaf_(self, x, generator, dt: float = 1.0) -> None:
+        flip_random_bits_(_bits_view(x), _p_interval(self.p_bit, dt),
+                          generator)

@@ -1,0 +1,20 @@
+"""Hand-written Hopper kernels of the port.
+
+Each kernel package has
+  kernel.py -- the ctypes binding of the CUDA launch function
+               (sources under csrc/, built by _build.py for sm_90a);
+  ops.py    -- the public wrapper: checks device, dtype, shape and
+               contiguity, launches on the current stream, checks the
+               launch error and counts the launch; a CPU tensor takes the
+               plain version, a CUDA tensor launches the kernel or raises;
+  ref.py    -- the plain PyTorch version of the same function.
+
+Kernels (TPU kernel each replaces, in the JAX package):
+  diag_parity     -- encode + fused scrub (kernels/diag_parity/kernel.py)
+  tmr_vote        -- per-bit 2-of-3 majority (kernels/tmr_vote/kernel.py)
+  flash_attention -- online-softmax prefill attention
+                     (kernels/flash_attention/kernel.py)
+"""
+from ._build import build, launch_counts, reset_launch_counts
+
+__all__ = ["build", "launch_counts", "reset_launch_counts"]

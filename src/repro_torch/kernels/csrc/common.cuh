@@ -1,0 +1,38 @@
+// Shared helpers of the port's CUDA kernels (plain C interface, loaded
+// through ctypes; see kernels/_build.py).
+#pragma once
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+// Each library exports its own copy: they are loaded as separate objects.
+extern "C" const char* repro_error_string(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}
+
+static inline int repro_sm_count() {
+  int dev = 0, sms = 132;
+  if (cudaGetDevice(&dev) == cudaSuccess) {
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  }
+  return sms;
+}
+
+__device__ __forceinline__ uint32_t warp_xor_all(uint32_t v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v ^= __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+__device__ __forceinline__ float warp_max_all(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1)
+    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+
+__device__ __forceinline__ float warp_sum_all(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}

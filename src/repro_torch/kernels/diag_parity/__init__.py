@@ -1,0 +1,4 @@
+from .ops import encode_parity, scrub
+from .ref import encode_parity_ref, scrub_ref
+
+__all__ = ["encode_parity", "encode_parity_ref", "scrub", "scrub_ref"]

@@ -1,0 +1,171 @@
+"""Attention for the dense family (port of `repro.models.attention`):
+GQA self-attention with RoPE -- full-matrix (`naive_attention`), blocked
+online-softmax (`blocked_attention`, forward only) and the hand-written
+CUDA flash kernel (``attention_impl="pallas"``, the reference's name) --
+plus single-token decode against a KV cache."""
+from __future__ import annotations
+
+import torch
+
+from .config import ModelConfig
+from .nn import rms_norm, rope
+from .params import Spec
+
+__all__ = ["attn_specs", "attention", "self_attention",
+           "decode_self_attention", "blocked_attention", "naive_attention",
+           "NEG_INF"]
+
+NEG_INF = -1e30
+
+
+def _mask(q_start: int, k_start: int, nq: int, nk: int, causal: bool,
+          window: int, device) -> torch.Tensor:
+    qpos = q_start + torch.arange(nq, device=device)[:, None]
+    kpos = k_start + torch.arange(nk, device=device)[None, :]
+    mask = torch.ones((nq, nk), dtype=torch.bool, device=device)
+    if causal:
+        mask &= qpos >= kpos
+    if window:
+        mask &= kpos > qpos - window
+    return mask
+
+
+def naive_attention(q, k, v, *, causal=True, window=0, q_offset=0):
+    """Full score matrix.  q (B,Sq,H,hd); k,v (B,Sk,KV,hd)."""
+    B, Sq, H, hd = q.shape
+    KV = k.shape[2]
+    qg = q.reshape(B, Sq, KV, H // KV, hd).float()
+    scores = torch.einsum("bqkgd,bskd->bkgqs", qg, k.float()) / hd ** 0.5
+    mask = _mask(q_offset, 0, Sq, k.shape[1], causal, window, q.device)
+    scores = torch.where(mask, scores, NEG_INF)
+    p = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bkgqs,bskd->bqkgd", p, v.float())
+    return out.reshape(B, Sq, H, hd).to(q.dtype)
+
+
+def _fit(block: int, S: int) -> int:
+    block = min(block, S)
+    while S % block:
+        block //= 2
+    return max(block, 1)
+
+
+def blocked_attention(q, k, v, *, causal=True, window=0, q_offset=0,
+                      q_block=512, kv_block=1024):
+    """Online-softmax blocked attention (forward).  Block pairs with no
+    unmasked entry are skipped, so causal work stays ~triangular."""
+    B, Sq, H, hd = q.shape
+    Sk, KV = k.shape[1], k.shape[2]
+    G = H // KV
+    qb, kb = _fit(q_block, Sq), _fit(kv_block, Sk)
+    scale = 1.0 / hd ** 0.5
+    out = torch.empty_like(q)
+    for q0 in range(0, Sq, qb):
+        qi = q[:, q0:q0 + qb].float().reshape(B, qb, KV, G, hd) * scale
+        q_start = q_offset + q0
+        m = torch.full((B, KV, G, qb), NEG_INF, device=q.device)
+        l = torch.zeros((B, KV, G, qb), device=q.device)
+        acc = torch.zeros((B, KV, G, qb, hd), device=q.device)
+        for k0 in range(0, Sk, kb):
+            if causal and not k0 < q_start + qb:
+                continue
+            if window and not k0 + kb > q_start - window + 1:
+                continue
+            ki, vi = k[:, k0:k0 + kb].float(), v[:, k0:k0 + kb].float()
+            s = torch.einsum("bqkgd,bskd->bkgqs", qi, ki)
+            s = torch.where(_mask(q_start, k0, qb, kb, causal, window,
+                                  q.device), s, NEG_INF)
+            m_new = torch.maximum(m, s.amax(-1))
+            p = torch.exp(s - m_new[..., None])
+            corr = torch.exp(m - m_new)
+            l = l * corr + p.sum(-1)
+            acc = acc * corr[..., None] + torch.einsum("bkgqs,bskd->bkgqd",
+                                                       p, vi)
+            m = m_new
+        o = acc / torch.clamp(l, min=1e-30)[..., None]      # (B,KV,G,qb,hd)
+        out[:, q0:q0 + qb] = o.permute(0, 3, 1, 2, 4).reshape(
+            B, qb, H, hd).to(q.dtype)
+    return out
+
+
+def attention(q, k, v, cfg: ModelConfig, *, causal=True, window=0,
+              q_offset=0):
+    if cfg.attention_impl == "naive":
+        return naive_attention(q, k, v, causal=causal, window=window,
+                               q_offset=q_offset)
+    if cfg.attention_impl == "pallas":
+        from ..kernels.flash_attention import ops as fa_ops
+        return fa_ops.flash_attention(q, k, v, causal=causal, window=window,
+                                      q_offset=q_offset)
+    return blocked_attention(q, k, v, causal=causal, window=window,
+                             q_offset=q_offset, q_block=cfg.q_block,
+                             kv_block=cfg.kv_block)
+
+
+def attn_specs(cfg: ModelConfig) -> dict:
+    d, H, KV, hd = cfg.d_model, cfg.n_heads, cfg.n_kv, cfg.head_dim
+    specs = {
+        "ln": Spec((d,), ("model_dim",), "zeros"),
+        "wq": Spec((d, H * hd), ("model_dim", "heads"), "scaled"),
+        "wkv": Spec((d, 2 * KV * hd), ("model_dim", "kv_heads"), "scaled"),
+        "wo": Spec((H * hd, d), ("heads", "model_dim"), "scaled"),
+    }
+    if cfg.qkv_bias:
+        specs["bq"] = Spec((H * hd,), ("heads",), "zeros")
+        specs["bkv"] = Spec((2 * KV * hd,), ("kv_heads",), "zeros")
+    return specs
+
+
+def _project_qkv(p, cfg: ModelConfig, x, positions):
+    B, S, _ = x.shape
+    H, KV, hd = cfg.n_heads, cfg.n_kv, cfg.head_dim
+    dt = x.dtype
+    q = x @ p["wq"].to(dt)
+    kv = x @ p["wkv"].to(dt)
+    if cfg.qkv_bias:
+        q = q + p["bq"].to(dt)
+        kv = kv + p["bkv"].to(dt)
+    q = rope(q.reshape(B, S, H, hd), positions, cfg.rope_theta)
+    k = rope(kv[..., :KV * hd].reshape(B, S, KV, hd), positions,
+             cfg.rope_theta)
+    v = kv[..., KV * hd:].reshape(B, S, KV, hd)
+    return q, k, v
+
+
+def self_attention(p, cfg: ModelConfig, x, *, causal=True, window=0):
+    """Prefill self-attention (pre-norm, pre-residual); returns (output,
+    (k, v)) for the cache."""
+    h = rms_norm(x, p["ln"], cfg.norm_eps)
+    B, S, _ = h.shape
+    positions = torch.arange(S, device=x.device)[None, :]
+    q, k, v = _project_qkv(p, cfg, h, positions)
+    o = attention(q, k, v, cfg, causal=causal, window=window)
+    return o.reshape(B, S, -1) @ p["wo"].to(x.dtype), (k, v)
+
+
+def decode_self_attention(p, cfg: ModelConfig, x, cache_k, cache_v, pos, *,
+                          window=0):
+    """Single-token decode.  x: (B,1,D); cache_k/v: (B,S,KV,hd); pos: int32
+    0-d tensor, the number of tokens already cached (the slot to write).
+
+    The new k/v are written into the caches in place (the reference
+    returns updated copies); with a sliding window the cache is a ring
+    buffer.  Returns (output, cache_k, cache_v)."""
+    h = rms_norm(x, p["ln"], cfg.norm_eps)
+    B = h.shape[0]
+    H, KV, hd = cfg.n_heads, cfg.n_kv, cfg.head_dim
+    S = cache_k.shape[1]
+    q, k, v = _project_qkv(p, cfg, h, pos.reshape(1, 1))
+    slot = (pos % S if window else pos).reshape(1).long()
+    cache_k.index_copy_(1, slot, k.to(cache_k.dtype))
+    cache_v.index_copy_(1, slot, v.to(cache_v.dtype))
+    valid = torch.arange(S, device=x.device) <= pos
+    qg = q.reshape(B, 1, KV, H // KV, hd).float()
+    scores = torch.einsum("bqkgd,bskd->bkgqs", qg,
+                          cache_k.float()) / hd ** 0.5
+    scores = torch.where(valid, scores, NEG_INF)
+    e = torch.exp(scores - scores.amax(-1, keepdim=True))
+    probs = e / e.sum(-1, keepdim=True)
+    o = torch.einsum("bkgqs,bskd->bqkgd", probs, cache_v.float())
+    o = o.reshape(B, 1, H * hd).to(x.dtype)
+    return o @ p["wo"].to(x.dtype), cache_k, cache_v

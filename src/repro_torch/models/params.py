@@ -1,0 +1,92 @@
+"""Declarative parameter specs, materialized into an arena (port of
+`repro.models.params`: `Spec` and `materialize`, plus `from_numpy`).
+
+Parameters are a dict tree with the reference's keys and shapes (stacked
+``(n_layers, ...)`` layer leaves included) whose leaves are views of one
+packed int32 arena (`core.arena`), so protection acts on the weights the
+model reads.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Optional, Tuple
+
+import numpy as np
+import torch
+
+from ..core import arena
+from ..core import tree as T
+
+__all__ = ["Spec", "layout", "materialize", "from_numpy"]
+
+
+@dataclasses.dataclass(frozen=True)
+class Spec:
+    shape: Tuple[int, ...]
+    axes: Tuple[Optional[str], ...]       # logical axis names, len == ndim
+    init: str = "normal"                  # normal | zeros | ones | scaled
+    scale: float = 0.02
+    dtype: Optional[str] = None           # None -> caller's default dtype
+
+    def __post_init__(self):
+        if len(self.shape) != len(self.axes):
+            raise ValueError(f"shape {self.shape} vs axes {self.axes}")
+
+    def resolved_dtype(self, default) -> torch.dtype:
+        return arena.torch_dtype(self.dtype if self.dtype is not None
+                                 else default)
+
+
+@dataclasses.dataclass(frozen=True)
+class _Leaf:
+    shape: Tuple[int, ...]
+    dtype: torch.dtype
+
+
+def layout(tree: Any, dtype: Any = "float32") -> arena.ArenaSpec:
+    """The arena layout of a Spec tree (what `materialize` allocates),
+    without allocating."""
+    return arena.arena_spec(T.map_tree(
+        lambda s: _Leaf(s.shape, s.resolved_dtype(dtype)), tree))
+
+
+def materialize(tree: Any, generator: torch.Generator,
+                dtype: Any = "float32", device=None) -> Any:
+    """Parameters for a Spec tree, drawn in place into a fresh arena on
+    `device` (default: the generator's device).
+
+    Same distributions as the reference (normal(0, scale); "scaled" is
+    normal / sqrt(shape[0]), the reference's fan-in rule, which for stacked
+    layer leaves is the layer count), drawn from `generator`, one leaf
+    after another in flatten order."""
+    device = torch.device(device) if device is not None else generator.device
+    spec = layout(tree, dtype)
+    words = torch.zeros(spec.n_words, dtype=torch.int32, device=device)
+    params = arena.unpack(words, spec)
+    for x, s in zip(T.leaves(params), T.leaves(tree)):
+        if s.init == "zeros":
+            continue
+        if s.init == "ones":
+            x.fill_(1)
+        elif s.init == "scaled":
+            fan_in = s.shape[0] if len(s.shape) > 1 else max(s.shape[0], 1)
+            x.normal_(0.0, 1.0 / fan_in ** 0.5, generator=generator)
+        else:
+            x.normal_(0.0, s.scale, generator=generator)
+    return params
+
+
+def from_numpy(tree: Any, device="cpu") -> Any:
+    """The port's parameters for a tree of numpy arrays (e.g. the JAX
+    package's parameters through ``jax.tree.map(np.asarray, params)``),
+    copied bit for bit into a fresh arena on `device`."""
+    def leaf(a):
+        a = np.asarray(a)
+        dt = arena.torch_dtype(a.dtype)
+        if dt == torch.bfloat16:   # numpy has no bf16: move the raw bits
+            return torch.from_numpy(a.view(np.int16).copy()).view(
+                torch.bfloat16)
+        return torch.from_numpy(a.copy())
+    words, spec = arena.pack(T.map_tree(leaf, tree))
+    return arena.unpack(words.to(device), spec)
+

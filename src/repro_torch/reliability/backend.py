@@ -1,0 +1,91 @@
+"""One registry for the port's dispatchable ops (port of
+`repro.reliability.backend`).
+
+    op           implementations (default first)
+    -----------  -------------------------------
+    diag_parity  kernel | torch   encode/scrub the packed ECC arena
+    tmr_vote     kernel | torch   per-bit 2-of-3 majority
+
+``kernel`` is the op's public wrapper: on a CUDA tensor it launches the
+Hopper kernel (or raises), on a CPU tensor it runs the plain version.
+``torch`` runs the plain version on any device.  Resolution order: the
+per-call ``impl=``, then the default.  Implementations load lazily and
+are cached.
+"""
+from __future__ import annotations
+
+from types import SimpleNamespace
+from typing import Callable, Dict, Optional, Tuple
+
+__all__ = ["register", "ops", "implementations", "resolve", "dispatch"]
+
+_LOADERS: Dict[str, Dict[str, Callable[[], object]]] = {}
+_DEFAULTS: Dict[str, str] = {}
+_CACHE: Dict[Tuple[str, str], object] = {}
+
+
+def register(op: str, impl: str, loader: Callable[[], object],
+             default: bool = False) -> None:
+    """Register implementation `impl` of `op` behind a zero-arg loader."""
+    _LOADERS.setdefault(op, {})[impl] = loader
+    if default or op not in _DEFAULTS:
+        _DEFAULTS[op] = impl
+
+
+def ops() -> Tuple[str, ...]:
+    return tuple(sorted(_LOADERS))
+
+
+def implementations(op: str) -> Tuple[str, ...]:
+    if op not in _LOADERS:
+        raise KeyError(f"unknown op {op!r} (registered: {ops()})")
+    return tuple(_LOADERS[op])
+
+
+def resolve(op: str, impl: Optional[str] = None) -> str:
+    avail = implementations(op)
+    if impl is None:
+        impl = _DEFAULTS[op]
+    if impl not in avail:
+        raise ValueError(f"unknown implementation {impl!r} for op {op!r} "
+                         f"(available: {avail})")
+    return impl
+
+
+def dispatch(op: str, impl: Optional[str] = None):
+    """Resolve and load the implementation of `op` (cached)."""
+    name = resolve(op, impl)
+    if (op, name) not in _CACHE:
+        _CACHE[(op, name)] = _LOADERS[op][name]()
+    return _CACHE[(op, name)]
+
+
+def _load_diag_parity_kernel():
+    from ..kernels.diag_parity import encode_parity, scrub
+    return SimpleNamespace(encode=encode_parity, scrub=scrub)
+
+
+def _load_diag_parity_torch():
+    from ..kernels.diag_parity.ref import encode_parity_ref, scrub_ref
+    return SimpleNamespace(encode=encode_parity_ref, scrub=scrub_ref)
+
+
+def _load_tmr_vote_kernel():
+    from ..kernels.tmr_vote import vote
+    return vote
+
+
+def _load_tmr_vote_torch():
+    from ..kernels.tmr_vote.ref import vote_ref
+
+    def vote(a, b, c, out=None):
+        voted = vote_ref(a, b, c)
+        return voted if out is None else out.copy_(voted)
+
+    return vote
+
+
+register("diag_parity", "kernel", _load_diag_parity_kernel, default=True)
+register("diag_parity", "torch", _load_diag_parity_torch)
+register("tmr_vote", "kernel", _load_tmr_vote_kernel, default=True)
+register("tmr_vote", "torch", _load_tmr_vote_torch)

@@ -1,0 +1,435 @@
+"""Composable protection schemes (port of `repro.reliability.scheme`,
+without the Hsiao code, the mesh and the cost-model hooks).
+
+    scheme = parse_scheme("ecc+tmr-serial")
+    prot   = scheme.protect(params)           # Protected store
+    prot   = scheme.corrupt_store(prot, fault, generator)
+    prot, report = scheme.scrub(prot)         # verify/correct redundancy
+    params = scheme.read(prot)                # decode/vote the payload
+
+Every `Protected` owns an arena (`core.arena`): `protect` copies the
+payload into a fresh one -- (n_words,) for the single-copy schemes,
+(3, n_words) for the TMR copies -- and the payload and copies are views
+of it.  Where the reference returns new stores, `corrupt_store` and
+`scrub` update that arena in place and return the same `Protected`, so a
+full-width store is never held twice.  Bits and counters match the
+reference's on the same inputs.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Optional, Tuple
+
+import torch
+
+from ..core import arena
+from ..core import tree as T
+from ..core.reliability import ScrubReport
+from . import backend
+
+__all__ = ["CostReport", "Protected", "Scheme", "Unprotected", "ArenaEcc",
+           "DiagParityEcc", "Tmr", "Compose", "parse_scheme",
+           "standard_grid", "register_scheme",
+           "scheme_choices", "scheme_help", "TMR_COSTS"]
+
+
+@dataclasses.dataclass(frozen=True)
+class CostReport:
+    """Protection overheads relative to the unprotected baseline."""
+    storage_x: float = 1.0
+    latency_x: float = 1.0
+    area_x: float = 1.0
+    throughput_x: float = 1.0
+
+    def describe(self) -> str:
+        return (f"storage={self.storage_x:.3f}x latency={self.latency_x:.2f}x "
+                f"area={self.area_x:.0f}x throughput={self.throughput_x:.2f}x")
+
+
+#: paper §V trade-off surface, relative to the unreliable baseline
+TMR_COSTS = {
+    "serial": CostReport(latency_x=3.0, area_x=1.0, throughput_x=1.0),
+    "parallel": CostReport(latency_x=1.0, area_x=3.0, throughput_x=1.0),
+    "semi_parallel": CostReport(latency_x=1.0, area_x=1.0,
+                                throughput_x=1.0 / 3.0),
+}
+
+
+class Protected:
+    """A protected payload: views into `words`, plus scheme redundancy."""
+
+    def __init__(self, payload: Any, redundancy: Any, scheme: "Scheme",
+                 words: torch.Tensor, spec: arena.ArenaSpec):
+        self.payload = payload
+        self.redundancy = redundancy
+        self.scheme = scheme
+        self.words = words      # (n_words,) or (3, n_words) int32 arena
+        self.spec = spec
+
+    def __repr__(self) -> str:
+        return f"Protected(scheme={self.scheme.name})"
+
+
+def _zero_report(device) -> ScrubReport:
+    z = torch.zeros((), dtype=torch.int32, device=device)
+    return ScrubReport(corrected=z, parity_fixed=z, uncorrectable=z)
+
+
+def _vote_counts(a: Any, b: Any, c: Any) -> Tuple[torch.Tensor,
+                                                  torch.Tensor]:
+    """(corrected, uncorrectable) word counts of a 3-copy vote: words where
+    a majority exists and some copy differs, and words where all three
+    copies pairwise differ (the reference's convention)."""
+    corrected = conflicts = None
+    for x, y, z in zip(T.leaves(a), T.leaves(b), T.leaves(c)):
+        xw, yw, zw = (arena.leaf_to_words(v) for v in (x, y, z))
+        d01, d02, d12 = xw != yw, xw != zw, yw != zw
+        conflict = d01 & d02 & d12
+        n_corr = ((d01 | d02 | d12) & ~conflict).sum(dtype=torch.int32)
+        n_conf = conflict.sum(dtype=torch.int32)
+        corrected = n_corr if corrected is None else corrected + n_corr
+        conflicts = n_conf if conflicts is None else conflicts + n_conf
+    return corrected, conflicts
+
+
+def _copies(words: torch.Tensor, n: int = 3) -> torch.Tensor:
+    """(n, n_words) arena holding n copies of `words`."""
+    out = torch.empty((n,) + tuple(words.shape), dtype=words.dtype,
+                      device=words.device)
+    for i in range(n):
+        out[i].copy_(words)
+    return out
+
+
+class Scheme:
+    """Protection-scheme protocol.  Subclasses are frozen dataclasses."""
+
+    @property
+    def name(self) -> str:
+        raise NotImplementedError
+
+    def protect(self, payload: Any) -> Protected:
+        raise NotImplementedError
+
+    def scrub(self, prot: Protected) -> Tuple[Protected, ScrubReport]:
+        raise NotImplementedError
+
+    def read(self, prot: Protected) -> Any:
+        return prot.payload
+
+    def corrupt_store(self, prot: Protected, model, generator: torch.Generator,
+                      dt: float = 1.0) -> Protected:
+        """Inject storage faults into every held data copy (payload first,
+        then TMR copies), in place; parity tables are left untouched."""
+        model.corrupt(prot.payload, generator, dt)
+        return prot
+
+    def overhead(self) -> CostReport:
+        raise NotImplementedError
+
+
+@dataclasses.dataclass(frozen=True)
+class Unprotected(Scheme):
+    """No redundancy -- the baseline every CostReport is relative to."""
+
+    @property
+    def name(self) -> str:
+        return "unprotected"
+
+    def protect(self, payload: Any) -> Protected:
+        words, spec = arena.pack(payload)
+        return Protected(arena.unpack(words, spec), None, self, words, spec)
+
+    def scrub(self, prot: Protected) -> Tuple[Protected, ScrubReport]:
+        return prot, _zero_report(prot.words.device)
+
+    def overhead(self) -> CostReport:
+        return CostReport()
+
+
+class ArenaEcc(Scheme):
+    """Shared machinery of packed-arena word codes; subclasses supply
+    `_encode` and `_scrub`."""
+
+    code_name = "ecc"
+
+    @property
+    def name(self) -> str:
+        return self.code_name + ("-wb" if self.write_back else "")
+
+    def _encode(self, buf: torch.Tensor) -> torch.Tensor:
+        raise NotImplementedError
+
+    def _scrub(self, buf: torch.Tensor, parity: torch.Tensor,
+               out_parity: Optional[torch.Tensor] = None):
+        raise NotImplementedError
+
+    def protect(self, payload: Any) -> Protected:
+        words, spec = arena.pack(payload)
+        return Protected(arena.unpack(words, spec), self._encode(words), self,
+                         words, spec)
+
+    def scrub(self, prot: Protected) -> Tuple[Protected, ScrubReport]:
+        _, _, counts = self._scrub(prot.words, prot.redundancy)
+        return prot, ScrubReport(corrected=counts[0], parity_fixed=counts[1],
+                                 uncorrectable=counts[2])
+
+    def encode_arena(self, buf: torch.Tensor) -> torch.Tensor:
+        """Parity table of a packed int32 arena."""
+        return self._encode(buf)
+
+    def scrub_arena(self, buf: torch.Tensor, parity: torch.Tensor):
+        """Fused scrub of a packed arena, in place: (buf, parity, counts (3,)
+        int32 corrected / parity_fixed / uncorrectable)."""
+        return self._scrub(buf, parity)
+
+    def scrub_copies(self, words: torch.Tensor, parity: torch.Tensor,
+                     keep_parity: bool = True):
+        """Scrub C same-layout copies, a contiguous (C, n_words) arena, in
+        ONE launch and in place (the reference concatenates the copies).
+
+        parity: (C, n_blocks, F) per-copy tables, corrected in place; or
+        one shared (n_blocks, F) table of the clean arena, which every copy
+        reads (block b of the stacked buffer reads row b mod n_blocks) --
+        then the per-copy corrected tables are written to a new
+        (C, n_blocks, F) tensor, or dropped when `keep_parity` is False.
+        Returns (words, per-copy parity or None, counts (3,) int32 summed
+        over the copies)."""
+        C = words.shape[0]
+        flat = words.view(-1)
+        if parity.ndim == 3:
+            _, par, counts = self._scrub(flat, parity.view(-1,
+                                                           parity.shape[-1]))
+            return words, par.view(parity.shape), counts
+        out = None
+        if keep_parity:
+            out = torch.empty((C * parity.shape[0], parity.shape[1]),
+                              dtype=parity.dtype, device=parity.device)
+        _, par, counts = self._scrub(flat, parity, out)
+        return words, (par.view(C, *parity.shape) if keep_parity else None), \
+            counts
+
+
+@dataclasses.dataclass(frozen=True)
+class DiagParityEcc(ArenaEcc):
+    """Diagonal-parity word ECC over the packed arena (paper §IV): corrects
+    one flipped bit per 32-word block at 3 parity words of storage.
+    `write_back` only renames the scheme (``ecc-wb``) here: it acts in the
+    reference's server batcher, which this package does not have yet."""
+
+    slopes: Tuple[int, ...] = (1, 2, -1)
+    impl: Optional[str] = None
+    write_back: bool = False
+
+    code_name = "ecc"
+
+    def _op(self):
+        return backend.dispatch("diag_parity", self.impl)
+
+    def _encode(self, buf):
+        return self._op().encode(buf, slopes=self.slopes)
+
+    def _scrub(self, buf, parity, out_parity=None):
+        return self._op().scrub(buf, parity, slopes=self.slopes,
+                                out_parity=out_parity)
+
+    def overhead(self) -> CostReport:
+        return CostReport(storage_x=1.0 + len(self.slopes) / arena.BLOCK,
+                          latency_x=1.26)
+
+
+@dataclasses.dataclass(frozen=True)
+class Tmr(Scheme):
+    """Triple modular redundancy with per-bit voting (paper §V), in the
+    serial, parallel or semi_parallel discipline (same voted bits)."""
+
+    discipline: str = "serial"
+    impl: Optional[str] = None
+
+    def __post_init__(self):
+        if self.discipline not in TMR_COSTS:
+            raise ValueError(f"discipline must be one of {sorted(TMR_COSTS)}")
+
+    @property
+    def name(self) -> str:
+        return f"tmr-{self.discipline.replace('_', '-')}"
+
+    def _vote(self):
+        return backend.dispatch("tmr_vote", self.impl)
+
+    def protect(self, payload: Any) -> Protected:
+        words, spec = arena.pack(payload)
+        words3 = _copies(words)
+        return Protected(arena.unpack(words3[0], spec),
+                         (arena.unpack(words3[1], spec),
+                          arena.unpack(words3[2], spec)),
+                         self, words3, spec)
+
+    def read(self, prot: Protected) -> Any:
+        w = prot.words
+        return arena.unpack(self._vote()(w[0], w[1], w[2]), prot.spec)
+
+    def scrub(self, prot: Protected) -> Tuple[Protected, ScrubReport]:
+        c1, c2 = prot.redundancy
+        corrected, conflicts = _vote_counts(prot.payload, c1, c2)
+        w = prot.words
+        w[:] = self._vote()(w[0], w[1], w[2])       # every copy := the vote
+        report = ScrubReport(corrected=corrected,
+                             parity_fixed=torch.zeros_like(corrected),
+                             uncorrectable=conflicts)
+        return prot, report
+
+    def corrupt_store(self, prot, model, generator, dt: float = 1.0):
+        c1, c2 = prot.redundancy
+        for copy in (prot.payload, c1, c2):
+            model.corrupt(copy, generator, dt)
+        return prot
+
+    def overhead(self) -> CostReport:
+        c = TMR_COSTS[self.discipline]
+        return dataclasses.replace(c, storage_x=3.0)
+
+
+@dataclasses.dataclass(frozen=True)
+class Compose(Scheme):
+    """A per-copy arena word code under TMR voting (paper §VI): scrub every
+    copy with the code in one fused launch, then vote per bit across the
+    scrubbed copies.  The report sums the per-copy corrected/parity_fixed
+    counts plus the voted word repairs; `uncorrectable` counts words still
+    three-way-disagreeing after the per-copy scrub."""
+
+    ecc: ArenaEcc = DiagParityEcc()
+    tmr: Tmr = Tmr()
+
+    @property
+    def name(self) -> str:
+        return f"{self.ecc.name}+{self.tmr.name}"
+
+    def protect(self, payload: Any) -> Protected:
+        words, spec = arena.pack(payload)
+        parity3 = _copies(self.ecc._encode(words))
+        words3 = _copies(words)
+        # redundancy: ((copy 1, copy 2), (3, n_blocks, F) per-copy parity,
+        # which unpacks like the reference's (p0, p1, p2) tuple)
+        return Protected(arena.unpack(words3[0], spec),
+                         ((arena.unpack(words3[1], spec),
+                           arena.unpack(words3[2], spec)), parity3),
+                         self, words3, spec)
+
+    def read(self, prot: Protected) -> Any:
+        w = prot.words
+        return arena.unpack(self.tmr._vote()(w[0], w[1], w[2]), prot.spec)
+
+    def scrub(self, prot: Protected) -> Tuple[Protected, ScrubReport]:
+        w, parity3 = prot.words, prot.redundancy[1]
+        _, _, counts = self.ecc.scrub_copies(w, parity3)
+        d01, d02, d12 = w[0] != w[1], w[0] != w[2], w[1] != w[2]
+        conflict = d01 & d02 & d12
+        report = ScrubReport(
+            corrected=counts[0]
+            + ((d01 | d02 | d12) & ~conflict).sum(dtype=torch.int32),
+            parity_fixed=counts[1],
+            uncorrectable=conflict.sum(dtype=torch.int32))
+        w[:] = self.tmr._vote()(w[0], w[1], w[2])   # every copy := the vote
+        parity3[:] = self.ecc._encode(w[0])
+        return prot, report
+
+    def corrupt_store(self, prot, model, generator, dt: float = 1.0):
+        (c1, c2), _ = prot.redundancy
+        for copy in (prot.payload, c1, c2):
+            model.corrupt(copy, generator, dt)
+        return prot
+
+    def overhead(self) -> CostReport:
+        e, t = self.ecc.overhead(), self.tmr.overhead()
+        return CostReport(storage_x=e.storage_x * t.storage_x,
+                          latency_x=e.latency_x * t.latency_x,
+                          area_x=e.area_x * t.area_x,
+                          throughput_x=e.throughput_x * t.throughput_x)
+
+
+# --------------------------------------------------------------------------
+# scheme registry + spec strings (serve --scheme)
+# --------------------------------------------------------------------------
+
+_SCHEME_FACTORIES: "dict[str, Tuple[Any, str]]" = {}
+_SCHEME_ALIASES: "dict[str, str]" = {}
+
+
+def register_scheme(token: str, factory, help: str = "",
+                    aliases: Tuple[str, ...] = ()) -> None:
+    """Register `factory(impl) -> Scheme` under spec token `token`."""
+    _SCHEME_FACTORIES[token] = (factory, help)
+    for a in aliases:
+        _SCHEME_ALIASES[a] = token
+
+
+def scheme_choices() -> Tuple[str, ...]:
+    return tuple(_SCHEME_FACTORIES) + ("ecc+tmr",)
+
+
+def scheme_help() -> str:
+    lines = [f"{tok}: {hlp}" for tok, (_, hlp) in _SCHEME_FACTORIES.items()]
+    lines.append("ecc+tmr[-<discipline>]: per-copy diagonal parity under "
+                 "TMR voting (e.g. ecc+tmr-parallel)")
+    return "; ".join(lines)
+
+
+register_scheme("off", lambda impl: Unprotected(),
+                "no redundancy (baseline)", aliases=("none", "unprotected"))
+register_scheme("ecc", lambda impl: DiagParityEcc(impl=impl),
+                "diagonal-parity word code, 1 correction per 32-word block,"
+                " +3/32 storage")
+register_scheme("ecc-wb", lambda impl: DiagParityEcc(impl=impl,
+                                                     write_back=True),
+                "diagonal parity with write-back-on-read serving (the flag"
+                " acts only in the server, not ported yet: serves as ecc)")
+
+_TMR_ALIASES = {"serial": "serial", "parallel": "parallel",
+                "semi": "semi_parallel", "semi-parallel": "semi_parallel",
+                "semi_parallel": "semi_parallel"}
+
+for _disc, _canon in (("serial", "serial"), ("parallel", "parallel"),
+                      ("semi", "semi_parallel")):
+    register_scheme(
+        f"tmr-{_disc}",
+        lambda impl, d=_canon: Tmr(discipline=d, impl=impl),
+        f"triple modular redundancy, {_canon.replace('_', '-')} discipline")
+
+def _parse_one(token: str, impl: Optional[str]) -> Scheme:
+    token = token.strip().lower()
+    token = _SCHEME_ALIASES.get(token, token)
+    if token in _SCHEME_FACTORIES:
+        return _SCHEME_FACTORIES[token][0](impl)
+    if token == "tmr" or token.startswith("tmr-"):
+        disc = _TMR_ALIASES.get(token[4:] or "serial")
+        if disc is None:
+            raise ValueError(f"unknown TMR discipline {token[4:]!r} "
+                             f"(expected one of {sorted(_TMR_ALIASES)})")
+        return Tmr(discipline=disc, impl=impl)
+    raise ValueError(f"unknown scheme {token!r} "
+                     f"(expected one of {scheme_choices()})")
+
+
+def standard_grid(impl: Optional[str] = None) -> Tuple[Scheme, ...]:
+    """The canonical sweep grid (every ported scheme family, all TMR
+    disciplines); the reference's Hsiao variants are not ported yet."""
+    return (Unprotected(), DiagParityEcc(impl=impl),
+            Tmr("serial", impl=impl), Tmr("parallel", impl=impl),
+            Tmr("semi_parallel", impl=impl),
+            Compose(DiagParityEcc(impl=impl), Tmr("serial", impl=impl)))
+
+
+def parse_scheme(spec: str, impl: Optional[str] = None) -> Scheme:
+    """Parse ``off | ecc | ecc-wb | tmr-<discipline>`` or a composition
+    ``ecc+tmr[-<discipline>]`` (discipline serial | parallel | semi)."""
+    parts = [_parse_one(t, impl) for t in spec.split("+")]
+    if len(parts) == 1:
+        return parts[0]
+    if len(parts) == 2:
+        eccs = [p for p in parts if isinstance(p, ArenaEcc)]
+        tmrs = [p for p in parts if isinstance(p, Tmr)]
+        if len(eccs) == 1 and len(tmrs) == 1:
+            return Compose(ecc=eccs[0], tmr=tmrs[0])
+    raise ValueError(f"cannot compose scheme spec {spec!r} "
+                     "(expected ecc+tmr[-<discipline>])")

@@ -1,0 +1,136 @@
+"""Diagonal-parity encode and scrub: the port's plain versions
+(repro_torch.kernels.diag_parity, which a CPU tensor takes) against the
+JAX package's `encode_parity` (Pallas, interpret mode) and `scrub_ref`,
+bit for bit -- words, parity and counts -- under 0, 1 and 2 data flips and
+parity-word flips; plus the CUDA kernel against the plain version on the
+card (skipped without one)."""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.kernels import diag_parity as D
+
+try:    # without JAX (as on a GPU machine) only the kernel cases run
+    import jax.numpy as jnp
+    from repro.kernels.diag_parity import encode_parity as j_encode
+    from repro.kernels.diag_parity import scrub_ref as j_scrub
+except ImportError:
+    jnp = None
+
+BLOCK = 32
+
+
+def _words(n_blocks, seed):
+    rs = np.random.RandomState(seed)
+    return rs.randint(0, 2**32, size=n_blocks * BLOCK,
+                      dtype=np.uint64).astype(np.uint32)
+
+
+def _to_t(u32: np.ndarray) -> torch.Tensor:
+    return torch.from_numpy(u32.view(np.int32).copy())
+
+
+def _flip(u32: np.ndarray, idx: int, bit: int) -> None:
+    u32[idx] ^= np.uint32(1 << bit)
+
+
+@pytest.mark.parametrize("n_blocks", [1, 7, 64])
+@pytest.mark.parametrize("slopes", [(1, 2, -1), (1, 2), (1, 2, -1, 3)])
+def test_encode_matches_jax(n_blocks, slopes):
+    w = _words(n_blocks, n_blocks)
+    want = np.asarray(j_encode(jnp.asarray(w), slopes=slopes))
+    got = D.encode_parity(_to_t(w), slopes)
+    np.testing.assert_array_equal(got.numpy(), want.view(np.int32))
+
+
+def _case(kind, seed):
+    """(clean words, corrupted words, corrupted parity) for one case."""
+    rs = np.random.RandomState(seed)
+    n = 9
+    w = _words(n, seed)
+    p = D.encode_parity_ref(_to_t(w)).numpy().view(np.uint32).copy()
+    bad = w.copy()
+    if kind == "one_data_flip":
+        for b in (0, 4, 8):
+            _flip(bad, b * BLOCK + rs.randint(BLOCK), rs.randint(32))
+    elif kind == "two_data_flips":
+        _flip(bad, 2 * BLOCK + 3, 5)
+        _flip(bad, 2 * BLOCK + 17, 30)
+        _flip(bad, 5 * BLOCK + 1, 0)             # plus a correctable block
+    elif kind == "parity_word_flip":
+        p[1, 0] ^= np.uint32(1 << 7)
+        p[3, 2] ^= np.uint32(1 << 31)
+        p[6, 1] ^= np.uint32(3)                  # two bits: uncorrectable
+    elif kind == "mixed":
+        for _ in range(12):
+            _flip(bad, rs.randint(n * BLOCK), rs.randint(32))
+        p[rs.randint(n), rs.randint(3)] ^= np.uint32(1 << rs.randint(32))
+    return w, bad, p
+
+
+KINDS = ["clean", "one_data_flip", "two_data_flips", "parity_word_flip",
+         "mixed"]
+
+
+@pytest.mark.parametrize("kind", KINDS)
+def test_scrub_matches_jax(kind):
+    _, bad, p = _case(kind, KINDS.index(kind))
+    want_w, want_p, want_c = (np.asarray(x) for x in
+                              j_scrub(jnp.asarray(bad), jnp.asarray(p)))
+    buf, par = _to_t(bad), _to_t(p)
+    out, out_p, counts = D.scrub(buf, par)
+    assert out is buf and out_p is par                    # in place
+    np.testing.assert_array_equal(buf.numpy(), want_w.view(np.int32))
+    np.testing.assert_array_equal(par.numpy(), want_p.view(np.int32))
+    np.testing.assert_array_equal(counts.numpy(), want_c)
+    if kind != "clean":
+        assert counts.sum().item() > 0
+
+
+def test_scrub_of_stacked_copies_with_shared_parity():
+    """Three copies in one buffer against one clean table (row b mod n):
+    the same words, per-copy parity and summed counts as the reference's
+    scrub of the concatenated copies and tables."""
+    w, _, p = _case("clean", 11)
+    copies = [w.copy() for _ in range(3)]
+    _flip(copies[0], 3, 4)
+    _flip(copies[1], 2 * BLOCK + 1, 31)
+    _flip(copies[1], 2 * BLOCK + 9, 2)           # uncorrectable in copy 1
+    _flip(copies[2], 8 * BLOCK + 31, 17)
+    want_w, want_p, want_c = (np.asarray(x) for x in j_scrub(
+        jnp.asarray(np.concatenate(copies)),
+        jnp.asarray(np.concatenate([p] * 3))))
+    buf = _to_t(np.concatenate(copies))
+    out_p = torch.empty((3 * p.shape[0], 3), dtype=torch.int32)
+    _, got_p, counts = D.scrub(buf, _to_t(p), out_parity=out_p)
+    np.testing.assert_array_equal(buf.numpy(), want_w.view(np.int32))
+    np.testing.assert_array_equal(got_p.numpy(), want_p.view(np.int32))
+    np.testing.assert_array_equal(counts.numpy(), want_c)
+    # parity corrections may also be dropped: same words and counts
+    buf2 = _to_t(np.concatenate(copies))
+    _, none_p, counts2 = D.scrub(buf2, _to_t(p))
+    assert none_p is None and torch.equal(buf2, buf)
+    assert torch.equal(counts2, counts)
+
+
+def _cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the CUDA kernel has no CPU mode")
+    return torch.device("cuda")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", KINDS)
+def test_kernel_matches_plain_on_card(kind):
+    dev = _cuda()
+    _, bad, p = _case(kind, KINDS.index(kind))
+    want_w, want_p, want_c = D.scrub_ref(_to_t(bad), _to_t(p))
+    par_t = _to_t(p).to(dev)
+    assert torch.equal(D.encode_parity(_to_t(bad).to(dev)).cpu(),
+                       D.encode_parity_ref(_to_t(bad)))
+    buf = _to_t(bad).to(dev)
+    _, got_p, counts = D.scrub(buf, par_t)
+    torch.cuda.synchronize()
+    assert torch.equal(buf.cpu(), want_w)
+    assert torch.equal(got_p.cpu(), want_p)
+    assert torch.equal(counts.cpu(), want_c)

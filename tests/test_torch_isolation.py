@@ -1,0 +1,84 @@
+"""The port stands alone: `repro_torch` and `chip_smoke.py` import without
+JAX or the JAX package, and its entry points refuse to fall back to the
+CPU when no GPU is present and the caller did not ask for the CPU."""
+import os
+import subprocess
+import sys
+import textwrap
+
+ROOT = os.path.join(os.path.dirname(__file__), "..")
+
+BLOCKED = textwrap.dedent("""
+    import importlib, pkgutil, sys
+    for name in ("jax", "jaxlib", "repro"):
+        sys.modules[name] = None          # any import of them now fails
+    sys.path.insert(0, {src!r})
+    sys.path.insert(0, {root!r})
+    import repro_torch
+    mods = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
+                                                  "repro_torch.")]
+    for m in mods:
+        importlib.import_module(m)
+    import chip_smoke                     # imported, not run
+    leaked = [m for m in sys.modules
+              if m.split(".")[0] in ("jax", "jaxlib", "repro")
+              and sys.modules[m] is not None]
+    assert not leaked, leaked
+    print(len(mods), "modules")
+""")
+
+NO_GPU = textwrap.dedent("""
+    import sys
+    sys.path.insert(0, {src!r})
+    import torch
+    torch.cuda.is_available = lambda: False     # a machine with no GPU
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    from repro_torch.launch.engine import GenerationEngine
+    cfg = get_config("phi3-mini-3.8b").smoke()
+    for call in (lambda: GenerationEngine(cfg, gen=1),
+                 lambda: GenerationEngine(cfg, gen=1, device="cuda"),
+                 lambda: serve.main(["--smoke", "--gen", "1"])):
+        try:
+            call()
+        except RuntimeError as e:
+            assert "no CUDA device" in str(e), e
+        else:
+            raise AssertionError("ran without a GPU")
+    GenerationEngine(cfg, gen=1, device="cpu")        # asked for: fine
+    print("ok")
+""")
+
+
+def _run(code: str) -> str:
+    src = os.path.abspath(os.path.join(ROOT, "src"))
+    out = subprocess.run(
+        [sys.executable, "-c", code.format(src=src,
+                                           root=os.path.abspath(ROOT))],
+        capture_output=True, text=True, timeout=300,
+        env={k: v for k, v in os.environ.items() if k != "PYTHONPATH"})
+    assert out.returncode == 0, out.stdout + out.stderr
+    return out.stdout
+
+
+def test_port_imports_without_jax():
+    assert "modules" in _run(BLOCKED)
+
+
+def test_entry_points_raise_without_gpu():
+    assert "ok" in _run(NO_GPU)
+
+
+def test_sources_name_no_jax_import():
+    roots = [os.path.join(ROOT, "src", "repro_torch")]
+    files = [os.path.join(d, f) for r in roots for d, _, fs in os.walk(r)
+             for f in fs if f.endswith(".py")]
+    files.append(os.path.join(ROOT, "chip_smoke.py"))
+    for path in files:
+        with open(path) as fh:
+            for line in fh:
+                s = line.strip()
+                assert not s.startswith(("import jax", "from jax",
+                                         "import repro.", "from repro.",
+                                         "from repro import",
+                                         "import repro\n")), (path, s)
