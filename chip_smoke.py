@@ -21,7 +21,20 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      grow on the protected run, ecc_corrected > 0, ecc_uncorrectable == 0,
      every scrubbed copy equals the clean arena bit for bit and the tokens
      equal the clean run's;
-  5. a small-input reference: the phi3 smoke config in float32 through the
+  5. the server path: `python -m repro_torch.launch.serve --server` at
+     full width and depth (slots 4, page_tokens 16, chunk 8, prompt bucket
+     256, gen_cap 32, 8 requests of `poisson_trace(seed=0)` at 2 rps, paced
+     in real time, after the reference's warmup) under `off`, `ecc` with
+     the pool exposed through `PagedKVPool.inject_scrub` every tick,
+     `hsiao-wb` with the pool corrupted every tick and scrubbed every 4
+     ticks, and `hsiao+tmr-parallel`, weights at p_bit 1e-9.  Every
+     request's tokens must equal the `off` run's, corrections > 0 (read
+     corrections under `hsiao-wb`), uncorrectable 0, vote disagreements 0;
+     and a request joining a live `hsiao-wb` batch must equal the same
+     request served alone (tokens and counters).  Before it, the Hsiao
+     encode and scrub over the full arena and the fused inject+scrub over
+     the full-width server pool, each against its plain version;
+  6. a small-input reference: the phi3 smoke config in float32 through the
      kernels and through the plain versions must give the same tokens and
      counters and logits within 1e-4.
 
@@ -35,6 +48,8 @@ import subprocess
 import sys
 import time
 from pathlib import Path
+
+import numpy as np
 
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
@@ -94,16 +109,29 @@ def main() -> int:
     # 3. kernels against their plain versions
     rows = {}
     rows.update(check_diag_parity(torch, dev))
+    rows.update(check_hsiao(torch, dev))
+    rows.update(check_inject_scrub(torch, dev))
     rows.update(check_vote(torch, dev))
     rows.update(check_flash(torch, dev))
 
-    # 4. the main path
-    launches = run_main_path(torch, dev)
+    # 4. the one-shot serve path, 5. the server path: each kernel's
+    # launches are counted on the runs of these paths only
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import make_inputs
+    cfg = get_config("phi3-mini-3.8b").replace(attention_impl="pallas")
+    t0 = time.perf_counter()
+    inputs = make_inputs(cfg, batch=4, prompt_len=256, seed=SEED, device=dev)
+    torch.cuda.synchronize()
+    log(f"{cfg.name}: random init in {time.perf_counter() - t0:.1f}s")
+    launches = run_main_path(torch, cfg, inputs)
+    server = run_server_path(torch, cfg, inputs["params"])
+    del inputs
+    torch.cuda.empty_cache()
     for name, row in rows.items():
-        row["launches"] = launches.get(name, 0)
+        row["launches"] = launches.get(name, 0) + server.get(name, 0)
         check(row["launches"] > 0, f"{name} never launched on the main path")
 
-    # 5. small-input reference
+    # 6. small-input reference
     check_small_reference(torch, dev)
 
     print(json.dumps({"kernels": list(rows.values())}), flush=True)
@@ -158,6 +186,13 @@ def random_words(torch, n: int, g, dev):
         out[i:j] = torch.randint(-2**31, 2**31, (j - i,), dtype=torch.int64,
                                  device=dev, generator=g).to(torch.int32)
     return out
+
+
+def server_spec():
+    """The server path's batch shape (phase 5)."""
+    from repro_torch.launch.batching import BatchSpec
+    return BatchSpec(slots=4, page_tokens=16, chunk=8, prompt_buckets=(256,),
+                     gen_cap=32)
 
 
 def flip_bits(torch, words, idx, bit):
@@ -265,6 +300,197 @@ def check_diag_parity(torch, dev):
     }
 
 
+def check_hsiao(torch, dev):
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import hsiao_secded as H
+    from repro_torch.models import transformer as T
+    from repro_torch.models.params import layout
+
+    cfg = get_config("phi3-mini-3.8b")
+    spec = layout(T.model_specs(cfg), cfg.param_dtype)
+    n, nb = spec.n_words, spec.n_blocks
+    g = torch.Generator(device=dev).manual_seed(SEED + 3)
+    words = random_words(torch, n, g, dev)
+    log(f"hsiao: phi3-mini arena {n} words, {nb} blocks, check table "
+        f"{nb * 28 / 1e9:.2f} GB")
+
+    parity = H.encode_hsiao(words)
+    plain, enc_plain_ms = timed_once(torch, lambda: H.encode_hsiao_ref(words))
+    check(torch.equal(parity, plain), "encode_hsiao kernel != plain version")
+    del plain
+    enc_ms = time_ms(torch, lambda: H.encode_hsiao(words))
+    enc_bound = bound_ms(n * 4 + nb * 28, 21 * n)
+    log(f"encode_hsiao: kernel {enc_ms:.3f} ms, plain {enc_plain_ms:.1f} ms, "
+        f"bound {enc_bound[0]:.3f} ms ({enc_bound[1]}); bit-exact")
+
+    # plant 1000 single data-bit flips, 100 check-bit flips and 100
+    # same-word double flips, each in its own block (so in distinct words)
+    blocks = torch.randperm(nb, device=dev, generator=g)[:1200]
+    single, cblk, double = blocks[:1000], blocks[1000:1100], blocks[1100:]
+
+    def rint(hi, k):
+        return torch.randint(0, hi, (k,), device=dev, generator=g)
+
+    flip_bits(torch, words, single * 32 + rint(32, 1000), rint(32, 1000))
+    d_idx = double * 32 + rint(32, 100)
+    b1 = rint(32, 100)
+    b2 = (b1 + 1 + rint(31, 100)) % 32
+    flip_bits(torch, words, d_idx, b1)
+    flip_bits(torch, words, d_idx, b2)
+    doubled = words[d_idx].clone()
+    bad_par = parity.clone()
+    flip_bits(torch, bad_par.view(-1), cblk * 7 + rint(7, 100), rint(32, 100))
+
+    words_p, bad_par_p = words.clone(), bad_par.clone()
+    _, _, counts = H.scrub(words, bad_par)
+    (_, _, counts_p), scrub_plain_ms = timed_once(
+        torch, lambda: H.scrub_hsiao_ref(words_p, bad_par_p))
+    check(torch.equal(words, words_p) and torch.equal(bad_par, bad_par_p)
+          and torch.equal(counts, counts_p),
+          "scrub_hsiao kernel != plain version")
+    check(counts.tolist() == [1000, 100, 100],
+          f"scrub_hsiao counts {counts.tolist()} != planted [1000, 100, 100]")
+    check(torch.equal(words[d_idx], doubled),
+          "a double-flip word was modified (must be detected, left as is)")
+    del words_p, bad_par_p
+    flip_bits(torch, words, d_idx, b1)          # undo the doubles
+    flip_bits(torch, words, d_idx, b2)
+    check(torch.equal(bad_par, parity), "check rows not healed")
+    check(torch.equal(H.encode_hsiao(words), parity),
+          "scrubbed arena does not re-encode to the clean check table")
+    scrub_ms = time_ms(torch, lambda: H.scrub(words, parity))
+    scrub_bound = bound_ms(n * 4 + nb * 28 + (1000 + 100) * 4, 49 * n)
+    log(f"scrub_hsiao: kernel {scrub_ms:.3f} ms (clean arena), plain "
+        f"{scrub_plain_ms:.1f} ms, bound {scrub_bound[0]:.3f} ms; counts "
+        f"{counts.tolist()} bit-exact, doubles untouched")
+    del words, parity, bad_par
+    torch.cuda.empty_cache()
+
+    # three stacked copies of a quarter arena against one shared check
+    # table (the hsiao+tmr store layout), per-copy rows kept
+    nq = (n // 4) // 32 * 32
+    base = random_words(torch, nq, g, dev)
+    par = H.encode_hsiao(base)
+    w3 = base.repeat(3)
+    idx = torch.randperm(3 * nq // 32, device=dev, generator=g)[:3000] * 32 \
+        + rint(32, 3000)
+    flip_bits(torch, w3, idx, rint(32, 3000))
+    w3_p = w3.clone()
+    out = torch.empty((3 * par.shape[0], 7), dtype=torch.int32, device=dev)
+    out_p = torch.empty_like(out)
+    _, _, c3 = H.scrub(w3, par, out_parity=out)
+    _, _, c3_p = H.scrub_hsiao_ref(w3_p, par, out_p)
+    check(torch.equal(w3, w3_p) and torch.equal(out, out_p)
+          and torch.equal(c3, c3_p),
+          "shared-table scrub_hsiao kernel != plain version")
+    check(c3.tolist() == [3000, 0, 0]
+          and all(torch.equal(r, base) for r in w3.view(3, nq)),
+          f"shared-table scrub_hsiao counts {c3.tolist()}")
+    shared_ms = time_ms(torch, lambda: H.scrub(w3, par, out_parity=out))
+    log(f"scrub_hsiao (3 copies x {nq} words, shared table): kernel "
+        f"{shared_ms:.3f} ms, bound "
+        f"{bound_ms(3 * nq * 4 + nq // 32 * 28 + 3 * nq // 32 * 28)[0]:.3f}"
+        f" ms; bit-exact")
+    del base, par, w3, w3_p, out, out_p
+    torch.cuda.empty_cache()
+
+    src = "src/repro_torch/kernels/csrc/hsiao_secded.cu"
+    return {
+        "encode_hsiao": row("encode_hsiao", src,
+                            "src/repro/kernels/hsiao_secded/kernel.py:47",
+                            enc_ms, enc_plain_ms, enc_bound, 0.0),
+        "scrub_hsiao": row("scrub_hsiao", src,
+                           "src/repro/kernels/hsiao_secded/kernel.py:112",
+                           scrub_ms, scrub_plain_ms, scrub_bound, 0.0),
+    }
+
+
+def check_inject_scrub(torch, dev):
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import diag_parity as D
+    from repro_torch.kernels.inject_scrub import (inject_scrub,
+                                                  inject_scrub_ref)
+    from repro_torch.launch.batching import PagedKVPool
+
+    cfg = get_config("phi3-mini-3.8b")
+    pool = PagedKVPool(cfg, server_spec(), copies=False, device="meta")
+    n = pool.arena_spec.n_words
+    nb = n // 32
+    g = torch.Generator(device=dev).manual_seed(SEED + 4)
+
+    def rint(hi, k):
+        return torch.randint(0, hi, (k,), device=dev, generator=g)
+
+    def planted(copies):
+        """Words, their clean parity, and a mask of 1000 single flips and
+        100 two-word doubles per copy, each in its own block."""
+        w = random_words(torch, copies * n, g, dev)
+        par = D.encode_parity(w)
+        k = 1100 * copies
+        blocks = torch.randperm(copies * nb, device=dev, generator=g)[:k]
+        w1 = rint(32, k)
+        mask = torch.zeros_like(w)
+        flip_bits(torch, mask, blocks * 32 + w1, rint(32, k))
+        d = slice(1000 * copies, k)
+        w2 = (w1[d] + 1 + rint(31, 100 * copies)) % 32
+        flip_bits(torch, mask, blocks[d] * 32 + w2, rint(32, 100 * copies))
+        return w, par, mask, blocks[:1000 * copies]
+
+    log(f"inject_scrub: full-width server pool arena {n} words per copy "
+        f"({n * 4 / 1e9:.3f} GB)")
+    timed = {}
+    for copies in (1, 3):
+        w, par, mask, singles = planted(copies)
+        w_p, par_p = w.clone(), par.clone()
+        _, _, counts = inject_scrub(w, par, mask)
+        (_, _, counts_p), plain_ms = timed_once(
+            torch, lambda: inject_scrub_ref(w_p, par_p, mask))
+        check(torch.equal(w, w_p) and torch.equal(par, par_p)
+              and torch.equal(counts, counts_p),
+              f"inject_scrub kernel != plain version ({copies} copies)")
+        check(counts.tolist() == [1200 * copies, 1000 * copies, 0,
+                                  100 * copies],
+              f"inject_scrub counts {counts.tolist()} ({copies} copies)")
+        del w_p, par_p
+        # the timed pass: single flips only, all repaired, so the state
+        # is the same before and after every launch
+        w = random_words(torch, copies * n, g, dev)
+        par = D.encode_parity(w)
+        smask = torch.zeros_like(w)
+        flip_bits(torch, smask, singles * 32 + rint(32, singles.numel()),
+                  rint(32, singles.numel()))
+        clean = w.clone()
+        ms = time_ms(torch, lambda: inject_scrub(w, par, smask), reps=10)
+        check(torch.equal(w, clean), "single-flip exposure not repaired")
+        bnd = bound_ms(2 * copies * n * 4 + copies * nb * 12,
+                       10 * copies * n)
+        log(f"inject_scrub ({copies} cop{'y' if copies == 1 else 'ies'}): "
+            f"kernel {ms:.3f} ms, plain {plain_ms:.1f} ms, bound "
+            f"{bnd[0]:.3f} ms ({bnd[1]}); counts {counts.tolist()} "
+            f"bit-exact")
+        timed[copies] = (ms, plain_ms, bnd)
+        # a zero mask is the plain diagonal-parity scrub, bit for bit
+        a = w.clone()
+        flip_bits(torch, a, singles * 32 + rint(32, singles.numel()),
+                  rint(32, singles.numel()))
+        b = a.clone()
+        pa, pb = par.clone(), par.clone()
+        _, _, ca = inject_scrub(a, pa, torch.zeros_like(a))
+        _, _, cb = D.scrub(b, pb)
+        check(torch.equal(a, b) and torch.equal(pa, pb)
+              and ca.tolist() == [0] + cb.tolist(),
+              "inject_scrub with a zero mask != scrub")
+        del w, par, mask, smask, clean, a, b, pa, pb
+        torch.cuda.empty_cache()
+    log("inject_scrub: zero mask == scrub kernel bit for bit (1 and 3 "
+        "copies)")
+    ms, plain_ms, bnd = timed[1]        # the row: one pool copy
+    return {"inject_scrub": row(
+        "inject_scrub", "src/repro_torch/kernels/csrc/inject_scrub.cu",
+        "src/repro/kernels/inject_scrub/kernel.py:49", ms, plain_ms, bnd,
+        0.0)}
+
+
 def check_vote(torch, dev):
     from repro_torch.configs import get_config
     from repro_torch.kernels.tmr_vote import vote, vote_ref
@@ -350,22 +576,16 @@ def check_flash(torch, dev):
 
 
 # ----------------------------------------------------------------------------
-# 4. the main path
+# 4. the one-shot serve path
 # ----------------------------------------------------------------------------
 
-def run_main_path(torch, dev):
-    from repro_torch.configs import get_config
+def run_main_path(torch, cfg, inputs):
     from repro_torch.core import arena
-    from repro_torch.launch.serve import make_inputs
 
-    cfg = get_config("phi3-mini-3.8b").replace(attention_impl="pallas")
-    t0 = time.perf_counter()
-    inputs = make_inputs(cfg, batch=4, prompt_len=256, seed=SEED, device=dev)
     params, tokens = inputs["params"], inputs["tokens"]
     clean, spec = arena.words_of(params)
-    torch.cuda.synchronize()
     log(f"{cfg.name}: {spec.n_words} arena words ({spec.n_words * 4 / 1e9:.2f}"
-        f" GB fp32), random init in {time.perf_counter() - t0:.1f}s")
+        f" GB fp32)")
 
     runs = [("off", 0.0, {}), ("ecc", 1e-9, {}),
             ("ecc+tmr-parallel", 1e-9, dict(vote_every=8, vote_cache=True))]
@@ -376,7 +596,7 @@ def run_main_path(torch, dev):
             clean_tokens)
         clean_tokens = out if clean_tokens is None else clean_tokens
     main = counts["ecc+tmr-parallel"]
-    log(f"main path (ecc+tmr-parallel) launches: {main}")
+    log(f"one-shot main path (ecc+tmr-parallel) launches: {main}")
     return main
 
 
@@ -423,7 +643,120 @@ def serve_and_check(torch, cfg, params, tokens, clean, spec_s, p_bit, kw,
 
 
 # ----------------------------------------------------------------------------
-# 5. small-input reference: kernels vs plain versions end to end
+# 5. the server path
+# ----------------------------------------------------------------------------
+
+def run_server_path(torch, cfg, params):
+    """The four server runs and the join-live check; returns the launch
+    counts summed over the runs (each counted from 0 around its run)."""
+    from repro_torch import kernels
+    from repro_torch.faults import TransientBitFlips
+    from repro_torch.launch.batching import (ContinuousBatcher, Request,
+                                             poisson_trace)
+    from repro_torch.launch.serve import serve_server
+    from repro_torch.obs import fetch_telemetry
+    from repro_torch.reliability import parse_scheme
+
+    dev = params["final_ln"].device
+    spec = server_spec()
+    pool_fault = TransientBitFlips(1e-8)
+    runs = [("off", 0.0, None, 0), ("ecc", 1e-9, "inject_scrub", 0),
+            ("hsiao-wb", 1e-9, "corrupt", 4),
+            ("hsiao+tmr-parallel", 1e-9, None, 0)]
+    clean, total = None, {}
+    for name, p_bit, exposure, scrub_every in runs:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        g = torch.Generator(device=dev).manual_seed(SEED + 7)
+        pool = []
+
+        def expose(b, exposure=exposure, pool=pool, g=g):
+            if exposure == "inject_scrub":
+                pool.append(b.pool.inject_scrub(g, pool_fault))
+            else:
+                pool.append(b.pool.corrupt(g, pool_fault)[None])
+
+        kernels.reset_launch_counts()
+        res = serve_server(cfg, params, parse_scheme(name), spec=spec,
+                           requests=8, rate=2.0, p_bit=p_bit, seed=SEED,
+                           scrub_every=scrub_every,
+                           on_tick=expose if exposure else None, device=dev)
+        counts = kernels.launch_counts()
+        peak = torch.cuda.max_memory_allocated()
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+        stats, b = res["stats"], res["batcher"]
+        tokens = {r.rid: r.tokens for r in res["results"]}
+        exp = torch.stack(pool).sum(0).tolist() if pool else []
+        lat = res["latency"]
+        log(f"server {name}: goodput {res['goodput_tok_s']:.2f} tok/s, "
+            f"ttft p50/p99 {lat['ttft_p50_s'] * 1e3:.1f}/"
+            f"{lat['ttft_p99_s'] * 1e3:.1f} ms, tpot p50/p99 "
+            f"{lat['tpot_p50_s'] * 1e3:.2f}/{lat['tpot_p99_s'] * 1e3:.2f} "
+            f"ms, {b.ticks} ticks, scrub ticks {b.scrub_ticks}, counters "
+            f"{ {k: int(v.sum()) for k, v in stats.items()} }, pool "
+            f"exposure {exposure} {exp}, peak device memory "
+            f"{peak / 1e9:.2f} GB, launches {counts}")
+        bad = {rid: (t.dtype, t.shape, int(t.min()), int(t.max()))
+               for rid, t in tokens.items()
+               if not (t.dtype == np.int32 and t.size and 0 <= t.min()
+                       and t.max() < cfg.padded_vocab)}
+        check(len(tokens) == 8 and not bad,
+              f"server {name}: bad results {bad}")
+        del res, b
+        if clean is None:
+            clean = tokens
+            continue
+        for rid, t in clean.items():
+            check(np.array_equal(tokens[rid], t),
+                  f"server {name}: request {rid} tokens differ from off")
+        check(int(stats["ecc_corrected"]) > 0, f"server {name}: no "
+              f"corrections")
+        check(int(stats["ecc_uncorrectable"]) == 0
+              and int(stats["ecc_read_uncorrectable"]) == 0,
+              f"server {name}: uncorrectable blocks")
+        if exposure == "inject_scrub":
+            check(exp[0] > 0 and exp[1] > 0 and exp[3] == 0,
+                  f"server {name}: pool inject_scrub counts {exp}")
+        if name == "hsiao-wb":
+            check(int(stats["ecc_read_corrected"]) > 0,
+                  f"server {name}: no write-back-on-read corrections")
+        if "tmr" in name:
+            check(int(stats["tmr_final_disagreements"]) == 0,
+                  f"server {name}: vote disagreements")
+    log(f"server path launches (4 runs): {total}")
+
+    # a request joining a live hsiao-wb batch == the same request alone
+    trace = poisson_trace(5, rate_rps=2.0, spec=spec, vocab=cfg.vocab,
+                          seed=SEED)
+    live = [Request(i, trace[i].prompt, gen)
+            for i, gen in enumerate((32, 8, 8, 32))]
+    live.append(Request(9, trace[4].prompt, 16, arrival_s=0.1))
+    out = []
+    for reqs in (live, [Request(9, trace[4].prompt, 16)]):
+        torch.cuda.empty_cache()
+        b = ContinuousBatcher(cfg, parse_scheme("hsiao-wb"), spec,
+                              device=dev)
+        g = torch.Generator(device=dev).manual_seed(SEED + 100)
+        prep = b.prepare(params, generator=g, fault=TransientBitFlips(1e-9))
+        res = {r.rid: r for r in b.run(reqs)}
+        stats = fetch_telemetry({**prep, **b.telemetry()})
+        stats.pop("tokens_emitted")
+        out.append((res[9], stats, b.ticks))
+        del b, prep
+    (a, pa, ta), (s, ps, ts) = out
+    check(np.array_equal(a.tokens, s.tokens)
+          and a.vote_disagreements == s.vote_disagreements
+          and all(int(pa[k]) == int(ps[k]) for k in pa) and a.ttft_s > 0,
+          "hsiao-wb: a request in a live batch != the same request alone")
+    log(f"join-live == alone (hsiao-wb, full width): request 9's 16 tokens "
+        f"and counters {dict((k, int(v)) for k, v in pa.items())} equal; "
+        f"{ta} ticks live, {ts} alone")
+    return total
+
+
+# ----------------------------------------------------------------------------
+# 6. small-input reference: kernels vs plain versions end to end
 # ----------------------------------------------------------------------------
 
 def check_small_reference(torch, dev):

@@ -7,10 +7,13 @@ imports `torch` and numpy only.  Layout mirrors the reference:
   core/         arena packing, word-level diagonal-parity code, TMR voters
   faults/       fault models (in-place corruption with torch.Generator)
   reliability/  backend registry and the composable Scheme protocol
+                (diagonal parity, Hsiao SEC-DED, TMR, their compositions)
   kernels/      <name>/{kernel,ops,ref}.py, CUDA sources under csrc/
-  models/       dense transformer (prefill + decode)
+  models/       dense transformer (prefill + decode, per-row positions)
   configs/      architecture registry
-  launch/       GenerationEngine and the serve driver
+  obs/          metrics registry, latency tails, tracer
+  launch/       GenerationEngine, the continuous-batching server over a
+                paged ECC-protected KV pool, and the serve driver
 
 Entry points run on CUDA unless the caller passes ``device="cpu"``.
 """

@@ -11,6 +11,10 @@ Each kernel package has
 
 Kernels (TPU kernel each replaces, in the JAX package):
   diag_parity     -- encode + fused scrub (kernels/diag_parity/kernel.py)
+  inject_scrub    -- fault mask XOR + the same scrub in one pass
+                     (kernels/inject_scrub/kernel.py)
+  hsiao_secded    -- (39,32) SEC-DED encode + fused per-word scrub
+                     (kernels/hsiao_secded/kernel.py)
   tmr_vote        -- per-bit 2-of-3 majority (kernels/tmr_vote/kernel.py)
   flash_attention -- online-softmax prefill attention
                      (kernels/flash_attention/kernel.py)

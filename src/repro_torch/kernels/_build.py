@@ -27,7 +27,8 @@ __all__ = ["SOURCES", "build", "library", "check", "count_launch",
            "launch_counts", "reset_launch_counts", "build_dir"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("diag_parity", "tmr_vote", "flash_attention")
+SOURCES = ("diag_parity", "inject_scrub", "hsiao_secded", "tmr_vote",
+           "flash_attention")
 FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC", "-lineinfo")
 

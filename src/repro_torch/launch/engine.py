@@ -31,7 +31,6 @@ from __future__ import annotations
 
 from typing import Any, Dict, Optional, Tuple
 
-import numpy as np
 import torch
 
 from ..core import arena
@@ -39,6 +38,7 @@ from ..core import tree as T
 from ..device import resolve_device
 from ..models.config import ModelConfig
 from ..models.steps import make_decode_step, make_prefill_step
+from ..obs import fetch_telemetry
 from ..reliability.scheme import ArenaEcc, Compose, Scheme, Tmr, Unprotected
 
 __all__ = ["GenerationEngine", "fetch_telemetry"]
@@ -52,22 +52,6 @@ def _disagreements(t3) -> torch.Tensor:
     """Token positions where the three copies do not all agree (int32)."""
     a, b, c = t3
     return ((a != b) | (a != c) | (b != c)).sum(dtype=torch.int32)
-
-
-def fetch_telemetry(telemetry: Dict[str, torch.Tensor]) -> Dict[str, Any]:
-    """All on-device integer counters -> host numpy, in ONE transfer."""
-    keys = sorted(telemetry)
-    if not keys:
-        return {}
-    flat = torch.cat([telemetry[k].reshape(-1).to(torch.int64) for k in keys])
-    host = flat.cpu().numpy()
-    out, at = {}, 0
-    for k in keys:
-        shape = tuple(telemetry[k].shape)
-        n = int(np.prod(shape)) if shape else 1
-        out[k] = host[at:at + n].reshape(shape)
-        at += n
-    return out
 
 
 class GenerationEngine:

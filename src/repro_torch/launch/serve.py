@@ -1,26 +1,44 @@
-"""Serving driver: batched generation under a protection scheme (port of
-the non-server mode of `repro.launch.serve`).
+"""Serving driver: batched generation under a protection scheme, and the
+continuous-batching server (port of `repro.launch.serve`).
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch phi3-mini-3.8b \\
       --batch 4 --prompt-len 256 --gen 32 --scheme ecc+tmr-parallel \\
       --vote-every 8 --vote-cache --inject-p-bit 1e-9
 
-``--scheme`` takes ``off | ecc | ecc-wb | tmr-serial | tmr-parallel |
-tmr-semi | ecc+tmr[-<discipline>]`` (``ecc-wb`` serves as ``ecc`` until
-the server, where write-back acts, is ported).  Parameters come from
-random init on a seeded generator, directly into the packed arena on the
-device; faults are drawn on the device from a generator seeded with
+``--scheme`` takes ``off | ecc | ecc-wb | hsiao | hsiao-wb | tmr-serial |
+tmr-parallel | tmr-semi | <code>+tmr[-<discipline>]``.  Parameters come
+from random init on a seeded generator, directly into the packed arena on
+the device; faults are drawn on the device from a generator seeded with
 ``seed + 100``.  Runs on CUDA by default; ``--device cpu`` runs the plain
 PyTorch versions (use it with ``--smoke``).  Scrub and vote counters stay
-on the device during the timed generation and are fetched once
-afterwards.
+on the device during the timed region and are fetched once afterwards.
+
+Server mode (``--server``) serves an open-loop Poisson trace through the
+continuous-batching scheduler (`launch.batching`: paged ECC-protected KV
+pool, chunk-boundary admission):
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch phi3-mini-3.8b \\
+      --server --rate 2 --requests 8 --slots 4 --prompt-len 256 --gen 32 \\
+      --scheme hsiao-wb --scrub-every 4 --inject-p-bit 1e-9
+
+Arrivals are paced in real time and never wait for service; per-request
+TTFT (queue wait included) and TPOT come from `obs.LatencyTimeline`, and
+the report gives p50/p95/p99 tails plus goodput (useful tokens / wall
+time).  ``--gen`` becomes the per-request cap, ``--chunk`` the decode chunk
+between scheduling points (default 8), ``--prompt-len`` the single
+admission bucket, ``--page-tokens`` the KV page size and ``--scrub-every``
+the pool-scrub cadence in ticks.  Under ``ecc-wb`` and ``hsiao-wb`` every
+tick first repairs the KV pages it reads (write-back-on-read).
+``--trace out.json`` writes the spans as Chrome-trace JSON and
+``--metrics out.jsonl`` a JSONL record of the run.
 """
 from __future__ import annotations
 
 import argparse
 import time
-from typing import Any, Dict, Optional
+from typing import Any, Callable, Dict, Optional
 
+import numpy as np
 import torch
 
 from ..configs import get_config, list_archs
@@ -29,11 +47,13 @@ from ..faults import TransientBitFlips
 from ..models import params as P
 from ..models import transformer as T
 from ..models.config import ModelConfig
+from ..obs import Tracer, fetch_telemetry
 from ..reliability import (ArenaEcc, Compose, Scheme, Tmr, Unprotected,
                            parse_scheme, scheme_choices, scheme_help)
-from .engine import GenerationEngine, fetch_telemetry
+from .batching import BatchSpec, ContinuousBatcher, Request, poisson_trace
+from .engine import GenerationEngine
 
-__all__ = ["serve", "make_inputs", "main"]
+__all__ = ["serve", "serve_server", "make_inputs", "main"]
 
 
 def _log(msg: str) -> None:
@@ -116,6 +136,96 @@ def serve(cfg: ModelConfig, params: Any, tokens: torch.Tensor,
             "tok_s": tok_s, "store": store}
 
 
+def serve_server(cfg: ModelConfig, params: Any, scheme: Scheme, *,
+                 spec: BatchSpec, requests: int, rate: float,
+                 p_bit: float = 0.0, seed: int = 0, scrub_every: int = 0,
+                 trace_path: Optional[str] = None,
+                 metrics_path: Optional[str] = None,
+                 on_tick: Optional[Callable] = None,
+                 realtime: bool = True, device=None) -> Dict[str, Any]:
+    """The reference's `_run_server`: prepare the scheme's store, run the
+    warmup requests (first `slots` prompts of the trace, 2 tokens each),
+    then serve the Poisson trace of `requests` at `rate` paced in real
+    time, fetch the telemetry once and print the ``[serve]`` lines.
+    `on_tick(batcher)` (a fault-injection hook) is installed after the
+    warmup.  Returns the results, the fetched stats, the latency tails and
+    the batcher."""
+    device = resolve_device(device)
+    tracer = Tracer(enabled=bool(trace_path or metrics_path))
+    b = ContinuousBatcher(cfg, scheme, spec, scrub_every=scrub_every,
+                          device=device)
+    fault_gen = torch.Generator(device=device).manual_seed(seed + 100)
+    with tracer.trace("prepare", scheme=scheme.name):
+        prep = b.prepare(params, generator=fault_gen,
+                         fault=TransientBitFlips(p_bit) if p_bit else None)
+    trace = poisson_trace(requests, rate_rps=rate, spec=spec,
+                          vocab=cfg.vocab, seed=seed)
+    # run the admission and tick paths once before the open-loop clock
+    # starts, so first-call costs do not show up as a queue spike
+    warm = [Request(10**6 + i, t.prompt, min(2, t.gen))
+            for i, t in enumerate(trace[:spec.slots])]
+    with tracer.trace("warmup"):
+        b.run(warm)
+    b.on_tick = on_tick
+
+    t0 = time.time()
+    with tracer.trace("serve", requests=requests, rate=rate,
+                      scheme=scheme.name):
+        results = b.run(trace, realtime=realtime)
+    dt = time.time() - t0
+    with tracer.trace("fetch_telemetry"):
+        stats = fetch_telemetry({**prep, **b.telemetry()})
+
+    useful = sum(len(r.tokens) for r in results)
+    goodput = useful / dt
+    ttft = np.asarray([r.ttft_s for r in results])
+    tpot = np.asarray([x for r in results for x in r.tpot_samples])
+
+    def q(a, p):
+        return float(np.percentile(a, p)) if a.size else float("nan")
+
+    _log(f"[serve] {cfg.name} server scheme={scheme.name} mesh=single "
+         f"p_bit={p_bit:g}: {requests} reqs @ {rate:g} rps, "
+         f"slots={spec.slots} chunk={spec.chunk}: {useful} tokens in "
+         f"{dt:.1f}s (goodput {goodput:.1f} tok/s, {b.ticks} ticks, "
+         f"{b.decode_slot_steps} slot-steps)")
+    _log(f"[serve] ttft p50={q(ttft, 50) * 1e3:.1f}ms "
+         f"p95={q(ttft, 95) * 1e3:.1f}ms p99={q(ttft, 99) * 1e3:.1f}ms; "
+         f"tpot p50={q(tpot, 50) * 1e3:.2f}ms p95={q(tpot, 95) * 1e3:.2f}ms "
+         f"p99={q(tpot, 99) * 1e3:.2f}ms")
+    if stats:
+        parts = []
+        if "ecc_corrected" in stats:
+            parts.append(f"ecc corrected={int(stats['ecc_corrected'])} "
+                         f"uncorrectable={int(stats['ecc_uncorrectable'])}")
+        if "tmr_final_disagreements" in stats:
+            parts.append(f"vote disagreements="
+                         f"{int(stats['tmr_final_disagreements'])}")
+        _log(f"[serve] reliability (fetched after timing): "
+             f"{'; '.join(parts) or 'n/a'}")
+    lat = {"ttft_p50_s": q(ttft, 50), "ttft_p95_s": q(ttft, 95),
+           "ttft_p99_s": q(ttft, 99), "tpot_p50_s": q(tpot, 50),
+           "tpot_p95_s": q(tpot, 95), "tpot_p99_s": q(tpot, 99)}
+    if trace_path or metrics_path:
+        record = {"kind": "server", "arch": cfg.name, "scheme": scheme.name,
+                  "mesh": "single", "p_bit": p_bit, "rate_rps": rate,
+                  "requests": requests, "slots": spec.slots,
+                  "chunk": spec.chunk, "gen_cap": spec.gen_cap,
+                  "goodput_tok_s": goodput, "ticks": b.ticks,
+                  "decode_slot_steps": b.decode_slot_steps, **lat,
+                  **{k: np.asarray(v).sum().item() for k, v in stats.items()}}
+        tracer.metrics(record, kind="server")
+        if trace_path:
+            tracer.write_chrome(trace_path)
+            _log(f"[serve] chrome trace -> {trace_path} "
+                 f"(load in Perfetto / chrome://tracing)")
+        if metrics_path:
+            tracer.write_jsonl(metrics_path)
+            _log(f"[serve] metrics jsonl -> {metrics_path}")
+    return {"results": results, "stats": stats, "goodput_tok_s": goodput,
+            "seconds": dt, "latency": lat, "batcher": b}
+
+
 def main(argv: Optional[list] = None) -> None:
     ap = argparse.ArgumentParser(description=__doc__,
                                  formatter_class=argparse.RawTextHelpFormatter)
@@ -140,6 +250,31 @@ def main(argv: Optional[list] = None) -> None:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu")
+    ap.add_argument("--server", action="store_true",
+                    help="continuous-batching server mode: serve an "
+                         "open-loop Poisson trace through the chunk-boundary "
+                         "scheduler over the paged ECC-protected KV pool; "
+                         "--gen is the per-request cap, --chunk the decode "
+                         "chunk (default 8), --prompt-len the admission "
+                         "bucket")
+    ap.add_argument("--rate", type=float, default=8.0,
+                    help="server mode: Poisson arrival rate, requests/s")
+    ap.add_argument("--requests", type=int, default=32,
+                    help="server mode: number of requests in the trace")
+    ap.add_argument("--slots", type=int, default=4,
+                    help="server mode: batch slots (empty slots are masked)")
+    ap.add_argument("--page-tokens", type=int, default=16,
+                    help="server mode: tokens per KV pool page")
+    ap.add_argument("--scrub-every", type=int, default=0, metavar="TICKS",
+                    help="server mode: pool-scrub cadence in scheduler "
+                         "ticks (0 = no periodic scrub)")
+    ap.add_argument("--chunk", type=int, default=0,
+                    help="server mode: decode steps per scheduler tick "
+                         "(0 = the default 8)")
+    ap.add_argument("--trace", default=None, metavar="PATH",
+                    help="server mode: write spans as Chrome-trace JSON")
+    ap.add_argument("--metrics", default=None, metavar="PATH",
+                    help="server mode: write a JSONL telemetry record")
     args = ap.parse_args(argv)
 
     scheme = parse_scheme(args.scheme)
@@ -155,12 +290,37 @@ def main(argv: Optional[list] = None) -> None:
             ap.error("in-loop voting needs tmr-parallel/tmr-semi")
     if args.vote_cache and not args.vote_every:
         ap.error("--vote-cache needs --vote-every K")
+    if args.chunk < 0:
+        ap.error(f"--chunk must be >= 0, got {args.chunk}")
+    if args.server:
+        if args.engine == "loop":
+            ap.error("--server runs the scheduler; --engine loop does not "
+                     "apply")
+        if args.vote_every or args.vote_cache:
+            ap.error("--server votes each finished request's tokens from "
+                     "the completion fetch; in-loop vote flags do not apply")
+        if args.rate <= 0 or args.requests < 1 or args.slots < 1:
+            ap.error("--server needs --rate > 0, --requests >= 1 and "
+                     "--slots >= 1")
+    elif args.chunk or args.trace or args.metrics:
+        ap.error("--chunk, --trace and --metrics apply to --server (chunked "
+                 "one-shot generation is not ported)")
 
     device = resolve_device(args.device)
     cfg = get_config(args.arch)
     if args.smoke:
         cfg = cfg.smoke()
     inputs = make_inputs(cfg, args.batch, args.prompt_len, args.seed, device)
+    if args.server:
+        spec = BatchSpec(slots=args.slots, page_tokens=args.page_tokens,
+                         chunk=args.chunk or 8,
+                         prompt_buckets=(args.prompt_len,), gen_cap=args.gen)
+        serve_server(cfg, inputs["params"], scheme, spec=spec,
+                     requests=args.requests, rate=args.rate,
+                     p_bit=args.inject_p_bit, seed=args.seed,
+                     scrub_every=args.scrub_every, trace_path=args.trace,
+                     metrics_path=args.metrics, device=device)
+        return
     serve(cfg, inputs["params"], inputs["tokens"], scheme, gen=args.gen,
           vote_every=args.vote_every, vote_cache=args.vote_cache,
           p_bit=args.inject_p_bit, seed=args.seed, engine=args.engine,

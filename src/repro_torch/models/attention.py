@@ -146,26 +146,50 @@ def self_attention(p, cfg: ModelConfig, x, *, causal=True, window=0):
 def decode_self_attention(p, cfg: ModelConfig, x, cache_k, cache_v, pos, *,
                           window=0):
     """Single-token decode.  x: (B,1,D); cache_k/v: (B,S,KV,hd); pos: int32
-    0-d tensor, the number of tokens already cached (the slot to write).
+    0-d tensor, the number of tokens already cached (the slot to write), or
+    a (B,) int32 vector of per-row positions for continuous batching, where
+    each batch row decodes at its own depth (linear cache only).
 
     The new k/v are written into the caches in place (the reference
     returns updated copies); with a sliding window the cache is a ring
-    buffer.  Returns (output, cache_k, cache_v)."""
+    buffer (scalar `pos` only).  Returns (output, cache_k, cache_v)."""
     h = rms_norm(x, p["ln"], cfg.norm_eps)
     B = h.shape[0]
     H, KV, hd = cfg.n_heads, cfg.n_kv, cfg.head_dim
     S = cache_k.shape[1]
-    q, k, v = _project_qkv(p, cfg, h, pos.reshape(1, 1))
-    slot = (pos % S if window else pos).reshape(1).long()
-    cache_k.index_copy_(1, slot, k.to(cache_k.dtype))
-    cache_v.index_copy_(1, slot, v.to(cache_v.dtype))
-    valid = torch.arange(S, device=x.device) <= pos
+    per_row = pos.ndim == 1
+    if per_row and window:
+        raise NotImplementedError(
+            "per-row decode positions do not support sliding-window ring "
+            "caches (continuous batching is linear-cache only)")
+    q, k, v = _project_qkv(p, cfg, h,
+                           pos[:, None] if per_row else pos.reshape(1, 1))
+    if per_row:
+        # the reference's dynamic_update_slice clamps the write index into
+        # the cache (a stale position of an empty slot can run past it)
+        rows = torch.arange(B, device=x.device)
+        at = pos.long().clamp(0, S - 1)
+        cache_k[rows, at] = k[:, 0].to(cache_k.dtype)
+        cache_v[rows, at] = v[:, 0].to(cache_v.dtype)
+        # per-row validity; slots past a row's position may alias the
+        # shared scratch page of a paged pool, so their K/V are zeroed
+        # outright -- masking the scores alone would still carry NaN/Inf
+        # garbage through 0 * NaN in the value product
+        valid = torch.arange(S, device=x.device)[None, :] <= pos[:, None]
+        kc = torch.where(valid[:, :, None, None], cache_k, 0)
+        vc = torch.where(valid[:, :, None, None], cache_v, 0)
+        vmask = valid[:, None, None, None, :]
+    else:
+        slot = (pos % S if window else pos).reshape(1).long()
+        cache_k.index_copy_(1, slot, k.to(cache_k.dtype))
+        cache_v.index_copy_(1, slot, v.to(cache_v.dtype))
+        kc, vc = cache_k, cache_v
+        vmask = torch.arange(S, device=x.device) <= pos
     qg = q.reshape(B, 1, KV, H // KV, hd).float()
-    scores = torch.einsum("bqkgd,bskd->bkgqs", qg,
-                          cache_k.float()) / hd ** 0.5
-    scores = torch.where(valid, scores, NEG_INF)
+    scores = torch.einsum("bqkgd,bskd->bkgqs", qg, kc.float()) / hd ** 0.5
+    scores = torch.where(vmask, scores, NEG_INF)
     e = torch.exp(scores - scores.amax(-1, keepdim=True))
     probs = e / e.sum(-1, keepdim=True)
-    o = torch.einsum("bkgqs,bskd->bqkgd", probs, cache_v.float())
+    o = torch.einsum("bkgqs,bskd->bqkgd", probs, vc.float())
     o = o.reshape(B, 1, H * hd).to(x.dtype)
     return o @ p["wo"].to(x.dtype), cache_k, cache_v

@@ -93,8 +93,10 @@ def prefill(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
 
 
 def decode_step(params, cfg: ModelConfig, token: torch.Tensor, cache: dict):
-    """token: (B,1) int32 -> (hidden (B,1,D), cache with pos + 1).  The new
-    k/v are written into the given cache's tensors in place."""
+    """token: (B,1) int32 -> (hidden (B,1,D), cache with pos + 1).  The
+    cache's ``pos`` is a 0-d int32 tensor, or a (B,) vector of per-row
+    positions (continuous batching).  The new k/v are written into the
+    given cache's tensors in place."""
     _dense_only(cfg)
     pos = cache["pos"]
     x = _embed(params, cfg, token)

@@ -1,0 +1,20 @@
+"""On-device telemetry (port of `repro.obs`: the registry, latency tails
+and the tracer).
+
+* `MetricsRegistry` / `SCHEMA` -- named, schema-validated on-device
+  counters; `fetch_telemetry` is the single device->host transfer.
+* `Tracer` -- span-based tracing: Chrome-trace JSON plus a JSONL metrics
+  log, no device syncs.
+* `LatencyTimeline` / `Histogram` -- TTFT/TPOT tails from host timestamps.
+"""
+from .latency import Histogram, LatencyTimeline
+from .registry import (DEFAULT_REGISTRY, SCHEMA, MetricSpec, MetricsRegistry,
+                       fetch_telemetry)
+from .trace import NULL_TRACER, Tracer
+
+__all__ = [
+    "DEFAULT_REGISTRY", "SCHEMA", "MetricSpec", "MetricsRegistry",
+    "fetch_telemetry",
+    "Tracer", "NULL_TRACER",
+    "Histogram", "LatencyTimeline",
+]

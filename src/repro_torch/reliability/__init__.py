@@ -3,14 +3,15 @@
 `Scheme` protocol over arena-backed `Protected` stores (`scheme`)."""
 from . import backend
 from .scheme import (ArenaEcc, Compose, CostReport, DiagParityEcc,
-                     Protected, Scheme, Tmr, Unprotected, parse_scheme,
-                     register_scheme, scheme_choices, scheme_help,
-                     standard_grid)
+                     HsiaoSecDed, Protected, Scheme, Tmr, Unprotected,
+                     parse_scheme, register_scheme, scheme_choices,
+                     scheme_help, standard_grid)
 
 __all__ = [
     "backend",
     "Scheme", "Protected", "CostReport",
-    "Unprotected", "ArenaEcc", "DiagParityEcc", "Tmr", "Compose",
+    "Unprotected", "ArenaEcc", "DiagParityEcc", "HsiaoSecDed", "Tmr",
+    "Compose",
     "parse_scheme", "standard_grid", "register_scheme",
     "scheme_choices", "scheme_help",
 ]

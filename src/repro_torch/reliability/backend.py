@@ -3,8 +3,10 @@
 
     op           implementations (default first)
     -----------  -------------------------------
-    diag_parity  kernel | torch   encode/scrub the packed ECC arena
-    tmr_vote     kernel | torch   per-bit 2-of-3 majority
+    diag_parity   kernel | torch   encode/scrub the packed ECC arena
+    hsiao_secded  kernel | torch   (39,32) SEC-DED encode/scrub of the arena
+    inject_scrub  kernel | torch   fused corrupt+scrub of the arena
+    tmr_vote      kernel | torch   per-bit 2-of-3 majority
 
 ``kernel`` is the op's public wrapper: on a CUDA tensor it launches the
 Hopper kernel (or raises), on a CPU tensor it runs the plain version.
@@ -70,6 +72,26 @@ def _load_diag_parity_torch():
     return SimpleNamespace(encode=encode_parity_ref, scrub=scrub_ref)
 
 
+def _load_hsiao_secded_kernel():
+    from ..kernels.hsiao_secded import encode_hsiao, scrub
+    return SimpleNamespace(encode=encode_hsiao, scrub=scrub)
+
+
+def _load_hsiao_secded_torch():
+    from ..kernels.hsiao_secded.ref import encode_hsiao_ref, scrub_hsiao_ref
+    return SimpleNamespace(encode=encode_hsiao_ref, scrub=scrub_hsiao_ref)
+
+
+def _load_inject_scrub_kernel():
+    from ..kernels.inject_scrub import inject_scrub
+    return inject_scrub
+
+
+def _load_inject_scrub_torch():
+    from ..kernels.inject_scrub.ref import inject_scrub_ref
+    return inject_scrub_ref
+
+
 def _load_tmr_vote_kernel():
     from ..kernels.tmr_vote import vote
     return vote
@@ -87,5 +109,9 @@ def _load_tmr_vote_torch():
 
 register("diag_parity", "kernel", _load_diag_parity_kernel, default=True)
 register("diag_parity", "torch", _load_diag_parity_torch)
+register("hsiao_secded", "kernel", _load_hsiao_secded_kernel, default=True)
+register("hsiao_secded", "torch", _load_hsiao_secded_torch)
+register("inject_scrub", "kernel", _load_inject_scrub_kernel, default=True)
+register("inject_scrub", "torch", _load_inject_scrub_torch)
 register("tmr_vote", "kernel", _load_tmr_vote_kernel, default=True)
 register("tmr_vote", "torch", _load_tmr_vote_torch)

@@ -1,5 +1,5 @@
 """Composable protection schemes (port of `repro.reliability.scheme`,
-without the Hsiao code, the mesh and the cost-model hooks).
+without the mesh and the cost-model hooks).
 
     scheme = parse_scheme("ecc+tmr-serial")
     prot   = scheme.protect(params)           # Protected store
@@ -24,11 +24,12 @@ import torch
 
 from ..core import arena
 from ..core import tree as T
+from ..core.bitops import as_u64, popcount32
 from ..core.reliability import ScrubReport
 from . import backend
 
 __all__ = ["CostReport", "Protected", "Scheme", "Unprotected", "ArenaEcc",
-           "DiagParityEcc", "Tmr", "Compose", "parse_scheme",
+           "DiagParityEcc", "HsiaoSecDed", "Tmr", "Compose", "parse_scheme",
            "standard_grid", "register_scheme",
            "scheme_choices", "scheme_help", "TMR_COSTS"]
 
@@ -149,13 +150,24 @@ class Unprotected(Scheme):
 
 class ArenaEcc(Scheme):
     """Shared machinery of packed-arena word codes; subclasses supply
-    `_encode` and `_scrub`."""
+    `n_parity_words`, `_encode` and `_scrub`.
+
+    Subclasses are frozen dataclasses carrying at least ``impl`` (backend
+    override) and ``write_back``: `read_corrected` works for every code,
+    and a True flag tells the server's batcher to correct and persist the
+    KV pages a tick is about to read before it reads them, instead of
+    waiting for the periodic pool scrub."""
 
     code_name = "ecc"
 
     @property
     def name(self) -> str:
         return self.code_name + ("-wb" if self.write_back else "")
+
+    @property
+    def n_parity_words(self) -> int:
+        """Redundancy words per 32-word block (the parity-table width)."""
+        raise NotImplementedError
 
     def _encode(self, buf: torch.Tensor) -> torch.Tensor:
         raise NotImplementedError
@@ -174,6 +186,13 @@ class ArenaEcc(Scheme):
         return prot, ScrubReport(corrected=counts[0], parity_fixed=counts[1],
                                  uncorrectable=counts[2])
 
+    def read_corrected(self, prot: Protected):
+        """Write-back-on-read at the scheme level: decode through a fused
+        scrub, so the caller gets corrected bits and the corrected store
+        persists (in place).  Returns (payload, prot, report)."""
+        fixed, report = self.scrub(prot)
+        return fixed.payload, fixed, report
+
     def encode_arena(self, buf: torch.Tensor) -> torch.Tensor:
         """Parity table of a packed int32 arena."""
         return self._encode(buf)
@@ -182,6 +201,19 @@ class ArenaEcc(Scheme):
         """Fused scrub of a packed arena, in place: (buf, parity, counts (3,)
         int32 corrected / parity_fixed / uncorrectable)."""
         return self._scrub(buf, parity)
+
+    def inject_scrub_arena(self, buf: torch.Tensor, parity: torch.Tensor,
+                           mask: torch.Tensor):
+        """Fused corrupt+repair of a packed arena, in place: XOR the fault
+        mask in, then the code's scrub.  Returns (buf, parity, counts (4,)
+        int32 injected / corrected / parity_fixed / uncorrectable).  Codes
+        with a dedicated fused kernel override this (diagonal parity routes
+        to kernels/inject_scrub); the default is right for every
+        block-local word code."""
+        injected = popcount32(as_u64(mask)).sum(dtype=torch.int32)
+        buf ^= mask
+        _, par, counts = self._scrub(buf, parity)
+        return buf, par, torch.cat([injected[None], counts])
 
     def scrub_copies(self, words: torch.Tensor, parity: torch.Tensor,
                      keep_parity: bool = True):
@@ -213,15 +245,19 @@ class ArenaEcc(Scheme):
 @dataclasses.dataclass(frozen=True)
 class DiagParityEcc(ArenaEcc):
     """Diagonal-parity word ECC over the packed arena (paper §IV): corrects
-    one flipped bit per 32-word block at 3 parity words of storage.
-    `write_back` only renames the scheme (``ecc-wb``) here: it acts in the
-    reference's server batcher, which this package does not have yet."""
+    one flipped bit per 32-word block at 3 parity words of storage.  With
+    `write_back` (``ecc-wb``) the server's batcher repairs the KV pages a
+    tick reads before the decode sees them (`ContinuousBatcher`)."""
 
     slopes: Tuple[int, ...] = (1, 2, -1)
     impl: Optional[str] = None
     write_back: bool = False
 
     code_name = "ecc"
+
+    @property
+    def n_parity_words(self) -> int:
+        return len(self.slopes)
 
     def _op(self):
         return backend.dispatch("diag_parity", self.impl)
@@ -233,9 +269,47 @@ class DiagParityEcc(ArenaEcc):
         return self._op().scrub(buf, parity, slopes=self.slopes,
                                 out_parity=out_parity)
 
+    def inject_scrub_arena(self, buf, parity, mask):
+        # diagonal parity has a dedicated fused corrupt+repair kernel
+        op = backend.dispatch("inject_scrub", self.impl)
+        return op(buf, parity, mask, slopes=self.slopes)
+
     def overhead(self) -> CostReport:
         return CostReport(storage_x=1.0 + len(self.slopes) / arena.BLOCK,
                           latency_x=1.26)
+
+
+@dataclasses.dataclass(frozen=True)
+class HsiaoSecDed(ArenaEcc):
+    """(39,32) Hsiao SEC-DED word code over the packed arena
+    (kernels/hsiao_secded): 7 odd-weight-column check bits per 32-bit word,
+    packed as 7 parity words per block.  Every word decodes on its own --
+    one flip in each of a block's 32 words is still corrected -- and double
+    errors are detected (counted uncorrectable, left as they are) instead
+    of miscorrected.  Storage 1 + 7/32.  `write_back` (``hsiao-wb``) acts in
+    the server's batcher as for `DiagParityEcc`."""
+
+    impl: Optional[str] = None
+    write_back: bool = False
+
+    code_name = "hsiao"
+
+    @property
+    def n_parity_words(self) -> int:
+        from ..kernels.hsiao_secded.code import N_CHECKS
+        return N_CHECKS
+
+    def _op(self):
+        return backend.dispatch("hsiao_secded", self.impl)
+
+    def _encode(self, buf):
+        return self._op().encode(buf)
+
+    def _scrub(self, buf, parity, out_parity=None):
+        return self._op().scrub(buf, parity, out_parity=out_parity)
+
+    def overhead(self) -> CostReport:
+        return CostReport(storage_x=1.0 + 7.0 / arena.BLOCK, latency_x=1.42)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -365,13 +439,15 @@ def register_scheme(token: str, factory, help: str = "",
 
 
 def scheme_choices() -> Tuple[str, ...]:
-    return tuple(_SCHEME_FACTORIES) + ("ecc+tmr",)
+    """Every registered spec token, plus the composition grammar (one
+    arena code + one TMR discipline joined by '+')."""
+    return tuple(_SCHEME_FACTORIES) + ("ecc+tmr", "hsiao+tmr")
 
 
 def scheme_help() -> str:
     lines = [f"{tok}: {hlp}" for tok, (_, hlp) in _SCHEME_FACTORIES.items()]
-    lines.append("ecc+tmr[-<discipline>]: per-copy diagonal parity under "
-                 "TMR voting (e.g. ecc+tmr-parallel)")
+    lines.append("<code>+tmr[-<discipline>]: per-copy arena code under "
+                 "TMR voting (e.g. ecc+tmr-serial, hsiao+tmr)")
     return "; ".join(lines)
 
 
@@ -382,8 +458,13 @@ register_scheme("ecc", lambda impl: DiagParityEcc(impl=impl),
                 " +3/32 storage")
 register_scheme("ecc-wb", lambda impl: DiagParityEcc(impl=impl,
                                                      write_back=True),
-                "diagonal parity with write-back-on-read serving (the flag"
-                " acts only in the server, not ported yet: serves as ecc)")
+                "diagonal parity with write-back-on-read serving")
+register_scheme("hsiao", lambda impl: HsiaoSecDed(impl=impl),
+                "(39,32) Hsiao SEC-DED, per-word correct + double-error "
+                "detect, +7/32 storage")
+register_scheme("hsiao-wb", lambda impl: HsiaoSecDed(impl=impl,
+                                                     write_back=True),
+                "Hsiao SEC-DED with write-back-on-read serving")
 
 _TMR_ALIASES = {"serial": "serial", "parallel": "parallel",
                 "semi": "semi_parallel", "semi-parallel": "semi_parallel",
@@ -411,18 +492,25 @@ def _parse_one(token: str, impl: Optional[str]) -> Scheme:
                      f"(expected one of {scheme_choices()})")
 
 
-def standard_grid(impl: Optional[str] = None) -> Tuple[Scheme, ...]:
-    """The canonical sweep grid (every ported scheme family, all TMR
-    disciplines); the reference's Hsiao variants are not ported yet."""
-    return (Unprotected(), DiagParityEcc(impl=impl),
+def standard_grid(impl: Optional[str] = None,
+                  include_hsiao: bool = False) -> Tuple[Scheme, ...]:
+    """The canonical sweep grid (every scheme family, all TMR
+    disciplines); `include_hsiao` adds the SEC-DED code, solo and composed
+    with TMR."""
+    grid = (Unprotected(), DiagParityEcc(impl=impl),
             Tmr("serial", impl=impl), Tmr("parallel", impl=impl),
             Tmr("semi_parallel", impl=impl),
             Compose(DiagParityEcc(impl=impl), Tmr("serial", impl=impl)))
+    if include_hsiao:
+        grid += (HsiaoSecDed(impl=impl),
+                 Compose(HsiaoSecDed(impl=impl), Tmr("serial", impl=impl)))
+    return grid
 
 
 def parse_scheme(spec: str, impl: Optional[str] = None) -> Scheme:
-    """Parse ``off | ecc | ecc-wb | tmr-<discipline>`` or a composition
-    ``ecc+tmr[-<discipline>]`` (discipline serial | parallel | semi)."""
+    """Parse any registered token (``off | ecc | ecc-wb | hsiao | hsiao-wb
+    | tmr-<discipline>``) or a composition ``<code>+tmr[-<discipline>]``
+    (discipline serial | parallel | semi)."""
     parts = [_parse_one(t, impl) for t in spec.split("+")]
     if len(parts) == 1:
         return parts[0]
@@ -432,4 +520,4 @@ def parse_scheme(spec: str, impl: Optional[str] = None) -> Scheme:
         if len(eccs) == 1 and len(tmrs) == 1:
             return Compose(ecc=eccs[0], tmr=tmrs[0])
     raise ValueError(f"cannot compose scheme spec {spec!r} "
-                     "(expected ecc+tmr[-<discipline>])")
+                     "(expected <code>+tmr[-<discipline>])")

@@ -24,7 +24,7 @@ BLOCKED = textwrap.dedent("""
               if m.split(".")[0] in ("jax", "jaxlib", "repro")
               and sys.modules[m] is not None]
     assert not leaked, leaked
-    print(len(mods), "modules")
+    print(len(mods), "modules:", " ".join(sorted(mods)))
 """)
 
 NO_GPU = textwrap.dedent("""
@@ -34,11 +34,16 @@ NO_GPU = textwrap.dedent("""
     torch.cuda.is_available = lambda: False     # a machine with no GPU
     from repro_torch.configs import get_config
     from repro_torch.launch import serve
+    from repro_torch.launch.batching import ContinuousBatcher
     from repro_torch.launch.engine import GenerationEngine
     cfg = get_config("phi3-mini-3.8b").smoke()
     for call in (lambda: GenerationEngine(cfg, gen=1),
                  lambda: GenerationEngine(cfg, gen=1, device="cuda"),
-                 lambda: serve.main(["--smoke", "--gen", "1"])):
+                 lambda: ContinuousBatcher(cfg),
+                 lambda: ContinuousBatcher(cfg, device="cuda"),
+                 lambda: serve.main(["--smoke", "--gen", "1"]),
+                 lambda: serve.main(["--server", "--smoke", "--gen", "2",
+                                     "--requests", "1"])):
         try:
             call()
         except RuntimeError as e:
@@ -46,6 +51,7 @@ NO_GPU = textwrap.dedent("""
         else:
             raise AssertionError("ran without a GPU")
     GenerationEngine(cfg, gen=1, device="cpu")        # asked for: fine
+    ContinuousBatcher(cfg, device="cpu")
     print("ok")
 """)
 
@@ -62,7 +68,14 @@ def _run(code: str) -> str:
 
 
 def test_port_imports_without_jax():
-    assert "modules" in _run(BLOCKED)
+    out = _run(BLOCKED)
+    assert "modules" in out
+    # the walk reaches every module of the package, the server slice's too
+    for m in ("repro_torch.launch.batching", "repro_torch.obs.registry",
+              "repro_torch.obs.latency", "repro_torch.obs.trace",
+              "repro_torch.kernels.hsiao_secded.ops",
+              "repro_torch.kernels.inject_scrub.ops"):
+        assert m in out.split(), (m, out)
 
 
 def test_entry_points_raise_without_gpu():
