@@ -36,7 +36,24 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      the full-width server pool, each against its plain version;
   6. a small-input reference: the phi3 smoke config in float32 through the
      kernels and through the plain versions must give the same tokens and
-     counters and logits within 1e-4.
+     counters and logits within 1e-4;
+  7. the netlist path of the paper's Fig. 4 (run right after phase 5, before
+     the launch counts are read): the 32-bit MultPIM multiplier (13,792
+     gates; schedule L=320 levels of W=128, base 66) through
+     `repro_torch.core.multpim` and the registry defaults.  (a) 2^20
+     fault-free random products (`default_rng(42)`) must all equal
+     `true_product_bits`; (b) one single-fault trial per gate
+     (`default_rng(0)` operands) must corrupt exactly 12,559 of 13,792
+     products (alpha 0.9106, the reference's count), and the same operands,
+     fault-free, through the gate-serial `crossbar_nor` must be right;
+     (c) 2^20 trials each at p_gate 1e-5 and 3e-5 and TMR with non-ideal
+     voting at 3e-5: the flipped gate lanes within the binomial 99% interval
+     of p x G x trials, and the closed form inside the 99% Wilson interval
+     of the first 4,096 trials (for TMR, whose closed form is a word-level
+     upper bound, not below it); p_hat over all trials is reported.  Before
+     it, in phase 3, both netlist kernels against their plain versions at
+     these shapes: `netlist_exec` over 2^20 trials in its three mask modes
+     (random keep and flip), `crossbar_nor` over 13,792 trials, bit for bit.
 
 The second-to-last line is a JSON object of per-kernel numbers; the last is
 {"ok": true, "device": {...}}.  Times are CUDA-event means on this card.
@@ -44,6 +61,7 @@ The second-to-last line is a JSON object of per-kernel numbers; the last is
 from __future__ import annotations
 
 import json
+import math
 import subprocess
 import sys
 import time
@@ -113,6 +131,8 @@ def main() -> int:
     rows.update(check_inject_scrub(torch, dev))
     rows.update(check_vote(torch, dev))
     rows.update(check_flash(torch, dev))
+    rows.update(check_netlist_exec(torch, dev))
+    rows.update(check_crossbar_nor(torch, dev))
 
     # 4. the one-shot serve path, 5. the server path: each kernel's
     # launches are counted on the runs of these paths only
@@ -127,8 +147,11 @@ def main() -> int:
     server = run_server_path(torch, cfg, inputs["params"])
     del inputs
     torch.cuda.empty_cache()
+    # 7. the netlist path (Fig. 4)
+    netlist = run_netlist_path(torch, dev)
     for name, row in rows.items():
-        row["launches"] = launches.get(name, 0) + server.get(name, 0)
+        row["launches"] = (launches.get(name, 0) + server.get(name, 0)
+                           + netlist.get(name, 0))
         check(row["launches"] > 0, f"{name} never launched on the main path")
 
     # 6. small-input reference
@@ -575,6 +598,103 @@ def check_flash(torch, dev):
         err, lib_ms)}
 
 
+#: the netlist path's multiplier width, Monte Carlo trials and rates
+#: (`benchmarks/campaign_mc.py` FIG4_PGATES), and the reference's
+#: single-fault count of the 32-bit multiplier on `default_rng(0)` operands
+N_BITS = 32
+MC_TRIALS = 1 << 20
+FIG4_PGATES = (1e-5, 3e-5)
+SINGLE_FAULT_WRONG_32 = 12559
+Z99 = 2.576
+
+
+def operands(torch, n: int, seed: int, dev):
+    """n random N_BITS-bit operand pairs from numpy, as the reference
+    scripts draw them, as int32 words on the card."""
+    rng = np.random.default_rng(seed)
+    a, b = (torch.from_numpy(rng.integers(0, 2**N_BITS, n, dtype=np.uint64)
+                             .astype(np.uint32).view(np.int32)).to(dev)
+            for _ in range(2))
+    return a, b
+
+
+def check_netlist_exec(torch, dev):
+    from repro_torch.core import multpim, scheduler
+    from repro_torch.kernels.netlist_exec import netlist_exec, netlist_exec_ref
+
+    sch = scheduler.schedule(multpim.multiplier_netlist(N_BITS))
+    L, W, base, tw = sch.n_levels, sch.max_width, sch.base, MC_TRIALS // 32
+    g = torch.Generator(device=dev).manual_seed(SEED + 5)
+    rows_in = torch.as_tensor(sch.rows_in, device=dev)
+    # random words everywhere (rows >= base too: the kernel overwrites them)
+    state = random_words(torch, sch.n_rows * tw, g, dev).view(sch.n_rows, tw)
+    masks = [random_words(torch, L * W * tw, g, dev).view(L, W, tw)
+             for _ in range(2)]
+    log(f"netlist_exec: {N_BITS}-bit multiplier schedule L={L} W={W} "
+        f"base={base}, state {sch.n_rows} x {tw} words "
+        f"({sch.n_rows * tw * 4 / 1e9:.2f} GB)")
+    timed = {}
+    for mode, (keep, flip) in (("none", (None, None)),
+                               ("xor", (None, masks[1])),
+                               ("keep+xor", tuple(masks))):
+        got = netlist_exec(rows_in, state.clone(), keep, flip, base=base)
+        plain = state.clone()
+        _, plain_ms = timed_once(torch, lambda: netlist_exec_ref(
+            rows_in, plain, keep, flip, base=base))
+        check(torch.equal(got, plain),
+              f"netlist_exec kernel != plain version ({mode})")
+        check(torch.equal(got[:base], state[:base]),
+              f"netlist_exec wrote below base ({mode})")
+        del got, plain
+        work = state.clone()
+        ms = time_ms(torch, lambda: netlist_exec(rows_in, work, keep, flip,
+                                                 base=base))
+        n_masks = (flip is not None) + (keep is not None)
+        # bytes: rows [0, base) and the masks read, the level rows written;
+        # operations: 6 bitwise word ops a gate, + 1 a mask
+        bnd = bound_ms((base + (1 + n_masks) * L * W) * tw * 4
+                       + rows_in.numel() * 4, (6 + n_masks) * L * W * tw)
+        log(f"netlist_exec ({mode}): kernel {ms:.3f} ms, plain "
+            f"{plain_ms:.1f} ms, bound {bnd[0]:.3f} ms ({bnd[1]}); "
+            f"bit-exact")
+        timed[mode] = (ms, plain_ms, bnd)
+        del work
+    del state, masks
+    torch.cuda.empty_cache()
+    ms, plain_ms, bnd = timed["keep+xor"]     # the Monte Carlo runs' mode
+    return {"netlist_exec": row(
+        "netlist_exec", "src/repro_torch/kernels/csrc/netlist_exec.cu",
+        "src/repro/kernels/netlist_exec/kernel.py:76", ms, plain_ms, bnd,
+        0.0)}
+
+
+def check_crossbar_nor(torch, dev):
+    from repro_torch.core import multpim
+    from repro_torch.kernels.crossbar_nor import crossbar_nor, crossbar_nor_ref
+
+    nl = multpim.multiplier_netlist(N_BITS)
+    tw = -(-nl.n_gates // 32)          # phase 7's golden run: one per gate
+    g = torch.Generator(device=dev).manual_seed(SEED + 6)
+    state = random_words(torch, tw * nl.n_wires, g, dev).view(tw, nl.n_wires)
+    gates = torch.as_tensor(nl.gates, device=dev)
+    got = crossbar_nor(gates, state)
+    plain, plain_ms = timed_once(torch, lambda: crossbar_nor_ref(gates,
+                                                                 state))
+    check(torch.equal(got, plain), "crossbar_nor kernel != plain version")
+    ms = time_ms(torch, lambda: crossbar_nor(gates, state), reps=10)
+    bnd = bound_ms(2 * state.numel() * 4 + gates.numel() * 4,
+                   6 * nl.n_gates * tw)
+    log(f"crossbar_nor: {nl.n_gates} gates over {tw} x {nl.n_wires} words: "
+        f"kernel {ms:.3f} ms, plain {plain_ms:.1f} ms, bound {bnd[0]:.4f} ms "
+        f"({bnd[1]}; the gate walk is a chain of dependent loads, bound by "
+        f"latency); bit-exact")
+    del state, got, plain
+    return {"crossbar_nor": row(
+        "crossbar_nor", "src/repro_torch/kernels/csrc/crossbar_nor.cu",
+        "src/repro/kernels/crossbar_nor/kernel.py:40", ms, plain_ms, bnd,
+        0.0)}
+
+
 # ----------------------------------------------------------------------------
 # 4. the one-shot serve path
 # ----------------------------------------------------------------------------
@@ -753,6 +873,128 @@ def run_server_path(torch, cfg, params):
         f"and counters {dict((k, int(v)) for k, v in pa.items())} equal; "
         f"{ta} ticks live, {ts} alone")
     return total
+
+
+# ----------------------------------------------------------------------------
+# 7. the netlist path (paper Fig. 4)
+# ----------------------------------------------------------------------------
+
+def popcount_total(torch, words) -> int:
+    """Set bits in an int32 tensor, counted in chunks of rows."""
+    from repro_torch.core.bitops import as_u64, popcount32
+    flat = words.reshape(-1)
+    step = 1 << 26
+    return sum(int(popcount32(as_u64(flat[i:i + step])).sum())
+               for i in range(0, flat.numel(), step))
+
+
+def run_netlist_path(torch, dev):
+    """(a)-(c) of phase 7; returns the launch counts of the path's runs."""
+    from repro_torch import kernels
+    from repro_torch.core import analytics as A
+    from repro_torch.core import multpim
+    from repro_torch.faults import TransientGateFaults, wilson_interval
+    from repro_torch.reliability import backend
+
+    nl = multpim.multiplier_netlist(N_BITS)
+    G = nl.n_gates
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    # (a) fault-free products of 2^20 random operand pairs
+    a, b = operands(torch, MC_TRIALS, 42, dev)
+    want = multpim.true_product_bits(a, b, N_BITS)
+    bits, sec = timed(lambda: multpim.multiply_bits(a, b, N_BITS))
+    check(bits.shape == want.shape and bits.device == want.device
+          and torch.equal(bits, want),
+          f"netlist (a): {int((bits != want).any(1).sum())} of {MC_TRIALS} "
+          f"fault-free products wrong")
+    log(f"netlist (a): {MC_TRIALS} fault-free {N_BITS}-bit products all "
+        f"right in {sec:.3f} s; peak "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    del bits
+
+    # (b) one single-fault trial per gate position, and the golden run
+    a0, b0 = operands(torch, G, 0, dev)
+    want0 = multpim.true_product_bits(a0, b0, N_BITS)
+    bits, sec = timed(lambda: multpim.multiply_bits(
+        a0, b0, N_BITS, fault_gate=torch.arange(G, device=dev)))
+    wrong = int((bits != want0).any(1).sum())
+    alpha = wrong / G
+    log(f"netlist (b): single faults corrupt {wrong} of {G} products "
+        f"(alpha {alpha:.4f}) in {sec:.3f} s")
+    check(wrong == SINGLE_FAULT_WRONG_32,
+          f"netlist (b): {wrong} corrupted products, the reference counts "
+          f"{SINGLE_FAULT_WRONG_32}")
+    golden, sec = timed(lambda: backend.dispatch("crossbar_nor")(
+        nl, multpim._pack_inputs(a0, b0, N_BITS)))
+    check(torch.equal(golden, want0), "netlist (b): crossbar_nor golden run "
+          "!= true products")
+    log(f"netlist (b): gate-serial crossbar_nor golden run over {G} trials "
+        f"right in {sec:.3f} s")
+    del bits, golden, want0, a0, b0
+
+    # (c) Monte Carlo at the campaign's rates, and TMR
+    for i, p in enumerate(FIG4_PGATES + (FIG4_PGATES[-1],)):
+        tmr = i == len(FIG4_PGATES)
+        seed = SEED + 20 + i
+        if not tmr:
+            # the path's first draw from a generator seeded so is its gate
+            # plane: the same draw here counts the lanes the run flips
+            _, flip = TransientGateFaults(p).gate_lane_masks(
+                torch.Generator(device=dev).manual_seed(seed), G, MC_TRIALS)
+            flips = popcount_total(torch, flip)
+            del flip
+            mean = p * G * MC_TRIALS
+            half = Z99 * math.sqrt(mean * (1 - p))
+            check(abs(flips - mean) <= half,
+                  f"netlist (c): {flips} flipped gate lanes at p {p:g}, "
+                  f"binomial 99% interval {mean:.0f} +- {half:.0f}")
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        if tmr:
+            bits, sec = timed(lambda: multpim.multiply_tmr_bits(
+                a, b, N_BITS, gen, p))
+            model = float(A.p_mult_tmr(np.array([p]), alpha, G)[0])
+        else:
+            bits, sec = timed(lambda: multpim.multiply_bits(
+                a, b, N_BITS, generator=gen, p_gate=p))
+            model = float(A.p_mult_from_alpha(np.array([p]), alpha, G)[0])
+        fail = (bits != want).any(1)
+        k, k4 = int(fail.sum()), int(fail[:4096].sum())
+        lo, hi = wilson_interval(k, MC_TRIALS, Z99)
+        lo4, hi4 = wilson_interval(k4, 4096, Z99)
+        name = f"{'tmr ' if tmr else ''}p_gate {p:g}"
+        log(f"netlist (c) {name}: p_hat {k / MC_TRIALS:.5f} 99% "
+            f"[{lo:.5f}, {hi:.5f}] over {MC_TRIALS}; {k4 / 4096:.4f} "
+            f"[{lo4:.4f}, {hi4:.4f}] over 4096; closed form "
+            f"{'p_mult_tmr (upper bound)' if tmr else 'p_mult_from_alpha'} "
+            f"{model:.5f}" + ("" if tmr else f"; {flips} flipped gate lanes, "
+                              f"expected {mean:.0f} +- {half:.0f}")
+            + f"; {sec:.3f} s")
+        if tmr:
+            check(lo4 <= model, f"netlist (c) {name}: closed-form upper "
+                  f"bound {model:.4f} below the 4096-trial interval "
+                  f"[{lo4:.4f}, {hi4:.4f}]")
+        else:
+            check(lo4 <= model <= hi4, f"netlist (c) {name}: closed form "
+                  f"{model:.4f} outside the 4096-trial interval "
+                  f"[{lo4:.4f}, {hi4:.4f}]")
+        del bits, fail
+    counts = kernels.launch_counts()
+    log(f"netlist path: peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB, launches "
+        f"{counts}")
+    del a, b, want
+    torch.cuda.empty_cache()
+    return counts
 
 
 # ----------------------------------------------------------------------------

@@ -1,5 +1,5 @@
-"""Word-level bit operations (port of `repro.core.bitops`, the subset the
-word code uses).
+"""Word-level bit operations (port of `repro.core.bitops`: the subset the
+word code uses, and the bit-plane and trial packing of the netlist engines).
 
 Packed words live in ``torch.int32`` storage, which holds the same 32 bits
 as the reference's uint32: torch cannot shift, subtract or sum
@@ -10,9 +10,13 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["MASK32", "as_u64", "as_i32", "rotl32", "popcount32"]
+__all__ = ["MASK32", "PACK", "as_u64", "as_i32", "rotl32", "popcount32",
+           "as_unsigned", "to_bits", "from_bits", "pack_trials",
+           "unpack_trials"]
 
 MASK32 = 0xFFFFFFFF
+#: trials packed per 32-bit lane word (the crossbar row-parallel axis)
+PACK = 32
 
 
 def as_u64(words: torch.Tensor) -> torch.Tensor:
@@ -43,3 +47,50 @@ def popcount32(x: torch.Tensor) -> torch.Tensor:
     x = (x + (x >> 4)) & 0x0F0F0F0F
     return (((x * 0x01010101) & MASK32) >> 24).to(torch.int32)
 
+
+def as_unsigned(x: torch.Tensor) -> torch.Tensor:
+    """Integer values as int64, int32 words read as unsigned."""
+    return as_u64(x) if x.dtype == torch.int32 else x.to(torch.int64)
+
+
+def to_bits(x: torch.Tensor, width: int) -> torch.Tensor:
+    """Unpack integers into a bit-plane, LSB first: (...,) -> bool
+    (..., width).  int32 words are read as unsigned."""
+    shifts = torch.arange(width, dtype=torch.int64, device=x.device)
+    return ((as_unsigned(x)[..., None] >> shifts) & 1).to(torch.bool)
+
+
+def from_bits(bits: torch.Tensor) -> torch.Tensor:
+    """Pack a bit-plane (..., width) LSB first into integers (...,): int32
+    words (the same 32 bits as the reference's uint32) for width <= 32,
+    int64 above."""
+    width = bits.shape[-1]
+    shifts = torch.arange(width, dtype=torch.int64, device=bits.device)
+    vals = (bits.to(torch.int64) << shifts).sum(-1)
+    return as_i32(vals) if width <= 32 else vals
+
+
+def pack_trials(bits: torch.Tensor) -> torch.Tensor:
+    """Pack the leading *trials* axis 32 per word, trial-major.
+
+    bits: bool (trials, ...) -> int32 (ceil(trials/32), ...) with trial t in
+    bit t % 32 of word t // 32, padding lanes 0: the packed-state layout of
+    the netlist engines (core/scheduler.py, kernels/netlist_exec,
+    kernels/crossbar_nor).
+    """
+    t = bits.shape[0]
+    pad = (-t) % PACK
+    if pad:
+        bits = torch.cat([bits, bits.new_zeros((pad,) + bits.shape[1:])])
+    bits = bits.reshape((-1, PACK) + bits.shape[1:]).to(torch.int64)
+    shifts = torch.arange(PACK, dtype=torch.int64, device=bits.device)
+    shifts = shifts.reshape((1, PACK) + (1,) * (bits.ndim - 2))
+    return as_i32((bits << shifts).sum(1))
+
+
+def unpack_trials(words: torch.Tensor, trials: int) -> torch.Tensor:
+    """Inverse of pack_trials: int32 (tw, ...) -> bool (trials, ...)."""
+    shifts = torch.arange(PACK, dtype=torch.int64, device=words.device)
+    shifts = shifts.reshape((1, PACK) + (1,) * (words.ndim - 1))
+    bits = ((words.to(torch.int64)[:, None] >> shifts) & 1).to(torch.bool)
+    return bits.reshape((-1,) + tuple(words.shape[1:]))[:trials]

@@ -1,3 +1,6 @@
-from .models import FaultModel, TransientBitFlips, flip_random_bits_
+from .campaign import wilson_interval
+from .models import (FaultModel, TransientBitFlips, TransientGateFaults,
+                     flip_random_bits_)
 
-__all__ = ["FaultModel", "TransientBitFlips", "flip_random_bits_"]
+__all__ = ["FaultModel", "TransientBitFlips", "TransientGateFaults",
+           "flip_random_bits_", "wilson_interval"]

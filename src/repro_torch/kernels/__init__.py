@@ -18,6 +18,10 @@ Kernels (TPU kernel each replaces, in the JAX package):
   tmr_vote        -- per-bit 2-of-3 majority (kernels/tmr_vote/kernel.py)
   flash_attention -- online-softmax prefill attention
                      (kernels/flash_attention/kernel.py)
+  netlist_exec    -- levelized Minority3 netlist over trial-packed words,
+                     optional fault masks (kernels/netlist_exec/kernel.py)
+  crossbar_nor    -- gate-serial Minority3 netlist interpreter
+                     (kernels/crossbar_nor/kernel.py)
 """
 from ._build import build, launch_counts, reset_launch_counts
 

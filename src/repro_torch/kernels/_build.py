@@ -28,7 +28,7 @@ __all__ = ["SOURCES", "build", "library", "check", "count_launch",
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("diag_parity", "inject_scrub", "hsiao_secded", "tmr_vote",
-           "flash_attention")
+           "flash_attention", "netlist_exec", "crossbar_nor")
 FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC", "-lineinfo")
 

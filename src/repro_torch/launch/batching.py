@@ -62,6 +62,7 @@ import torch
 
 from ..core import arena
 from ..core.bitops import as_u64, popcount32
+from ..device import resolve_device
 from ..models.config import ModelConfig
 from ..models.steps import make_decode_step, make_prefill_step
 from ..obs import DEFAULT_REGISTRY, LatencyTimeline, MetricsRegistry
@@ -178,13 +179,14 @@ class PagedKVPool:
     are views of one int32 word arena `words`, laid out as the reference
     packs ``{"k": k, "v": v}``; with `ecc` it carries one parity table,
     and `scrub()` / `inject_scrub()` are each one fused launch over it,
-    counters on the device.
+    counters on the device.  The pool lives on CUDA unless `device` says
+    otherwise (`device.resolve_device`).
     """
 
     def __init__(self, cfg: ModelConfig, spec: BatchSpec, *, copies: bool,
                  ecc: Optional[ArenaEcc] = None, device=None):
         self.cfg, self.spec, self.ecc, self.copies = cfg, spec, ecc, copies
-        device = torch.device("cpu" if device is None else device)
+        device = resolve_device(device)
         L, KV, hd = cfg.n_layers, cfg.n_kv, cfg.head_dim
         self.page_shape = (L, spec.page_tokens, KV, hd)
         self.page_words = arena.words_for(self.page_shape, cfg.cdtype)

@@ -7,12 +7,19 @@
     hsiao_secded  kernel | torch   (39,32) SEC-DED encode/scrub of the arena
     inject_scrub  kernel | torch   fused corrupt+scrub of the arena
     tmr_vote      kernel | torch   per-bit 2-of-3 majority
+    netlist_exec  kernel | level | scan   netlist execution engines
+    crossbar_nor  kernel | torch   gate-serial netlist interpreter
 
 ``kernel`` is the op's public wrapper: on a CUDA tensor it launches the
 Hopper kernel (or raises), on a CPU tensor it runs the plain version.
 ``torch`` runs the plain version on any device.  Resolution order: the
 per-call ``impl=``, then the default.  Implementations load lazily and
 are cached.
+
+The reference's default for ``netlist_exec`` is ``level``, its fastest
+engine in CPU interpret mode; here ``kernel`` is the default, as for every
+op, and runs the levelized plain version on a CPU tensor.  ``level`` and
+``scan`` are the plain levelized and gate-serial executors on any device.
 """
 from __future__ import annotations
 
@@ -115,3 +122,35 @@ register("inject_scrub", "kernel", _load_inject_scrub_kernel, default=True)
 register("inject_scrub", "torch", _load_inject_scrub_torch)
 register("tmr_vote", "kernel", _load_tmr_vote_kernel, default=True)
 register("tmr_vote", "torch", _load_tmr_vote_torch)
+
+
+def _load_netlist_kernel():
+    from ..kernels.netlist_exec import execute_packed
+    return execute_packed
+
+
+def _load_netlist_level():
+    from ..core.scheduler import execute_levelized
+    return execute_levelized
+
+
+def _load_netlist_scan():
+    from ..core.netlist import execute
+    return execute
+
+
+def _load_crossbar_nor_kernel():
+    from ..kernels.crossbar_nor import execute_netlist
+    return execute_netlist
+
+
+def _load_crossbar_nor_torch():
+    from ..kernels.crossbar_nor.ref import execute_netlist_ref
+    return execute_netlist_ref
+
+
+register("netlist_exec", "kernel", _load_netlist_kernel, default=True)
+register("netlist_exec", "level", _load_netlist_level)
+register("netlist_exec", "scan", _load_netlist_scan)
+register("crossbar_nor", "kernel", _load_crossbar_nor_kernel, default=True)
+register("crossbar_nor", "torch", _load_crossbar_nor_torch)

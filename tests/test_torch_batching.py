@@ -284,7 +284,7 @@ def test_join_live_batch_matches_alone(setup, scheme):
 def test_page_allocator_reuse_and_double_free():
     _, cfg = _cfgs()
     spec = BatchSpec(**SPEC)
-    pool = PagedKVPool(cfg, spec, copies=False)
+    pool = PagedKVPool(cfg, spec, copies=False, device="cpu")
     a = pool.alloc(3)
     assert a is not None and pool.free_pages == spec.pool_pages - 3
     assert pool.alloc(spec.pool_pages) is None    # short -> None, no change

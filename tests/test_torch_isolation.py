@@ -34,13 +34,17 @@ NO_GPU = textwrap.dedent("""
     torch.cuda.is_available = lambda: False     # a machine with no GPU
     from repro_torch.configs import get_config
     from repro_torch.launch import serve
-    from repro_torch.launch.batching import ContinuousBatcher
+    from repro_torch.launch.batching import (BatchSpec, ContinuousBatcher,
+                                             PagedKVPool)
     from repro_torch.launch.engine import GenerationEngine
     cfg = get_config("phi3-mini-3.8b").smoke()
+    spec = BatchSpec(slots=1, page_tokens=4, chunk=2, prompt_buckets=(4,),
+                     gen_cap=4)
     for call in (lambda: GenerationEngine(cfg, gen=1),
                  lambda: GenerationEngine(cfg, gen=1, device="cuda"),
                  lambda: ContinuousBatcher(cfg),
                  lambda: ContinuousBatcher(cfg, device="cuda"),
+                 lambda: PagedKVPool(cfg, spec, copies=False),
                  lambda: serve.main(["--smoke", "--gen", "1"]),
                  lambda: serve.main(["--server", "--smoke", "--gen", "2",
                                      "--requests", "1"])):
@@ -52,6 +56,7 @@ NO_GPU = textwrap.dedent("""
             raise AssertionError("ran without a GPU")
     GenerationEngine(cfg, gen=1, device="cpu")        # asked for: fine
     ContinuousBatcher(cfg, device="cpu")
+    PagedKVPool(cfg, spec, copies=False, device="cpu")
     print("ok")
 """)
 
@@ -70,11 +75,14 @@ def _run(code: str) -> str:
 def test_port_imports_without_jax():
     out = _run(BLOCKED)
     assert "modules" in out
-    # the walk reaches every module of the package, the server slice's too
+    # the walk reaches every module of the package, the later slices' too
     for m in ("repro_torch.launch.batching", "repro_torch.obs.registry",
               "repro_torch.obs.latency", "repro_torch.obs.trace",
               "repro_torch.kernels.hsiao_secded.ops",
-              "repro_torch.kernels.inject_scrub.ops"):
+              "repro_torch.kernels.inject_scrub.ops",
+              "repro_torch.core.scheduler", "repro_torch.core.multpim",
+              "repro_torch.kernels.netlist_exec.ops",
+              "repro_torch.kernels.crossbar_nor.ops"):
         assert m in out.split(), (m, out)
 
 
