@@ -9,11 +9,17 @@ Phases (any failure raises and exits non-zero; nothing is caught):
   3. each kernel against its plain PyTorch version at the main path's
      shapes, timed beside its bound: diagonal-parity encode and scrub over a
      full phi3-mini fp32 arena (3.8e9 words) with planted single data-bit,
-     single parity-word and double errors, plus the 3-copy shared-parity
-     scrub; the TMR vote over token ids and the phi3-mini KV cache; flash
-     attention at the prefill shape (B=4, H=32, S=256, hd=96, bf16) and a
-     GQA + sliding-window shape.  Rows 1-3 must match bit for bit, flash
-     within |kernel - plain| <= 1e-2 + 1e-2 |plain| (bf16 output rounding);
+     single parity-word and double errors, the 3-copy shared-parity scrub
+     of quarter arenas, and of three full copies (1.15e10 words, the
+     one-shot ecc+tmr launch; the plain version checks a gathered copy of
+     the corrupted blocks and every other block must be untouched), the
+     encodes at a page refresh's shape; the TMR vote over token ids and the
+     phi3-mini KV cache; flash attention at the one-shot prefill shape (B=4,
+     H=32, S=256, hd=96, bf16), at the server's admission shape (B=1) and a
+     GQA + sliding-window shape, with SDPA timed beside (flash times are
+     device times of CUDA-graph replays; per-call times beside them).
+     Integer kernels must match bit for bit, flash within |kernel - plain|
+     <= 1e-2 + 1e-2 |plain| (bf16 rounding of the output and of P);
   4. the main path: phi3-mini-3.8b at full width and depth, random init on a
      seeded generator, attention_impl="pallas", batch 4, prompt 256, gen 32:
      the clean `off` run, `ecc` and `ecc+tmr-parallel --vote-every 8
@@ -56,7 +62,8 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      (random keep and flip), `crossbar_nor` over 13,792 trials, bit for bit.
 
 The second-to-last line is a JSON object of per-kernel numbers; the last is
-{"ok": true, "device": {...}}.  Times are CUDA-event means on this card.
+{"ok": true, "device": {...}}.  Times are CUDA-event means on this card
+(flash: of CUDA-graph replays).
 """
 from __future__ import annotations
 
@@ -153,6 +160,10 @@ def main() -> int:
         row["launches"] = (launches.get(name, 0) + server.get(name, 0)
                            + netlist.get(name, 0))
         check(row["launches"] > 0, f"{name} never launched on the main path")
+    log("launches by path (one-shot ecc+tmr-parallel / server, 4 runs / "
+        "netlist): " + ", ".join(
+            f"{name} {launches.get(name, 0)}/{server.get(name, 0)}/"
+            f"{netlist.get(name, 0)}" for name in rows))
 
     # 6. small-input reference
     check_small_reference(torch, dev)
@@ -182,6 +193,29 @@ def time_ms(torch, fn, reps: int = 5, warmup: int = 1) -> float:
     return start.elapsed_time(end) / reps
 
 
+def graph_ms(torch, fn, reps: int = 50) -> float:
+    """Device time of one fn() call: `reps` calls captured in a CUDA graph,
+    the graph replayed and timed by CUDA events, so the host's launch
+    overhead between calls is not counted (for kernels of microseconds,
+    where back-to-back calls from Python time the host)."""
+    for _ in range(2):
+        fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(4):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (4 * reps)
+
+
 def timed_once(torch, fn):
     """(result, CUDA-event ms) of one call."""
     start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
@@ -200,14 +234,21 @@ def row(name, source, replaces, ms, plain_ms, bound, err, library_ms=None):
             "bound_by": bound[1], "library_ms": library_ms}
 
 
-def random_words(torch, n: int, g, dev):
-    """n uniformly random 32-bit words (int32 storage), drawn in chunks."""
-    out = torch.empty(n, dtype=torch.int32, device=dev)
+def random_word_chunks(torch, n: int, g, dev):
+    """(start, end, words) chunks of n uniformly random 32-bit words
+    (int32 storage), drawn in order from `g`."""
     step = 1 << 28
     for i in range(0, n, step):
         j = min(n, i + step)
-        out[i:j] = torch.randint(-2**31, 2**31, (j - i,), dtype=torch.int64,
-                                 device=dev, generator=g).to(torch.int32)
+        yield i, j, torch.randint(-2**31, 2**31, (j - i,), dtype=torch.int64,
+                                  device=dev, generator=g).to(torch.int32)
+
+
+def random_words(torch, n: int, g, dev):
+    """n uniformly random 32-bit words (int32 storage), drawn in chunks."""
+    out = torch.empty(n, dtype=torch.int32, device=dev)
+    for i, j, chunk in random_word_chunks(torch, n, g, dev):
+        out[i:j] = chunk
     return out
 
 
@@ -216,6 +257,16 @@ def server_spec():
     from repro_torch.launch.batching import BatchSpec
     return BatchSpec(slots=4, page_tokens=16, chunk=8, prompt_buckets=(256,),
                      gen_cap=32)
+
+
+def server_pool_words():
+    """(words of one server pool copy, words of one tick's page refresh:
+    16 page rows, four slots x two pages x the k and v planes)."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.batching import PagedKVPool
+    pool = PagedKVPool(get_config("phi3-mini-3.8b"), server_spec(),
+                       copies=False, device="meta")
+    return pool.arena_spec.n_words, 16 * pool.page_words
 
 
 def flip_bits(torch, words, idx, bit):
@@ -249,6 +300,11 @@ def check_diag_parity(torch, dev):
     enc_bound = bound_ms(n * 4 + nb * 12, 6 * n)
     log(f"encode_parity: kernel {enc_ms:.3f} ms, plain {enc_plain_ms:.1f} ms, "
         f"bound {enc_bound[0]:.3f} ms ({enc_bound[1]}); bit-exact")
+    _, npage = server_pool_words()
+    page_ms = time_ms(torch, lambda: D.encode_parity(words[:npage]), reps=20)
+    log(f"encode_parity (a page refresh, {npage} words): kernel "
+        f"{page_ms:.4f} ms, bound "
+        f"{bound_ms(npage * 4 + npage // 32 * 12)[0]:.4f} ms")
 
     # plant 1000 single data-bit errors, 100 single parity-word errors and
     # 100 double errors, each in its own block
@@ -311,6 +367,7 @@ def check_diag_parity(torch, dev):
         f"{bound_ms(3 * nq * 4 + nq // 32 * 12)[0]:.3f} ms; bit-exact")
     del base, par, w3, w3_p
     torch.cuda.empty_cache()
+    check_scrub_three_copies(torch, dev, n, g)
 
     src = "src/repro_torch/kernels/csrc/diag_parity.cu"
     return {
@@ -321,6 +378,73 @@ def check_diag_parity(torch, dev):
                      "src/repro/kernels/diag_parity/kernel.py:130",
                      scrub_ms, scrub_plain_ms, scrub_bound, 0.0),
     }
+
+
+def check_scrub_three_copies(torch, dev, n, g):
+    """The one-shot ecc+tmr launch's shape: three stacked full arena copies
+    (1.15e10 words) against one shared table, bit-exact against the plain
+    version.  The three copies leave no room for a second set, so the plain
+    version scrubs a gathered copy of the corrupted blocks (the code is
+    block-local), and every other block must come out as it went in: the
+    clean arena is drawn again from its seed, chunk by chunk, to compare.
+    Then the clean launch is timed."""
+    from repro_torch.kernels import diag_parity as D
+    nb = n // 32
+    torch.cuda.reset_peak_memory_stats()
+
+    def rint(hi, k):
+        return torch.randint(0, hi, (k,), device=dev, generator=g)
+
+    def arena_gen():
+        return torch.Generator(device=dev).manual_seed(SEED + 8)
+
+    base = random_words(torch, n, arena_gen(), dev)
+    par = D.encode_parity(base)
+    w3 = base.repeat(3)
+    del base
+    # 3000 single flips and 300 two-word doubles over the copies, and 100
+    # single-bit errors in the shared table (every copy sees them)
+    blk = torch.randperm(3 * nb, device=dev, generator=g)[:3300]
+    prow = torch.randperm(nb, device=dev, generator=g)[:100]
+    hit = torch.unique(torch.cat([blk, prow, prow + nb, prow + 2 * nb]))
+    w3v = w3.view(-1, 32)
+    clean_rows = w3v[hit].clone()
+    i1 = rint(32, 3300)
+    flip_bits(torch, w3, blk * 32 + i1, rint(32, 3300))
+    i2 = (i1[3000:] + 1 + rint(31, 300)) % 32
+    flip_bits(torch, w3, blk[3000:] * 32 + i2, rint(32, 300))
+    bad_par = par.clone()
+    flip_bits(torch, bad_par.view(-1), prow * 3 + rint(3, 100), rint(32, 100))
+    small = w3v[hit].reshape(-1).clone()
+    small_par = bad_par[hit % nb].clone()
+    small_out = torch.empty_like(small_par)
+
+    out = torch.empty((3 * nb, 3), dtype=torch.int32, device=dev)
+    _, _, counts = D.scrub(w3, bad_par, out_parity=out)
+    _, _, counts_p = D.scrub_ref(small, small_par, out_parity=small_out)
+    check(torch.equal(w3v[hit].reshape(-1), small)
+          and torch.equal(out[hit], small_out)
+          and torch.equal(counts, counts_p),
+          "3-copy shared-table scrub kernel != plain version")
+    del bad_par, small, small_par, small_out
+    w3v[hit] = clean_rows
+    out[hit] = par[hit % nb]
+    copies = w3.view(3, n)
+    same = all(torch.equal(t, par) for t in out.view(3, nb, 3))
+    for i, j, chunk in random_word_chunks(torch, n, arena_gen(), dev):
+        same &= all(torch.equal(c[i:j], chunk) for c in copies)
+    check(same, "3-copy shared-table scrub changed a block outside the "
+          "planted ones")
+    del out, copies, clean_rows
+    ms = time_ms(torch, lambda: D.scrub(w3, par))
+    bnd = bound_ms(3 * n * 4 + nb * 12)
+    log(f"scrub (3 full copies x {n} words, shared table, as the one-shot "
+        f"ecc+tmr launch): kernel {ms:.3f} ms, bound {bnd[0]:.3f} ms; "
+        f"counts {counts.tolist()} ({hit.numel()} blocks hit) bit-exact; "
+        f"peak device memory {torch.cuda.max_memory_allocated() / 1e9:.2f}"
+        f" GB")
+    del par, w3, w3v
+    torch.cuda.empty_cache()
 
 
 def check_hsiao(torch, dev):
@@ -345,6 +469,18 @@ def check_hsiao(torch, dev):
     enc_bound = bound_ms(n * 4 + nb * 28, 21 * n)
     log(f"encode_hsiao: kernel {enc_ms:.3f} ms, plain {enc_plain_ms:.1f} ms, "
         f"bound {enc_bound[0]:.3f} ms ({enc_bound[1]}); bit-exact")
+    npool, npage = server_pool_words()
+    page_ms = time_ms(torch, lambda: H.encode_hsiao(words[:npage]), reps=20)
+    log(f"encode_hsiao (a page refresh, {npage} words): kernel "
+        f"{page_ms:.4f} ms, bound "
+        f"{bound_ms(npage * 4 + npage // 32 * 28)[0]:.4f} ms")
+    for what, nw in (("one server pool copy", npool),
+                     ("a tick's page repair", npage)):
+        w_, par_ = words[:nw], H.encode_hsiao(words[:nw])
+        ms_ = time_ms(torch, lambda: H.scrub(w_, par_), reps=10)
+        log(f"scrub_hsiao ({what}, {nw} words): kernel {ms_:.4f} ms, bound "
+            f"{bound_ms(nw * 4 + nw // 32 * 28)[0]:.4f} ms")
+        del w_, par_
 
     # plant 1000 single data-bit flips, 100 check-bit flips and 100
     # same-word double flips, each in its own block (so in distinct words)
@@ -429,15 +565,11 @@ def check_hsiao(torch, dev):
 
 
 def check_inject_scrub(torch, dev):
-    from repro_torch.configs import get_config
     from repro_torch.kernels import diag_parity as D
     from repro_torch.kernels.inject_scrub import (inject_scrub,
                                                   inject_scrub_ref)
-    from repro_torch.launch.batching import PagedKVPool
 
-    cfg = get_config("phi3-mini-3.8b")
-    pool = PagedKVPool(cfg, server_spec(), copies=False, device="meta")
-    n = pool.arena_spec.n_words
+    n, _ = server_pool_words()
     nb = n // 32
     g = torch.Generator(device=dev).manual_seed(SEED + 4)
 
@@ -572,30 +704,41 @@ def check_flash(torch, dev):
               f"{diff.max().item():.3g})")
         return diff.max().item()
 
-    B, S, H, hd = 4, 256, 32, 96
-    q, k, v = qkv(B, S, H, H, hd)
-    err = compare(q, k, v, 0)
-    ms = time_ms(torch, lambda: flash_attention(q, k, v, causal=True),
-                 reps=20)
-    plain_ms = time_ms(torch, lambda: flash_attention_ref(q, k, v,
-                                                          causal=True),
-                       reps=20)
-    qh, kh, vh = (x.transpose(1, 2).contiguous() for x in (q, k, v))
-    lib_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(
-        qh, kh, vh, is_causal=True), reps=20)
-    pairs = S * (S + 1) // 2
-    bnd = bound_ms(4 * B * S * H * hd * 2, 4 * B * H * hd * pairs, "bf16")
-    log(f"flash_attention: B={B} S={S} H={H} hd={hd} bf16 causal: kernel "
-        f"{ms:.3f} ms, plain {plain_ms:.3f} ms, SDPA {lib_ms:.3f} ms, bound "
-        f"{bnd[0]:.4f} ms ({bnd[1]}); max abs err {err:.3g}")
+    # the one-shot prefill (B=4) and the server's admission prefill of one
+    # request at the 256-token bucket (B=1).  ms: device time (graph_ms);
+    # per call: CUDA events around back-to-back calls from Python
+    S, H, hd = 256, 32, 96
+    timed = {}
+    for B in (4, 1):
+        q, k, v = qkv(B, S, H, H, hd)
+        err = compare(q, k, v, 0)
+        qh, kh, vh = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+        fns = {"kernel": lambda: flash_attention(q, k, v, causal=True),
+               "plain": lambda: flash_attention_ref(q, k, v, causal=True),
+               "SDPA": lambda: F.scaled_dot_product_attention(
+                   qh, kh, vh, is_causal=True)}
+        dev_ms = {name: graph_ms(torch, fn) for name, fn in fns.items()}
+        call_ms = {name: time_ms(torch, fn, reps=20)
+                   for name, fn in fns.items()}
+        pairs = S * (S + 1) // 2
+        bnd = bound_ms(4 * B * S * H * hd * 2, 4 * B * H * hd * pairs,
+                       "bf16")
+        log(f"flash_attention: B={B} S={S} H={H} hd={hd} bf16 causal: "
+            + ", ".join(f"{name} {dev_ms[name]:.4f} ms (per call "
+                        f"{call_ms[name]:.4f})" for name in fns)
+            + f"; bound {bnd[0]:.4f} ms ({bnd[1]}); max abs err {err:.3g}")
+        timed[B] = (dev_ms["kernel"], dev_ms["plain"], bnd, err,
+                    dev_ms["SDPA"])
+        del q, k, v, qh, kh, vh
     q2, k2, v2 = qkv(2, 512, 40, 8, 128)
     err2 = compare(q2, k2, v2, 128)
     log(f"flash_attention: GQA H=40 KV=8 hd=128 window=128 S=512: max abs "
         f"err {err2:.3g}")
+    ms, plain_ms, bnd, err, lib_ms = timed[4]     # the row: B=4
     return {"flash_attention": row(
         "flash_attention", "src/repro_torch/kernels/csrc/flash_attention.cu",
         "src/repro/kernels/flash_attention/kernel.py:84", ms, plain_ms, bnd,
-        err, lib_ms)}
+        max(err, timed[1][3], err2), lib_ms)}
 
 
 #: the netlist path's multiplier width, Monte Carlo trials and rates

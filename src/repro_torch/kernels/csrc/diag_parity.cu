@@ -2,10 +2,11 @@
 //
 // Replaces the TPU kernels `encode_parity_kernel` and `scrub_kernel` of
 // src/repro/kernels/diag_parity/kernel.py (:48 and :130, bodies `_kernel`
-// and `scrub_body`).  The code, the warp-per-block design and the scrub
-// body live in diag_scrub.cuh, which the fused inject+scrub
-// (inject_scrub.cu) shares.  The scrub writes in place and only where a
-// word changes (the flagged bit of word i0, or a healed parity word).
+// and `scrub_body`).  The code, the warp-per-block encode and the
+// thread-per-block scrub body live in diag_scrub.cuh, which the fused
+// inject+scrub (inject_scrub.cu) shares.  The scrub writes in place and
+// only where a word changes (the flagged bit of word i0, or a healed
+// parity word).
 //
 // Bound: both passes read every arena word once (scrub also the parity
 // table) and write almost nothing, so they are bound by device-memory

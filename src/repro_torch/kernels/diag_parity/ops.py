@@ -44,6 +44,14 @@ def _check_table(t: torch.Tensor, rows: int, f: int, buf: torch.Tensor,
                          f"{tuple(t.shape)} on {t.device}")
 
 
+def _check_aligned(*bufs: torch.Tensor) -> None:
+    """The scrub kernel stages blocks by 16-byte copies."""
+    if any(b.data_ptr() % 16 for b in bufs):
+        raise ValueError("the scrub kernel needs 16-byte aligned word "
+                         "buffers (a view that starts on a block boundary "
+                         "of an allocation is)")
+
+
 def encode_parity(buf: torch.Tensor,
                   slopes: Tuple[int, ...] = (1, 2, -1)) -> torch.Tensor:
     """Parity table (n_blocks, len(slopes)) int32 of a flat word buffer."""
@@ -91,6 +99,7 @@ def scrub(buf: torch.Tensor, parity: torch.Tensor,
         return scrub_ref(buf, parity, slopes, out_parity)
     if buf.device.type != "cuda":
         raise ValueError(f"unsupported device {buf.device}")
+    _check_aligned(buf)
     counts = torch.zeros(3, dtype=torch.int32, device=buf.device)
     in_place = out_parity is None and npb == n
     target = parity if in_place else out_parity

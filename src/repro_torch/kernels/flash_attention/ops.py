@@ -24,7 +24,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
     Full-sequence attention only (q_offset == 0), as the reference's kernel
     path.  The CUDA kernel has its own fixed tiles (the config's q_block /
-    kv_block size the TPU kernel and the blocked path)."""
+    kv_block size the TPU kernel and the blocked path): bfloat16 runs on
+    the tensor cores (`wgmma`, P rounded to bfloat16 before P.V), float32
+    on CUDA cores."""
     if q_offset != 0:
         raise ValueError("flash_attention covers full-sequence attention "
                          "(q_offset must be 0)")
@@ -54,6 +56,13 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             k.device != q.device or v.device != q.device:
         raise ValueError("flash_attention kernel needs unit stride along "
                          "head_dim and all operands on one device")
+    if q.dtype == torch.bfloat16 and (
+            hd % 8 or any(s % 8 for t in (q, k, v) for s in t.stride()[:3])
+            or any(t.data_ptr() % 16 for t in (q, k, v))):
+        raise ValueError("the bfloat16 flash_attention kernel stages rows by "
+                         "16-byte copies: head_dim and the batch, sequence "
+                         "and head strides must be multiples of 8, the "
+                         "pointers 16-byte aligned")
     out = torch.empty((B, Sq, H, hd), dtype=q.dtype, device=q.device)
     kernel.forward(q, k, v, out, causal, window)
     _build.count_launch("flash_attention")

@@ -14,7 +14,7 @@ from typing import Optional, Tuple
 import torch
 
 from .. import _build
-from ..diag_parity.ops import BLOCK, _check_buf, _check_table
+from ..diag_parity.ops import BLOCK, _check_aligned, _check_buf, _check_table
 from . import kernel
 from .ref import inject_scrub_ref
 
@@ -53,6 +53,7 @@ def inject_scrub(buf: torch.Tensor, parity: torch.Tensor,
         return inject_scrub_ref(buf, parity, mask, slopes, out_parity)
     if buf.device.type != "cuda":
         raise ValueError(f"unsupported device {buf.device}")
+    _check_aligned(buf, mask)
     counts = torch.zeros(4, dtype=torch.int32, device=buf.device)
     in_place = out_parity is None and npb == n
     target = parity if in_place else out_parity

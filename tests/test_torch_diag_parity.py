@@ -134,3 +134,138 @@ def test_kernel_matches_plain_on_card(kind):
     assert torch.equal(buf.cpu(), want_w)
     assert torch.equal(got_p.cpu(), want_p)
     assert torch.equal(counts.cpu(), want_c)
+
+
+# Edge cases of the thread-per-block scrub: a warp tile is 32 blocks, so
+# block counts that are not a multiple of 32 leave a tail; 2 to 8 parity
+# families with negative slopes; one table shared by three stacked copies;
+# corrected parity written for every row, healed in place, or dropped.
+# Each block carries one of: a single data-bit error, a single parity-word
+# error, two data-bit errors, every bit flipped, or nothing.
+EDGE_CODES = [(1, (1, 2, -1)), (33, (1, 2)), (45, (1, 2, -1)),
+              (77, (2, 1, -3, 5)), (100, (1, 2, -1, 3, -5, 7, -9, 11))]
+EDGE_LAYOUTS = ["in_place", "out_all", "shared3_out", "shared3_dropped"]
+
+
+def _plant_data(w, n, rs, shift=0):
+    """Corrupt data words of block b by kind (b + shift) % 5."""
+    for b in range(n):
+        kind = (b + shift) % 5
+        if kind == 0:
+            _flip(w, b * BLOCK + rs.randint(BLOCK), rs.randint(32))
+        elif kind == 2:
+            i1, i2 = rs.choice(BLOCK, 2, replace=False)
+            _flip(w, b * BLOCK + i1, rs.randint(32))
+            _flip(w, b * BLOCK + i2, rs.randint(32))
+        elif kind == 3:
+            w[b * BLOCK:(b + 1) * BLOCK] ^= np.uint32(0xFFFFFFFF)
+
+
+def _plant_parity(p, n, rs):
+    for b in range(1, n, 5):          # kind 1: one parity-word error
+        p[b, rs.randint(p.shape[1])] ^= np.uint32(1 << rs.randint(32))
+
+
+def edge_case(n_blocks, slopes, layout, seed=0):
+    """(words, table, out table or None, JAX words, JAX parity, JAX counts)
+    of one edge case, the JAX side from the reference's `scrub_ref` over
+    the concatenated copies and tables; numpy uint32."""
+    rs = np.random.RandomState(seed + n_blocks)
+    w = _words(n_blocks, seed + n_blocks)
+    p = D.encode_parity_ref(_to_t(w), slopes).numpy().view(np.uint32).copy()
+    copies = 3 if layout.startswith("shared3") else 1
+    bufs = []
+    for c in range(copies):
+        wc = w.copy()
+        _plant_data(wc, n_blocks, rs, shift=c)
+        bufs.append(wc)
+    _plant_parity(p, n_blocks, rs)
+    words = np.concatenate(bufs)
+    full = np.concatenate([p] * copies)
+    want = [np.asarray(x) for x in j_scrub(jnp.asarray(words),
+                                           jnp.asarray(full), slopes=slopes)]
+    out = None
+    if layout != "in_place" and layout != "shared3_dropped":
+        out = np.zeros_like(full)
+    return (words, p, out, *want)
+
+
+def _run_edge(words, p, out, slopes, dev):
+    buf, par = _to_t(words).to(dev), _to_t(p).to(dev)
+    out_t = None if out is None else _to_t(out).to(dev)
+    _, got_p, counts = D.scrub(buf, par, slopes, out_parity=out_t)
+    return buf, par, got_p, counts
+
+
+def _check_edge(layout, res, want_w, want_p, want_c):
+    buf, par, got_p, counts = (None if x is None else x.cpu() for x in res)
+    np.testing.assert_array_equal(buf.numpy(), want_w.view(np.int32))
+    np.testing.assert_array_equal(counts.numpy(), want_c)
+    if layout == "shared3_dropped":
+        assert got_p is None
+    else:
+        np.testing.assert_array_equal(got_p.numpy(), want_p.view(np.int32))
+    if layout == "in_place":
+        assert got_p is not None and torch.equal(got_p, par)
+
+
+@pytest.mark.parametrize("layout", EDGE_LAYOUTS)
+@pytest.mark.parametrize("n_blocks,slopes", EDGE_CODES,
+                         ids=[f"n{n}F{len(s)}" for n, s in EDGE_CODES])
+def test_scrub_edge_cases_match_jax(n_blocks, slopes, layout):
+    words, p, out, want_w, want_p, want_c = edge_case(n_blocks, slopes,
+                                                      layout)
+    res = _run_edge(words, p, out, slopes, torch.device("cpu"))
+    _check_edge(layout, res, want_w, want_p, want_c)
+    if n_blocks >= 5:                 # every kind of block was planted
+        assert want_c[0] > 0 and want_c[2] > 0
+        assert layout.startswith("shared3") or want_c[1] > 0
+
+
+@pytest.mark.parametrize("F", range(1, 9))
+def test_encode_with_negative_slopes_matches_jax(F):
+    slopes = (1, 2, -1, 3, -5, 7, -9, 11)[:F][::-1]
+    w = _words(45, F)
+    want = np.asarray(j_encode(jnp.asarray(w), slopes=slopes))
+    got = D.encode_parity(_to_t(w), slopes)
+    np.testing.assert_array_equal(got.numpy(), want.view(np.int32))
+
+
+def _plain_edge(words, p, out, slopes):
+    """The plain version's result, as numpy, for the card cases."""
+    buf, par, got_p, counts = _run_edge(words, p, out, slopes,
+                                        torch.device("cpu"))
+    return (buf.numpy().view(np.uint32), None if got_p is None else
+            got_p.numpy().view(np.uint32), counts.numpy())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("layout", EDGE_LAYOUTS)
+@pytest.mark.parametrize("n_blocks,slopes", EDGE_CODES,
+                         ids=[f"n{n}F{len(s)}" for n, s in EDGE_CODES])
+def test_kernel_edge_cases_match_plain_on_card(n_blocks, slopes, layout):
+    dev = _cuda()
+    rs = np.random.RandomState(n_blocks)
+    w = _words(n_blocks, n_blocks)
+    p = D.encode_parity_ref(_to_t(w), slopes).numpy().view(np.uint32).copy()
+    copies = 3 if layout.startswith("shared3") else 1
+    bufs = [w.copy() for _ in range(copies)]
+    for c, wc in enumerate(bufs):
+        _plant_data(wc, n_blocks, rs, shift=c)
+    _plant_parity(p, n_blocks, rs)
+    words = np.concatenate(bufs)
+    out = None if layout in ("in_place", "shared3_dropped") else \
+        np.zeros((copies * n_blocks, len(slopes)), np.uint32)
+    want_w, want_p, want_c = _plain_edge(words, p.copy(), out, slopes)
+    res = _run_edge(words, p.copy(), out, slopes, dev)
+    torch.cuda.synchronize()
+    _check_edge(layout, res, want_w, want_p, want_c)
+
+
+@pytest.mark.gpu
+def test_kernel_rejects_misaligned_buffer_on_card():
+    dev = _cuda()
+    words = _to_t(_words(3, 5)).to(dev)
+    par = D.encode_parity(words[:64])
+    with pytest.raises(ValueError):
+        D.scrub(words[1:65], par)       # 4 bytes past the allocation's start

@@ -8,7 +8,10 @@ Tolerances: float32 2e-5 -- the same math summed in another order (torch
 vs XLA CPU kernels, online vs full softmax); bfloat16 2e-2 -- both sides
 compute in float32 and round the output to bfloat16, whose step near 1 is
 2**-7, so an fp32 difference in the last bits can move the rounding by
-one step."""
+one step.  The bfloat16 CUDA kernel also rounds P to bfloat16 before P.V
+(tensor cores); a plain emulation of its arithmetic holds that inside the
+same 2e-2 against the JAX kernel here, and the kernel against the
+emulation on the card."""
 import numpy as np
 import pytest
 import torch
@@ -95,6 +98,7 @@ def _cuda():
 
 GPU_CASES = CASES + [
     dict(B=4, H=32, KV=32, S=256, hd=96, causal=True, window=0),
+    dict(B=1, H=32, KV=32, S=256, hd=96, causal=True, window=0),
     dict(B=2, H=40, KV=8, S=300, hd=128, causal=True, window=128),
 ]
 
@@ -111,3 +115,84 @@ def test_kernel_matches_plain_on_card(c, dtype):
     torch.cuda.synchronize()
     torch.testing.assert_close(got.float(), want.float(), rtol=TOL[dtype],
                                atol=TOL[dtype])
+
+
+def emulate_bf16_kernel(q, k, v, *, causal=True, window=0, bq=64, bk=64):
+    """The bfloat16 CUDA kernel's arithmetic in plain PyTorch: 64-row query
+    tiles; for each, the kv tiles of `bk` keys it can see (tiles past the
+    causal diagonal or before the window skipped); scores of the bf16
+    inputs in fp32, scaled by log2(e)/sqrt(hd); the online softmax in fp32
+    with exp2, -1e30 masks and the row sum of the fp32 P; P rounded to
+    bf16 before P.V, fp32 accumulation; 1/max(l, 1e-30); bf16 output."""
+    B, Sq, H, hd = q.shape
+    Sk, KV = k.shape[1], k.shape[2]
+    qf, kf, vf = (x.float() for x in (q, k, v))
+    kf = kf.repeat_interleave(H // KV, dim=2)
+    vf = vf.repeat_interleave(H // KV, dim=2)
+    scale = np.log2(np.e) / hd ** 0.5
+    out = torch.empty(B, Sq, H, hd)
+    for q0 in range(0, Sq, bq):
+        qt = qf[:, q0:q0 + bq].transpose(1, 2)             # (B, H, r, hd)
+        rows = torch.arange(q0, q0 + qt.shape[2])[:, None]
+        m = torch.full(qt.shape[:3], -1e30)
+        l = torch.zeros(qt.shape[:3])
+        acc = torch.zeros(qt.shape)
+        k_hi = min(Sk, q0 + bq) if causal else Sk
+        k_lo = max(0, q0 - window + 1) // bk * bk if window else 0
+        for k0 in range(k_lo, k_hi, bk):
+            kt = kf[:, k0:k0 + bk].transpose(1, 2)
+            vt = vf[:, k0:k0 + bk].transpose(1, 2)
+            x = (qt @ kt.transpose(-1, -2)) * scale
+            cols = torch.arange(k0, k0 + kt.shape[2])[None, :]
+            keep = torch.ones(rows.shape[0], cols.shape[1], dtype=torch.bool)
+            if causal:
+                keep &= rows >= cols
+            if window:
+                keep &= cols > rows - window
+            x = torch.where(keep, x, torch.tensor(-1e30))
+            m_new = torch.maximum(m, x.amax(-1))
+            p = torch.exp2(x - m_new[..., None])
+            corr = torch.exp2(m - m_new)
+            l = l * corr + p.sum(-1)
+            acc = acc * corr[..., None] + \
+                p.to(torch.bfloat16).float() @ vt
+            m = m_new
+        o = acc / torch.clamp(l, min=1e-30)[..., None]
+        out[:, q0:q0 + bq] = o.transpose(1, 2)
+    return out.to(torch.bfloat16)
+
+
+EMU_CASES = CASES + [
+    dict(B=1, H=2, KV=2, S=256, hd=96, causal=True, window=0),
+    dict(B=1, H=4, KV=2, S=192, hd=128, causal=True, window=72),
+]
+
+
+@pytest.mark.parametrize("c", EMU_CASES, ids=_ids)
+def test_bf16_kernel_numerics_match_jax_kernel(c):
+    """P rounded to bf16 before P.V (the kernel's tensor-core product)
+    stays inside the unchanged bf16 tolerance of the JAX kernel, which
+    computes p @ v in fp32."""
+    q, k, v = _qkv(c, "bfloat16", seed=3)
+    blk = 64 if c["S"] % 64 == 0 else 16
+    want = j_flash(_jax(q), _jax(k), _jax(v), causal=c["causal"],
+                   window=c["window"], q_block=blk, kv_block=blk)
+    got = emulate_bf16_kernel(q, k, v, causal=c["causal"],
+                              window=c["window"])
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want, np.float32),
+                               rtol=TOL["bfloat16"], atol=TOL["bfloat16"])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("c", GPU_CASES, ids=_ids)
+def test_bf16_kernel_matches_its_emulation_on_card(c):
+    dev = _cuda()
+    q, k, v = _qkv(c, "bfloat16", seed=4)
+    want = emulate_bf16_kernel(q, k, v, causal=c["causal"],
+                               window=c["window"])
+    got = flash_attention(*(x.to(dev) for x in (q, k, v)),
+                          causal=c["causal"], window=c["window"])
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.cpu().float(), want.float(),
+                               rtol=TOL["bfloat16"], atol=TOL["bfloat16"])

@@ -161,3 +161,102 @@ def test_kernel_zero_mask_equals_scrub_kernel_on_card():
     torch.cuda.synchronize()
     assert torch.equal(a, b) and torch.equal(pa, pb)
     assert ca.cpu().tolist() == [0] + cb.cpu().tolist()
+
+
+# Edge cases of the thread-per-block scrub body with the mask folded in:
+# tails past a 32-block warp tile, 2 to 8 families with negative slopes, a
+# table shared by three stacked copies, parity written for every row or
+# healed in place, and masks that overlap a correction.  Each block gets
+# by kind (b % 6): one injected data-bit flip (the correction undoes it,
+# so no word is written), one parity-word flip, two flips, every bit
+# flipped, a flip that cancels an error already in the words, or that
+# cancelling flip plus one more, which the correction undoes.
+EDGE_CODES = [(1, (1, 2, -1)), (33, (1, 2)), (45, (1, 2, -1)),
+              (77, (2, 1, -3, 5)), (100, (1, 2, -1, 3, -5, 7, -9, 11))]
+EDGE_LAYOUTS = ["in_place", "out_all", "shared3_out"]
+
+
+def edge_inputs(n_blocks, slopes, layout):
+    """(words, mask, table, out table or None) as numpy uint32."""
+    rs = np.random.RandomState(n_blocks)
+    w = _words(n_blocks, n_blocks + 50)
+    p = D.encode_parity_ref(_to_t(w), slopes).numpy().view(np.uint32).copy()
+    copies = 3 if layout.startswith("shared3") else 1
+    words = np.concatenate([w] * copies)
+    mask = np.zeros_like(words)
+    for c in range(copies):
+        for b in range(n_blocks):
+            base = (c * n_blocks + b) * BLOCK
+            i, bit = rs.randint(BLOCK), np.uint32(1 << rs.randint(32))
+            kind = (b + c) % 6
+            if kind == 0:
+                mask[base + i] ^= bit
+            elif kind == 1 and c == 0:
+                p[b, rs.randint(len(slopes))] ^= bit
+            elif kind == 2:
+                i2 = (i + 1 + rs.randint(BLOCK - 1)) % BLOCK
+                mask[base + i] ^= bit
+                mask[base + i2] ^= np.uint32(1 << rs.randint(32))
+            elif kind == 3:
+                mask[base:base + BLOCK] = np.uint32(0xFFFFFFFF)
+            elif kind == 4:               # the mask undoes a stored error
+                words[base + i] ^= bit
+                mask[base + i] ^= bit
+            elif kind == 5:               # and flips one more, corrected
+                words[base + i] ^= bit
+                mask[base + i] ^= bit
+                mask[base + (i + 7) % BLOCK] ^= np.uint32(
+                    1 << rs.randint(32))
+    out = None if layout == "in_place" else np.zeros(
+        (copies * n_blocks, len(slopes)), np.uint32)
+    return words, mask, p, out
+
+
+def _run_edge(words, mask, p, out, slopes, dev):
+    buf, par = _to_t(words).to(dev), _to_t(p).to(dev)
+    out_t = None if out is None else _to_t(out).to(dev)
+    _, got_p, counts = inject_scrub(buf, par, _to_t(mask).to(dev), slopes,
+                                    out_parity=out_t)
+    return buf.cpu(), got_p.cpu(), counts.cpu()
+
+
+@pytest.mark.parametrize("layout", EDGE_LAYOUTS)
+@pytest.mark.parametrize("n_blocks,slopes", EDGE_CODES,
+                         ids=[f"n{n}F{len(s)}" for n, s in EDGE_CODES])
+def test_inject_scrub_edge_cases_match_jax(n_blocks, slopes, layout):
+    words, mask, p, out = edge_inputs(n_blocks, slopes, layout)
+    copies = words.size // (n_blocks * BLOCK)
+    jw, jp, jc = (np.asarray(x) for x in j_ref(
+        jnp.asarray(words), jnp.asarray(np.concatenate([p] * copies)),
+        jnp.asarray(mask), slopes=slopes))
+    buf, got_p, counts = _run_edge(words, mask, p, out, slopes,
+                                   torch.device("cpu"))
+    np.testing.assert_array_equal(buf.numpy(), jw.view(np.int32))
+    np.testing.assert_array_equal(got_p.numpy(), jp.view(np.int32))
+    np.testing.assert_array_equal(counts.numpy(), jc)
+    if n_blocks >= 6:
+        assert min(jc[0], jc[1], jc[3]) > 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("layout", EDGE_LAYOUTS)
+@pytest.mark.parametrize("n_blocks,slopes", EDGE_CODES,
+                         ids=[f"n{n}F{len(s)}" for n, s in EDGE_CODES])
+def test_kernel_edge_cases_match_plain_on_card(n_blocks, slopes, layout):
+    dev = _cuda()
+    words, mask, p, out = edge_inputs(n_blocks, slopes, layout)
+    want = _run_edge(words, mask, p, out, slopes, torch.device("cpu"))
+    got = _run_edge(words, mask, p, out, slopes, dev)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.gpu
+def test_kernel_rejects_misaligned_mask_on_card():
+    dev = _cuda()
+    buf = _to_t(_words(2, 5)).to(dev)
+    par = D.encode_parity(buf)
+    mask = torch.zeros(65, dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError):
+        inject_scrub(buf, par, mask[1:])  # 4 bytes past the allocation
