@@ -4,7 +4,9 @@
     python3 chip_smoke.py
 
 Phases (any failure raises and exits non-zero; nothing is caught):
-  1. the card's name and power limit (nvidia-smi); fail without CUDA;
+  1. the card's name and power limit (nvidia-smi); fail without CUDA; the
+     32-bit integer peak (64 logic results a clock per SM at the maximum SM
+     clock) that integer kernels' operation bounds use;
   2. build the CUDA kernels from the sources in this checkout;
   3. each kernel against its plain PyTorch version at the main path's
      shapes, timed beside its bound: diagonal-parity encode and scrub over a
@@ -12,8 +14,14 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      single parity-word and double errors, the 3-copy shared-parity scrub
      of quarter arenas, and of three full copies (1.15e10 words, the
      one-shot ecc+tmr launch; the plain version checks a gathered copy of
-     the corrupted blocks and every other block must be untouched), the
-     encodes at a page refresh's shape; the TMR vote over token ids and the
+     the corrupted blocks and every other block must be untouched); the
+     same three-full-copy check for the Hsiao scrub with corrections
+     dropped (the hsiao+tmr launch; single data-bit, check-bit and
+     same-word double errors, the doubles left as they are); the encodes
+     at a page refresh's shape and the Hsiao scrub at a server pool copy's
+     and a page repair's; the fused inject+scrub over the server pool
+     (these shapes by device times of CUDA-graph replays, per-call times
+     beside them); the TMR vote over token ids and the
      phi3-mini KV cache; flash attention at the one-shot prefill shape (B=4,
      H=32, S=256, hd=96, bf16), at the server's admission shape (B=1) and a
      GQA + sliding-window shape, with SDPA timed beside (flash times are
@@ -80,9 +88,17 @@ ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
 # H100 SXM peaks at the full 700 W power limit (NVIDIA data sheet): device
-# memory rate, dense bf16 tensor-core rate, fp32 rate outside tensor cores
+# memory rate and dense bf16 tensor-core rate.  The 32-bit integer logic
+# and shift rate (64 results a clock per SM on sm_90, CUDA C++ Programming
+# Guide, arithmetic instruction throughput) is set in phase 1 from the
+# card's SM count and its maximum SM clock.
 HBM_BYTES_S = 3.35e12
-PEAK = {"bf16": 989e12, "fp32": 67e12}
+PEAK = {"bf16": 989e12}
+INT32_PER_CLOCK_PER_SM = 64
+#: integer instructions per word of the bit-sliced Hsiao scrub as built
+#: (csrc/hsiao_secded.cu: per 32-word block a 256-instruction bit transpose,
+#: 49 three-input XORs, 7 rotations and 3 ORs, rounded up to 10 a word)
+HSIAO_SCRUB_OPS_PER_WORD = 10
 SEED = 0
 
 
@@ -95,7 +111,7 @@ def log(msg: str) -> None:
     print(f"[smoke] {msg}", flush=True)
 
 
-def bound_ms(n_bytes: float, n_ops: float = 0.0, peak: str = "fp32"):
+def bound_ms(n_bytes: float, n_ops: float = 0.0, peak: str = "int32"):
     t_bytes = n_bytes / HBM_BYTES_S * 1e3
     t_ops = n_ops / PEAK[peak] * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
@@ -125,6 +141,15 @@ def main() -> int:
     print(card, flush=True)
     log(f"torch {torch.__version__} cuda {torch.version.cuda}, "
         f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
+    clk = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                          "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, check=True,
+                         timeout=60)
+    mhz = float(clk.stdout.strip().splitlines()[0])
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    PEAK["int32"] = INT32_PER_CLOCK_PER_SM * sms * mhz * 1e6
+    log(f"{sms} SMs at {mhz:.0f} MHz max: 32-bit logic and shift peak "
+        f"{PEAK['int32'] / 1e12:.2f} Tops/s")
 
     # 2. build
     t0 = time.perf_counter()
@@ -227,6 +252,14 @@ def timed_once(torch, fn):
     return out, start.elapsed_time(end)
 
 
+def small_shape_ms(torch, fn):
+    """(device ms by CUDA-graph replay, ms per call from Python by CUDA
+    events around back-to-back calls) of a short launch (microseconds to
+    a millisecond), where the per-call figure times the host's enqueue as
+    much as the card and moves from one call to the next."""
+    return graph_ms(torch, fn), time_ms(torch, fn, reps=20)
+
+
 def row(name, source, replaces, ms, plain_ms, bound, err, library_ms=None):
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": 0, "max_abs_err": err,
@@ -301,10 +334,12 @@ def check_diag_parity(torch, dev):
     log(f"encode_parity: kernel {enc_ms:.3f} ms, plain {enc_plain_ms:.1f} ms, "
         f"bound {enc_bound[0]:.3f} ms ({enc_bound[1]}); bit-exact")
     _, npage = server_pool_words()
-    page_ms = time_ms(torch, lambda: D.encode_parity(words[:npage]), reps=20)
+    page = words[:npage]
+    page_ms, page_call_ms = small_shape_ms(torch, lambda: D.encode_parity(page))
     log(f"encode_parity (a page refresh, {npage} words): kernel "
-        f"{page_ms:.4f} ms, bound "
-        f"{bound_ms(npage * 4 + npage // 32 * 12)[0]:.4f} ms")
+        f"{page_ms:.4f} ms (per call {page_call_ms:.4f}), bound "
+        f"{bound_ms(npage * 4 + npage // 32 * 12, 6 * npage)[0]:.4f} ms")
+    del page                          # a view: it would keep the arena
 
     # plant 1000 single data-bit errors, 100 single parity-word errors and
     # 100 double errors, each in its own block
@@ -324,9 +359,9 @@ def check_diag_parity(torch, dev):
     flip_bits(torch, bad_par.view(-1), pblk * 3 + rint(3, 100), rint(32, 100))
 
     words_p, bad_par_p = words.clone(), bad_par.clone()
-    _, _, counts = D.scrub(words, bad_par)
-    (_, _, counts_p), scrub_plain_ms = timed_once(
-        torch, lambda: D.scrub_ref(words_p, bad_par_p))
+    counts = D.scrub(words, bad_par)[2]
+    counts_p, scrub_plain_ms = timed_once(
+        torch, lambda: D.scrub_ref(words_p, bad_par_p)[2])
     check(torch.equal(words, words_p) and torch.equal(bad_par, bad_par_p)
           and torch.equal(counts, counts_p), "scrub kernel != plain version")
     check(counts.tolist() == [1000, 100, 100],
@@ -367,7 +402,7 @@ def check_diag_parity(torch, dev):
         f"{bound_ms(3 * nq * 4 + nq // 32 * 12)[0]:.3f} ms; bit-exact")
     del base, par, w3, w3_p
     torch.cuda.empty_cache()
-    check_scrub_three_copies(torch, dev, n, g)
+    check_scrub_three_copies(torch, dev, n, g, "diag")
 
     src = "src/repro_torch/kernels/csrc/diag_parity.cu"
     return {
@@ -380,15 +415,24 @@ def check_diag_parity(torch, dev):
     }
 
 
-def check_scrub_three_copies(torch, dev, n, g):
-    """The one-shot ecc+tmr launch's shape: three stacked full arena copies
-    (1.15e10 words) against one shared table, bit-exact against the plain
-    version.  The three copies leave no room for a second set, so the plain
-    version scrubs a gathered copy of the corrupted blocks (the code is
+def check_scrub_three_copies(torch, dev, n, g, code):
+    """The launch a protected TMR scheme makes at prepare time: three
+    stacked full arena copies (1.15e10 words) against one shared table,
+    bit-exact against the plain version.  `code` is "diag" (the one-shot
+    ecc+tmr launch; the check also writes every copy's corrected rows) or
+    "hsiao" (hsiao+tmr: corrections dropped, as launch/engine.py launches
+    it).  The three copies leave no room for a second set, so the plain
+    version scrubs a gathered copy of the corrupted blocks (the codes are
     block-local), and every other block must come out as it went in: the
     clean arena is drawn again from its seed, chunk by chunk, to compare.
     Then the clean launch is timed."""
     from repro_torch.kernels import diag_parity as D
+    from repro_torch.kernels import hsiao_secded as H
+    hsiao = code == "hsiao"
+    name, encode, scrub, scrub_ref, ops_per_word = (
+        ("scrub_hsiao", H.encode_hsiao, H.scrub, H.scrub_hsiao_ref,
+         HSIAO_SCRUB_OPS_PER_WORD) if hsiao else
+        ("scrub", D.encode_parity, D.scrub, D.scrub_ref, 8))
     nb = n // 32
     torch.cuda.reset_peak_memory_stats()
 
@@ -398,51 +442,77 @@ def check_scrub_three_copies(torch, dev, n, g):
     def arena_gen():
         return torch.Generator(device=dev).manual_seed(SEED + 8)
 
-    base = random_words(torch, n, arena_gen(), dev)
-    par = D.encode_parity(base)
-    w3 = base.repeat(3)
-    del base
-    # 3000 single flips and 300 two-word doubles over the copies, and 100
-    # single-bit errors in the shared table (every copy sees them)
-    blk = torch.randperm(3 * nb, device=dev, generator=g)[:3300]
-    prow = torch.randperm(nb, device=dev, generator=g)[:100]
+    def distinct(hi, k):
+        """k distinct uniform ints below hi >> k, in random order (a
+        randperm of hi would sort hi keys: gigabytes beside the copies)."""
+        x = torch.unique(rint(hi, 2 * k))
+        check(x.numel() >= k, "too few distinct draws")
+        return x[torch.randperm(x.numel(), device=dev, generator=g)[:k]]
+
+    w3 = torch.empty(3 * n, dtype=torch.int32, device=dev)
+    for i, j, chunk in random_word_chunks(torch, n, arena_gen(), dev):
+        w3[i:j] = chunk
+    w3[n:2 * n] = w3[:n]
+    w3[2 * n:] = w3[:n]
+    par = encode(w3[:n])
+    rows = par.shape[1]
+    # 3000 single data-bit flips and 300 doubles over the copies (two words
+    # of a block for the diagonal code, two bits of one word for Hsiao: both
+    # detected, and Hsiao's must be left as they are), and 100 single-bit
+    # errors in the shared table (every copy sees them)
+    blk, prow = distinct(3 * nb, 3300), distinct(nb, 100)
     hit = torch.unique(torch.cat([blk, prow, prow + nb, prow + 2 * nb]))
     w3v = w3.view(-1, 32)
     clean_rows = w3v[hit].clone()
-    i1 = rint(32, 3300)
-    flip_bits(torch, w3, blk * 32 + i1, rint(32, 3300))
-    i2 = (i1[3000:] + 1 + rint(31, 300)) % 32
-    flip_bits(torch, w3, blk[3000:] * 32 + i2, rint(32, 300))
+    i1, b1 = rint(32, 3300), rint(32, 3300)
+    flip_bits(torch, w3, blk * 32 + i1, b1)
+    if hsiao:
+        d_idx = blk[3000:] * 32 + i1[3000:]
+        flip_bits(torch, w3, d_idx, (b1[3000:] + 1 + rint(31, 300)) % 32)
+        doubled = w3[d_idx].clone()
+    else:
+        i2 = (i1[3000:] + 1 + rint(31, 300)) % 32
+        flip_bits(torch, w3, blk[3000:] * 32 + i2, rint(32, 300))
     bad_par = par.clone()
-    flip_bits(torch, bad_par.view(-1), prow * 3 + rint(3, 100), rint(32, 100))
+    flip_bits(torch, bad_par.view(-1), prow * rows + rint(rows, 100),
+              rint(32, 100))
     small = w3v[hit].reshape(-1).clone()
     small_par = bad_par[hit % nb].clone()
-    small_out = torch.empty_like(small_par)
+    out = small_out = None
+    if not hsiao:
+        out = torch.empty((3 * nb, rows), dtype=torch.int32, device=dev)
+        small_out = torch.empty_like(small_par)
 
-    out = torch.empty((3 * nb, 3), dtype=torch.int32, device=dev)
-    _, _, counts = D.scrub(w3, bad_par, out_parity=out)
-    _, _, counts_p = D.scrub_ref(small, small_par, out_parity=small_out)
-    check(torch.equal(w3v[hit].reshape(-1), small)
-          and torch.equal(out[hit], small_out)
-          and torch.equal(counts, counts_p),
-          "3-copy shared-table scrub kernel != plain version")
+    _, _, counts = scrub(w3, bad_par, out_parity=out)
+    _, _, counts_p = scrub_ref(small, small_par, out_parity=small_out)
+    same = (torch.equal(w3v[hit].reshape(-1), small)
+            and torch.equal(counts, counts_p))
+    if out is not None:
+        same &= torch.equal(out[hit], small_out)
+    check(same, f"3-copy shared-table {name} kernel != plain version")
+    if hsiao:
+        check(torch.equal(w3[d_idx], doubled),
+              "3-copy scrub_hsiao changed a same-word double")
     del bad_par, small, small_par, small_out
     w3v[hit] = clean_rows
-    out[hit] = par[hit % nb]
     copies = w3.view(3, n)
-    same = all(torch.equal(t, par) for t in out.view(3, nb, 3))
+    same = True
+    if out is not None:
+        out[hit] = par[hit % nb]
+        same = all(torch.equal(t, par) for t in out.view(3, nb, rows))
     for i, j, chunk in random_word_chunks(torch, n, arena_gen(), dev):
         same &= all(torch.equal(c[i:j], chunk) for c in copies)
-    check(same, "3-copy shared-table scrub changed a block outside the "
-          "planted ones")
+    check(same, f"3-copy shared-table {name} changed a block outside the "
+          f"planted ones")
     del out, copies, clean_rows
-    ms = time_ms(torch, lambda: D.scrub(w3, par))
-    bnd = bound_ms(3 * n * 4 + nb * 12)
-    log(f"scrub (3 full copies x {n} words, shared table, as the one-shot "
-        f"ecc+tmr launch): kernel {ms:.3f} ms, bound {bnd[0]:.3f} ms; "
-        f"counts {counts.tolist()} ({hit.numel()} blocks hit) bit-exact; "
-        f"peak device memory {torch.cuda.max_memory_allocated() / 1e9:.2f}"
-        f" GB")
+    ms = time_ms(torch, lambda: scrub(w3, par))
+    bnd = bound_ms(3 * n * 4 + nb * rows * 4, ops_per_word * 3 * n)
+    log(f"{name} (3 full copies x {n} words, shared table, corrections "
+        f"dropped, as the {'hsiao' if hsiao else 'ecc'}+tmr launch): kernel "
+        f"{ms:.3f} ms, bound {bnd[0]:.3f} ms ({bnd[1]}); counts "
+        f"{counts.tolist()} ({hit.numel()} blocks hit) bit-exact"
+        f"{', same-word doubles untouched' if hsiao else ''}; peak device "
+        f"memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
     del par, w3, w3v
     torch.cuda.empty_cache()
 
@@ -470,16 +540,19 @@ def check_hsiao(torch, dev):
     log(f"encode_hsiao: kernel {enc_ms:.3f} ms, plain {enc_plain_ms:.1f} ms, "
         f"bound {enc_bound[0]:.3f} ms ({enc_bound[1]}); bit-exact")
     npool, npage = server_pool_words()
-    page_ms = time_ms(torch, lambda: H.encode_hsiao(words[:npage]), reps=20)
+    page = words[:npage]
+    page_ms, page_call_ms = small_shape_ms(torch, lambda: H.encode_hsiao(page))
     log(f"encode_hsiao (a page refresh, {npage} words): kernel "
-        f"{page_ms:.4f} ms, bound "
-        f"{bound_ms(npage * 4 + npage // 32 * 28)[0]:.4f} ms")
+        f"{page_ms:.4f} ms (per call {page_call_ms:.4f}), bound "
+        f"{bound_ms(npage * 4 + npage // 32 * 28, 21 * npage)[0]:.4f} ms")
+    del page                          # a view: it would keep the arena
     for what, nw in (("one server pool copy", npool),
                      ("a tick's page repair", npage)):
         w_, par_ = words[:nw], H.encode_hsiao(words[:nw])
-        ms_ = time_ms(torch, lambda: H.scrub(w_, par_), reps=10)
-        log(f"scrub_hsiao ({what}, {nw} words): kernel {ms_:.4f} ms, bound "
-            f"{bound_ms(nw * 4 + nw // 32 * 28)[0]:.4f} ms")
+        ms_, call_ms = small_shape_ms(torch, lambda: H.scrub(w_, par_))
+        bnd = bound_ms(nw * 4 + nw // 32 * 28, HSIAO_SCRUB_OPS_PER_WORD * nw)
+        log(f"scrub_hsiao ({what}, {nw} words): kernel {ms_:.4f} ms (per "
+            f"call {call_ms:.4f}), bound {bnd[0]:.4f} ms")
         del w_, par_
 
     # plant 1000 single data-bit flips, 100 check-bit flips and 100
@@ -501,9 +574,9 @@ def check_hsiao(torch, dev):
     flip_bits(torch, bad_par.view(-1), cblk * 7 + rint(7, 100), rint(32, 100))
 
     words_p, bad_par_p = words.clone(), bad_par.clone()
-    _, _, counts = H.scrub(words, bad_par)
-    (_, _, counts_p), scrub_plain_ms = timed_once(
-        torch, lambda: H.scrub_hsiao_ref(words_p, bad_par_p))
+    counts = H.scrub(words, bad_par)[2]
+    counts_p, scrub_plain_ms = timed_once(
+        torch, lambda: H.scrub_hsiao_ref(words_p, bad_par_p)[2])
     check(torch.equal(words, words_p) and torch.equal(bad_par, bad_par_p)
           and torch.equal(counts, counts_p),
           "scrub_hsiao kernel != plain version")
@@ -518,40 +591,15 @@ def check_hsiao(torch, dev):
     check(torch.equal(H.encode_hsiao(words), parity),
           "scrubbed arena does not re-encode to the clean check table")
     scrub_ms = time_ms(torch, lambda: H.scrub(words, parity))
-    scrub_bound = bound_ms(n * 4 + nb * 28 + (1000 + 100) * 4, 49 * n)
+    scrub_bound = bound_ms(n * 4 + nb * 28 + (1000 + 100) * 4,
+                           HSIAO_SCRUB_OPS_PER_WORD * n)
     log(f"scrub_hsiao: kernel {scrub_ms:.3f} ms (clean arena), plain "
         f"{scrub_plain_ms:.1f} ms, bound {scrub_bound[0]:.3f} ms; counts "
         f"{counts.tolist()} bit-exact, doubles untouched")
     del words, parity, bad_par
     torch.cuda.empty_cache()
 
-    # three stacked copies of a quarter arena against one shared check
-    # table (the hsiao+tmr store layout), per-copy rows kept
-    nq = (n // 4) // 32 * 32
-    base = random_words(torch, nq, g, dev)
-    par = H.encode_hsiao(base)
-    w3 = base.repeat(3)
-    idx = torch.randperm(3 * nq // 32, device=dev, generator=g)[:3000] * 32 \
-        + rint(32, 3000)
-    flip_bits(torch, w3, idx, rint(32, 3000))
-    w3_p = w3.clone()
-    out = torch.empty((3 * par.shape[0], 7), dtype=torch.int32, device=dev)
-    out_p = torch.empty_like(out)
-    _, _, c3 = H.scrub(w3, par, out_parity=out)
-    _, _, c3_p = H.scrub_hsiao_ref(w3_p, par, out_p)
-    check(torch.equal(w3, w3_p) and torch.equal(out, out_p)
-          and torch.equal(c3, c3_p),
-          "shared-table scrub_hsiao kernel != plain version")
-    check(c3.tolist() == [3000, 0, 0]
-          and all(torch.equal(r, base) for r in w3.view(3, nq)),
-          f"shared-table scrub_hsiao counts {c3.tolist()}")
-    shared_ms = time_ms(torch, lambda: H.scrub(w3, par, out_parity=out))
-    log(f"scrub_hsiao (3 copies x {nq} words, shared table): kernel "
-        f"{shared_ms:.3f} ms, bound "
-        f"{bound_ms(3 * nq * 4 + nq // 32 * 28 + 3 * nq // 32 * 28)[0]:.3f}"
-        f" ms; bit-exact")
-    del base, par, w3, w3_p, out, out_p
-    torch.cuda.empty_cache()
+    check_scrub_three_copies(torch, dev, n, g, "hsiao")
 
     src = "src/repro_torch/kernels/csrc/hsiao_secded.cu"
     return {
@@ -615,14 +663,15 @@ def check_inject_scrub(torch, dev):
         flip_bits(torch, smask, singles * 32 + rint(32, singles.numel()),
                   rint(32, singles.numel()))
         clean = w.clone()
-        ms = time_ms(torch, lambda: inject_scrub(w, par, smask), reps=10)
+        ms, call_ms = small_shape_ms(torch,
+                                     lambda: inject_scrub(w, par, smask))
         check(torch.equal(w, clean), "single-flip exposure not repaired")
         bnd = bound_ms(2 * copies * n * 4 + copies * nb * 12,
                        10 * copies * n)
         log(f"inject_scrub ({copies} cop{'y' if copies == 1 else 'ies'}): "
-            f"kernel {ms:.3f} ms, plain {plain_ms:.1f} ms, bound "
-            f"{bnd[0]:.3f} ms ({bnd[1]}); counts {counts.tolist()} "
-            f"bit-exact")
+            f"kernel {ms:.3f} ms (per call {call_ms:.3f}), plain "
+            f"{plain_ms:.1f} ms, bound {bnd[0]:.3f} ms ({bnd[1]}); counts "
+            f"{counts.tolist()} bit-exact")
         timed[copies] = (ms, plain_ms, bnd)
         # a zero mask is the plain diagonal-parity scrub, bit for bit
         a = w.clone()

@@ -23,8 +23,9 @@ from collections import Counter
 from pathlib import Path
 from typing import Dict
 
-__all__ = ["SOURCES", "build", "library", "check", "count_launch",
-           "launch_counts", "reset_launch_counts", "build_dir"]
+__all__ = ["SOURCES", "build", "library", "library_path", "check",
+           "count_launch", "launch_counts", "reset_launch_counts",
+           "build_dir"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("diag_parity", "inject_scrub", "hsiao_secded", "tmr_vote",
@@ -91,12 +92,18 @@ def build(verbose: bool = False) -> float:
     return time.perf_counter() - t0
 
 
+def library_path(name: str) -> Path:
+    """The shared library built from source `name` (builds everything
+    missing)."""
+    build()
+    return _target(name)
+
+
 def library(name: str) -> ctypes.CDLL:
     """The loaded library for source `name` (builds everything missing on
     first use)."""
     if name not in _LIBS:
-        build()
-        lib = ctypes.CDLL(str(_target(name)))
+        lib = ctypes.CDLL(str(library_path(name)))
         lib.repro_error_string.argtypes = [ctypes.c_int]
         lib.repro_error_string.restype = ctypes.c_char_p
         _LIBS[name] = lib

@@ -18,12 +18,6 @@ static inline int repro_sm_count() {
   return sms;
 }
 
-__device__ __forceinline__ uint32_t warp_xor_all(uint32_t v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v ^= __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
 __device__ __forceinline__ float warp_max_all(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1)

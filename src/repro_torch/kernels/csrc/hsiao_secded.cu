@@ -6,31 +6,49 @@
 // bits (check j = parity of w & CHECK_MASKS[j]); a block of 32 words keeps
 // them packed as 7 words, check bit j of word i at bit i of word j.
 //
-// Design: one warp per 32-word block, lane i holds word i.  The packed
+// Encode: one warp per 32-word block, lane i holds word i.  The packed
 // check word j is one __ballot_sync of lane i's check bit, so the layout
-// falls out of the vote with no shifts or reductions.  The scrub recomputes
-// the 7 ballots, XORs them with the stored row (each lane < 7 loads one
-// parity word, __shfl_sync hands it to all), takes bit `lane` of each as
-// the word's 7-bit syndrome and classifies it through a 128-entry table in
-// shared memory (data bit k, check bit j, clean, or uncorrectable) instead
-// of the reference's 39 unrolled compares.  A data error flips its bit (the
-// only word write); a check-bit error heals only the parity row; any other
-// nonzero syndrome -- a double error -- leaves the word as it is and counts
-// uncorrectable.  Counts are per word, reduced per warp and per CTA before
-// one integer atomic each.  Word offsets are 64-bit.
+// falls out of the vote with no shifts or reductions.
+//
+// Scrub: a bit-sliced thread per block over staged tiles (staged_tiles.cuh).
+// The warp-per-block scrub this replaces issued per word 7 POPC, 7 ballots
+// and 7 shuffles (population count runs at 16 results a clock per SM, so
+// its 7 per word alone took longer than the bytes: 3.4x the byte bound).
+// Here thread t holds its block as a[i] = w_((i + r) mod 32), r = 4t mod 32,
+// transposes the 32x32 bit matrix in registers (five rounds of 16 swaps:
+// two rounds of byte permutes, three of shifts and masked merges), so that
+// a[k] holds bit k of every word, and forms check row j as the XOR of the
+// bit-planes in CHECK_MASKS[j] (96 planes in all, compiled in), XORed with
+// the stored row rotated by r: the syndrome rows in the rotated frame.
+// Their OR is zero for a clean block, and nothing is written.  Otherwise
+// each set bit of the OR is one word: its 7-bit syndrome is gathered from
+// the rows and classified through a 128-entry table in shared memory (data
+// bit k, check bit j, clean, or uncorrectable).  A data error flips its bit
+// (the only word write); a check-bit error heals only the stored row; any
+// other nonzero syndrome -- a double error -- leaves the word as it is and
+// counts uncorrectable.  Counts are per word.
 //
 // Bound: device-memory bytes.  Encode reads every word once and writes
 // 7/32 of that; the clean scrub reads words and table and writes nothing:
 // for one fp32 phi3-mini arena (3.82e9 words) 18.63 GB, 5.56 ms at
-// 3.35 TB/s.
-#include "common.cuh"
+// 3.35 TB/s.  As built for sm_90a (python -m repro_torch.kernels.
+// sass_report): the scrub's main loop, one block per thread per pass,
+// clean and repair paths together, is 808 instructions (25 a word): 292
+// LOP3, 66 PRMT, 70 SHF, 8 LDS.128, 7 LDG.32 (the next rows), 31 LDGSTS
+// (staging), no POPC, SHFL or VOTE; 80 registers, no spills.  The clean
+// path's integer work is about 10 logic or shift results a word, 2.3 ms
+// for one arena copy at 64 results a clock per SM: under the bytes.  The
+// warp-per-block scrub's loop (4 words a lane) held 48 POPC, 91 VOTE and
+// 56 SHFL in 1416 instructions.
+#include "staged_tiles.cuh"
 
 namespace {
 
-constexpr int BLOCK = 32;
+using tiles::BLOCK;
+
 constexpr int NCHK = 7;
-constexpr int WARPS = 8;
-constexpr int UNROLL = 4;
+constexpr int ENC_WARPS = 8;  // warps per encode CTA
+constexpr int UNROLL = 4;     // blocks an encode warp loads before reducing
 constexpr int LUT_SIZE = 1 << NCHK;
 constexpr uint8_t CLS_CHECK = 32;   // 32 + j: check bit j
 constexpr uint8_t CLS_CLEAN = 64;
@@ -41,16 +59,29 @@ struct Code {
   uint8_t lut[LUT_SIZE];  // syndrome -> class
 };
 
+// CHECK_MASKS of kernels/hsiao_secded/code.py, compiled in so that each
+// check row's XOR tree is fixed (hsiao_scrub refuses other masks).
+__host__ __device__ constexpr uint32_t check_mask(int j) {
+  return j == 0   ? 0x0894965Bu
+         : j == 1 ? 0x11292AADu
+         : j == 2 ? 0x224E4D36u
+         : j == 3 ? 0x447071C7u
+         : j == 4 ? 0x878381F8u
+         : j == 5 ? 0xF803FE00u
+                  : 0xFFFC0000u;
+}
+
 __device__ __forceinline__ uint32_t check_ballot(uint32_t w, uint32_t m) {
   return __ballot_sync(0xffffffffu, __popc(w & m) & 1);
 }
 
-__global__ void __launch_bounds__(WARPS * 32)
+__global__ void __launch_bounds__(ENC_WARPS * 32)
     encode_kernel(const uint32_t* __restrict__ words, long long n_blocks,
                   uint32_t* __restrict__ parity, Code code) {
   const int lane = threadIdx.x & 31;
-  const long long warp = (long long)blockIdx.x * WARPS + (threadIdx.x >> 5);
-  const long long n_warps = (long long)gridDim.x * WARPS;
+  const long long warp =
+      (long long)blockIdx.x * ENC_WARPS + (threadIdx.x >> 5);
+  const long long n_warps = (long long)gridDim.x * ENC_WARPS;
   for (long long base = warp * UNROLL; base < n_blocks;
        base += n_warps * UNROLL) {
     uint32_t w[UNROLL];
@@ -74,15 +105,50 @@ __global__ void __launch_bounds__(WARPS * 32)
   }
 }
 
+// One round of the 32x32 bit transpose: swap the high J bits of every
+// 2J-bit group of a[k] with the low J bits of a[k + J], for the 16 k with
+// bit J clear.
+template <int J>
+__device__ __forceinline__ void swap_round(uint32_t (&a)[BLOCK]) {
+  constexpr uint32_t M = J == 4 ? 0x0F0F0F0Fu : J == 2 ? 0x33333333u
+                                                       : 0x55555555u;
+#pragma unroll
+  for (int p = 0; p < BLOCK / 2; ++p) {
+    const int k = p / J * 2 * J + p % J;
+    const uint32_t x = a[k], y = a[k + J];
+    if constexpr (J == 16) {
+      a[k] = __byte_perm(x, y, 0x5410);
+      a[k + J] = __byte_perm(x, y, 0x7632);
+    } else if constexpr (J == 8) {
+      a[k] = __byte_perm(x, y, 0x6240);
+      a[k + J] = __byte_perm(x, y, 0x7351);
+    } else {
+      a[k] = (x & M) | ((y << J) & ~M);
+      a[k + J] = ((x >> J) & M) | (y & ~M);
+    }
+  }
+}
+
+// Transpose the 32x32 bit matrix in place: afterwards bit i of a[k] is bit
+// k of the old a[i].
+__device__ __forceinline__ void transpose32(uint32_t (&a)[BLOCK]) {
+  swap_round<16>(a);
+  swap_round<8>(a);
+  swap_round<4>(a);
+  swap_round<2>(a);
+  swap_round<1>(a);
+}
+
 // parity: (n_pblocks, 7), read at row b % n_pblocks.  parity_out: nullptr
 // to drop parity corrections, else written at row b -- every row when
 // out_all, only healed rows otherwise (in place when parity_out ==
 // parity).  counts: corrected, parity_fixed, uncorrectable words.
-__global__ void __launch_bounds__(WARPS * 32)
+__global__ void __launch_bounds__(tiles::WARPS * 32)
     scrub_kernel(uint32_t* __restrict__ words, long long n_blocks,
                  const uint32_t* parity, long long n_pblocks,
                  uint32_t* parity_out, int out_all, Code code,
                  int* __restrict__ counts) {
+  extern __shared__ __align__(16) uint32_t smem[];
   __shared__ uint8_t lut[LUT_SIZE];
   __shared__ int cta[3];
   for (int i = threadIdx.x; i < LUT_SIZE; i += blockDim.x)
@@ -90,63 +156,62 @@ __global__ void __launch_bounds__(WARPS * 32)
   if (threadIdx.x < 3) cta[threadIdx.x] = 0;
   __syncthreads();
   const int lane = threadIdx.x & 31;
-  const long long warp = (long long)blockIdx.x * WARPS + (threadIdx.x >> 5);
-  const long long n_warps = (long long)gridDim.x * WARPS;
-  unsigned n_corr = 0, n_pfix = 0, n_unc = 0;
-  for (long long base = warp * UNROLL; base < n_blocks;
-       base += n_warps * UNROLL) {
-    uint32_t w[UNROLL], p[UNROLL];
-#pragma unroll
-    for (int u = 0; u < UNROLL; ++u) {
-      const long long b = base + u;
-      const long long pb = n_pblocks == n_blocks ? b : b % n_pblocks;
-      w[u] = b < n_blocks ? words[b * BLOCK + lane] : 0u;
-      p[u] = b < n_blocks && lane < NCHK ? parity[pb * NCHK + lane] : 0u;
-    }
-#pragma unroll
-    for (int u = 0; u < UNROLL; ++u) {
-      const long long b = base + u;
-      if (b >= n_blocks) break;  // warp-uniform
-      uint32_t s = 0;
-#pragma unroll
-      for (int j = 0; j < NCHK; ++j) {
-        const uint32_t syn = check_ballot(w[u], code.masks[j]) ^
-                             __shfl_sync(0xffffffffu, p[u], j);
-        s |= ((syn >> lane) & 1u) << j;
-      }
-      const int cls = lut[s];
-      if (cls < BLOCK) words[b * BLOCK + lane] = w[u] ^ (1u << cls);
-      const bool check_err = cls >= CLS_CHECK && cls < CLS_CHECK + NCHK;
-      n_corr += cls < BLOCK;
-      n_pfix += check_err;
-      n_unc += cls == CLS_UNC;
-      const bool heal = __any_sync(0xffffffffu, check_err);
-      if (parity_out != nullptr && (out_all || heal)) {
-        uint32_t fix = 0;
+  unsigned n[3] = {};
+  tiles::walk_tiles<false, NCHK>(
+      smem, words, nullptr, n_blocks, parity, n_pblocks,
+      [&](long long b, const uint32_t* sw, const uint32_t*,
+          const uint32_t (&row)[NCHK]) {
+        uint32_t a[BLOCK];
+        const int r = tiles::load_block(sw, lane, a);
+        transpose32(a);
+        // syndrome rows, bit i for word (i + r) mod 32
+        uint32_t s[NCHK];
+        uint32_t dirty = 0u;
 #pragma unroll
         for (int j = 0; j < NCHK; ++j) {
-          const uint32_t f = __ballot_sync(0xffffffffu, cls == CLS_CHECK + j);
-          if (lane == j) fix = f;
+          uint32_t x = tiles::rotr(row[j], r);
+#pragma unroll
+          for (int k = 0; k < BLOCK; ++k)
+            if ((check_mask(j) >> k) & 1u) x ^= a[k];
+          s[j] = x;
+          dirty |= x;
         }
-        if (lane < NCHK) parity_out[b * NCHK + lane] = p[u] ^ fix;
-      }
-    }
-  }
-  n_corr = __reduce_add_sync(0xffffffffu, n_corr);
-  n_pfix = __reduce_add_sync(0xffffffffu, n_pfix);
-  n_unc = __reduce_add_sync(0xffffffffu, n_unc);
-  if (lane == 0) {
-    if (n_corr) atomicAdd(&cta[0], (int)n_corr);
-    if (n_pfix) atomicAdd(&cta[1], (int)n_pfix);
-    if (n_unc) atomicAdd(&cta[2], (int)n_unc);
-  }
-  __syncthreads();
-  if (threadIdx.x < 3 && cta[threadIdx.x])
-    atomicAdd(&counts[threadIdx.x], cta[threadIdx.x]);
+        uint32_t fix[NCHK];
+#pragma unroll
+        for (int j = 0; j < NCHK; ++j) fix[j] = 0u;
+        bool heal = false;
+        for (uint32_t d = dirty; d; d &= d - 1) {
+          const int i = __ffs(d) - 1;
+          int syn = 0;
+#pragma unroll
+          for (int j = 0; j < NCHK; ++j) syn |= ((s[j] >> i) & 1u) << j;
+          const int cls = lut[syn];
+          const int wi = (i + r) & (BLOCK - 1);
+          if (cls < BLOCK) {
+            words[b * BLOCK + wi] = sw[wi] ^ (1u << cls);
+            ++n[0];
+          } else if (cls < CLS_CHECK + NCHK) {
+#pragma unroll
+            for (int j = 0; j < NCHK; ++j)
+              if (cls == CLS_CHECK + j) fix[j] |= 1u << wi;
+            heal = true;
+            ++n[1];
+          } else {
+            ++n[2];
+          }
+        }
+        if (parity_out != nullptr && (out_all || heal)) {
+#pragma unroll
+          for (int j = 0; j < NCHK; ++j)
+            parity_out[b * NCHK + j] = row[j] ^ fix[j];
+        }
+      });
+  tiles::add_counts<3>(n, cta, counts);
 }
 
 int grid_for(long long n_blocks) {
-  const long long need = (n_blocks + WARPS * UNROLL - 1) / (WARPS * UNROLL);
+  const long long need =
+      (n_blocks + ENC_WARPS * UNROLL - 1) / (ENC_WARPS * UNROLL);
   const long long cap = (long long)repro_sm_count() * 8;
   return (int)(need < cap ? need : cap);
 }
@@ -174,7 +239,7 @@ extern "C" int hsiao_encode(const uint32_t* words, long long n_blocks,
   Code code;
   if (!load_code(masks, columns, &code)) return (int)cudaErrorInvalidValue;
   if (n_blocks == 0) return 0;
-  encode_kernel<<<grid_for(n_blocks), WARPS * 32, 0,
+  encode_kernel<<<grid_for(n_blocks), ENC_WARPS * 32, 0,
                   static_cast<cudaStream_t>(stream)>>>(words, n_blocks,
                                                        parity, code);
   return (int)cudaGetLastError();
@@ -186,12 +251,14 @@ extern "C" int hsiao_scrub(uint32_t* words, long long n_blocks,
                            const uint32_t* masks, const int* columns,
                            int* counts, void* stream) {
   Code code;
-  if (!load_code(masks, columns, &code) || n_pblocks < 1 ||
-      n_blocks % n_pblocks)
-    return (int)cudaErrorInvalidValue;
+  bool ok = load_code(masks, columns, &code) && n_pblocks >= 1 &&
+            n_blocks % n_pblocks == 0 && tiles::aligned16(words);
+  for (int j = 0; j < NCHK; ++j) ok = ok && masks[j] == check_mask(j);
+  if (!ok) return (int)cudaErrorInvalidValue;
   if (n_blocks == 0) return 0;
-  scrub_kernel<<<grid_for(n_blocks), WARPS * 32, 0,
-                 static_cast<cudaStream_t>(stream)>>>(
-      words, n_blocks, parity, n_pblocks, parity_out, out_all, code, counts);
-  return (int)cudaGetLastError();
+  return tiles::launch(scrub_kernel,
+                       tiles::WARPS * tiles::STAGES * tiles::TILE_WORDS * 4,
+                       n_blocks, static_cast<cudaStream_t>(stream), words,
+                       n_blocks, parity, n_pblocks, parity_out, out_all, code,
+                       counts);
 }

@@ -2,8 +2,9 @@
 (repro_torch.kernels.diag_parity, which a CPU tensor takes) against the
 JAX package's `encode_parity` (Pallas, interpret mode) and `scrub_ref`,
 bit for bit -- words, parity and counts -- under 0, 1 and 2 data flips and
-parity-word flips; plus the CUDA kernel against the plain version on the
-card (skipped without one)."""
+parity-word flips; a plain emulation of the CUDA encode's thread-per-block
+Horner arithmetic against the JAX encode kernel; plus the CUDA kernels
+against the plain versions on the card (skipped without one)."""
 import numpy as np
 import pytest
 import torch
@@ -269,3 +270,74 @@ def test_kernel_rejects_misaligned_buffer_on_card():
     par = D.encode_parity(words[:64])
     with pytest.raises(ValueError):
         D.scrub(words[1:65], par)       # 4 bytes past the allocation's start
+
+
+# The CUDA encode's arithmetic (csrc/diag_parity.cu, `block_parity` in
+# csrc/diag_scrub.cuh), emulated in numpy over all blocks at once: thread t
+# of a 32-block tile holds its block as a[i] = w_((i + r) mod 32), r = 4t
+# mod 32 (eight 16-byte reads, chunk c from chunk (c + t) mod 8), builds
+# Y = XOR_i rotl32(a[i], s*i) by Horner's rule from i = 31 down, and writes
+# rotl32(Y, s*r).
+
+def _rotl(x, r):
+    x = np.asarray(x, dtype=np.uint64)
+    r = np.asarray(r, dtype=np.int64) % 32
+    out = (x << r.astype(np.uint64)) | (x >> ((32 - r) % 32).astype(np.uint64))
+    return (out & 0xFFFFFFFF).astype(np.uint32)
+
+
+def emulate_horner_encode(w, slopes):
+    n = w.size // BLOCK
+    t = np.arange(n) % BLOCK
+    i = np.arange(BLOCK)
+    idx = 4 * ((i[None, :] // 4 + t[:, None]) % 8) + i[None, :] % 4
+    a = w.reshape(n, BLOCK)[np.arange(n)[:, None], idx]
+    r = (4 * t) % BLOCK
+    out = np.zeros((n, len(slopes)), np.uint32)
+    for f, s in enumerate(slopes):
+        acc = np.zeros(n, np.uint32)
+        for k in range(BLOCK - 1, -1, -1):
+            acc = _rotl(acc, s) ^ a[:, k]
+        out[:, f] = _rotl(acc, s * r)
+    return out
+
+
+@pytest.mark.parametrize("n_blocks", [1, 33, 77])
+@pytest.mark.parametrize("F", range(1, 9))
+def test_horner_encode_emulation_matches_jax(F, n_blocks):
+    slopes = (1, 2, -1, 3, -5, 7, -9, 11)[:F][::-1]
+    w = _words(n_blocks, 100 * F + n_blocks)
+    want = np.asarray(j_encode(jnp.asarray(w), slopes=slopes))
+    np.testing.assert_array_equal(emulate_horner_encode(w, slopes), want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_blocks", [1, 33, 45, 77, 100])
+@pytest.mark.parametrize("F", range(1, 9))
+def test_kernel_encode_edge_cases_match_plain_on_card(F, n_blocks):
+    dev = _cuda()
+    slopes = (1, 2, -1, 3, -5, 7, -9, 11)[:F][::-1]
+    w = _to_t(_words(n_blocks, 100 * F + n_blocks))
+    got = D.encode_parity(w.to(dev), slopes)
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), D.encode_parity_ref(w, slopes))
+
+
+@pytest.mark.gpu
+def test_kernel_encode_page_refresh_shape_on_card():
+    """A server tick's parity refresh: 16 page rows of the full-width
+    phi3-mini pool, 12,582,912 words."""
+    dev = _cuda()
+    g = torch.Generator(device=dev).manual_seed(7)
+    w = torch.randint(-2**31, 2**31, (12582912,), dtype=torch.int64,
+                      device=dev, generator=g).to(torch.int32)
+    got = D.encode_parity(w)
+    assert torch.equal(got, D.encode_parity_ref(w))
+
+
+@pytest.mark.gpu
+def test_kernel_encode_rejects_misaligned_buffer_on_card():
+    dev = _cuda()
+    words = _to_t(_words(3, 5)).to(dev)
+    with pytest.raises(RuntimeError):
+        D.encode_parity(words[1:65])    # 4 bytes past the allocation's start

@@ -4,13 +4,20 @@ against the JAX package's Pallas kernels (interpret mode) and its oracle,
 bit for bit -- words, check tables and per-word counts -- on random words,
 planted single data-bit flips, check-bit flips, same-word doubles (detected,
 left as they are) and different-word doubles (both corrected); the
-shared-table 3-copy scrub; the scheme tokens and grid; plus the CUDA
-kernels against the plain versions on the card (skipped without one)."""
+shared-table 3-copy scrub; the scheme tokens and grid; a plain emulation
+of the CUDA scrub's bit-sliced arithmetic (rotated read order, 32x32 bit
+transpose, XOR of bit-planes, sparse classification) against the JAX
+kernels; plus the CUDA kernels against the plain versions on the card
+(skipped without one)."""
+import re
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
 
 from repro_torch.kernels import hsiao_secded as H
+from repro_torch.kernels.hsiao_secded.ref import syndrome_classes
 from repro_torch.reliability import parse_scheme, standard_grid
 
 try:    # without JAX (as on a GPU machine) only the kernel cases run
@@ -180,6 +187,240 @@ def test_scheme_inject_scrub_arena_default_matches_jax():
     assert int(counts[0]) == 40 and int(counts[1]) > 0
 
 
+# ---------------------------------------------------------------------------
+# The CUDA scrub's arithmetic (csrc/hsiao_secded.cu), emulated in numpy over
+# all blocks at once.  Thread t of a 32-block tile owns block t; it loads
+# its block with eight 16-byte reads, chunk c from chunk (c + t) mod 8, so
+# a[i] = w_((i + r) mod 32) with r = 4t mod 32; transposes the 32x32 bit
+# matrix (two rounds of byte permutes, three of masked merges); XORs the
+# bit-planes of each check mask with the stored row rotated right by r;
+# and classifies only the words whose syndrome is nonzero.
+
+U32 = np.uint32
+
+
+def _rotl(x, r):
+    x = np.asarray(x, dtype=np.uint64)
+    r = np.asarray(r, dtype=np.int64) % 32
+    out = (x << r.astype(np.uint64)) | (x >> ((32 - r) % 32).astype(np.uint64))
+    return (out & 0xFFFFFFFF).astype(U32)
+
+
+def _byte_perm(x, y, sel):
+    """CUDA's __byte_perm: byte n of the result is byte (sel >> 4n) & 7 of
+    the 8-byte value y:x."""
+    v = (y.astype(np.uint64) << np.uint64(32)) | x.astype(np.uint64)
+    out = np.zeros_like(v)
+    for n in range(4):
+        b = (sel >> (4 * n)) & 7
+        out |= ((v >> np.uint64(8 * b)) & np.uint64(0xFF)) << np.uint64(8 * n)
+    return out.astype(U32)
+
+
+def _kernel_order(w):
+    """(n, 32) words as the kernel's threads hold them, and each block's r."""
+    n = w.size // BLOCK
+    t = np.arange(n) % BLOCK                 # the block's thread in its tile
+    i = np.arange(BLOCK)
+    idx = 4 * ((i[None, :] // 4 + t[:, None]) % 8) + i[None, :] % 4
+    a = w.reshape(n, BLOCK)[np.arange(n)[:, None], idx]
+    return a, (4 * t) % BLOCK
+
+
+def _transpose32(a):
+    """The kernel's five swap rounds over (n, 32): afterwards bit i of
+    a[:, k] is bit k of the old a[:, i]."""
+    a = a.copy()
+    for J in (16, 8, 4, 2, 1):
+        M = U32({4: 0x0F0F0F0F, 2: 0x33333333, 1: 0x55555555}.get(J, 0))
+        for p in range(BLOCK // 2):
+            k = p // J * 2 * J + p % J
+            x, y = a[:, k].copy(), a[:, k + J].copy()
+            if J == 16:
+                a[:, k], a[:, k + J] = (_byte_perm(x, y, 0x5410),
+                                        _byte_perm(x, y, 0x7632))
+            elif J == 8:
+                a[:, k], a[:, k + J] = (_byte_perm(x, y, 0x6240),
+                                        _byte_perm(x, y, 0x7351))
+            else:
+                a[:, k] = (x & M) | ((y << U32(J)) & ~M)
+                a[:, k + J] = ((x >> U32(J)) & M) | (y & ~M)
+    return a
+
+
+def _sliced_rows(w):
+    """(check rows in the rotated frame (n, 7), r (n,)) of words w."""
+    a, r = _kernel_order(w)
+    planes = _transpose32(a)
+    rows = np.zeros((len(a), H.N_CHECKS), U32)
+    for j, m in enumerate(H.CHECK_MASKS):
+        for k in range(BLOCK):
+            if (m >> k) & 1:
+                rows[:, j] ^= planes[:, k]
+    return rows, r
+
+
+def emulate_bitsliced_scrub(words, parity, out=None):
+    """The kernel's scrub of uint32 `words` against `parity` (row b mod
+    len(parity)); corrected rows to `out` (every row), else in place when
+    the table is per block, else dropped.  Returns (words, parity rows or
+    None, counts), numpy."""
+    words = words.copy()
+    n, npb = words.size // BLOCK, parity.shape[0]
+    rows, r = _sliced_rows(words)
+    stored = parity[np.arange(n) % npb]
+    syn = rows ^ _rotl(stored, -r[:, None])
+    dirty = np.bitwise_or.reduce(syn, axis=1)
+    lut = syndrome_classes()
+    counts = np.zeros(3, np.int32)
+    fixed = stored.copy()
+    healed = np.zeros(n, bool)
+    for b in np.flatnonzero(dirty):
+        for i in range(BLOCK):
+            if not (int(dirty[b]) >> i) & 1:
+                continue
+            s = sum(((int(syn[b, j]) >> i) & 1) << j
+                    for j in range(H.N_CHECKS))
+            cls, wi = lut[s], (i + int(r[b])) % BLOCK
+            if cls < BLOCK:
+                words[b * BLOCK + wi] ^= U32(1 << cls)
+                counts[0] += 1
+            elif cls < 32 + H.N_CHECKS:
+                fixed[b, cls - 32] ^= U32(1 << wi)
+                healed[b] = True
+                counts[1] += 1
+            else:
+                counts[2] += 1
+    if out is not None:                 # every row
+        return words, fixed, counts
+    if npb == n:                        # in place, healed rows only
+        parity = parity.copy()
+        parity[healed] = fixed[healed]
+        return words, parity, counts
+    return words, None, counts          # dropped
+
+
+def test_kernel_read_order_and_transpose():
+    """Every one of a tile's 32 threads holds w_((i + 4t) mod 32) at
+    register i, and the transpose puts bit k of word i at bit i of plane
+    k."""
+    w = _words(BLOCK, 3)
+    a, r = _kernel_order(w)
+    assert sorted(set(r.tolist())) == list(range(0, BLOCK, 4))
+    for t in range(BLOCK):
+        blk = w[t * BLOCK:(t + 1) * BLOCK]
+        np.testing.assert_array_equal(a[t], blk[(np.arange(BLOCK) + r[t])
+                                                % BLOCK])
+    planes = _transpose32(a)
+    bits = (a[:, :, None] >> np.arange(BLOCK, dtype=U32)) & 1   # [t, i, k]
+    want = (bits.transpose(0, 2, 1).astype(np.uint64)
+            << np.arange(BLOCK, dtype=np.uint64)).sum(-1).astype(U32)
+    np.testing.assert_array_equal(planes, want)
+
+
+def test_compiled_check_masks_equal_code():
+    """The scrub's XOR trees are compiled from constants in the CUDA source;
+    they must be the code's CHECK_MASKS."""
+    src = (Path(H.__file__).resolve().parents[1] / "csrc" /
+           "hsiao_secded.cu").read_text()
+    body = src[src.index("constexpr uint32_t check_mask"):]
+    body = body[:body.index("}")]
+    got = tuple(int(x, 16) for x in re.findall(r"0x([0-9A-Fa-f]{8})u", body))
+    assert got == H.CHECK_MASKS
+
+
+@pytest.mark.parametrize("n_blocks", [1, 33, 70])
+def test_bitsliced_check_rows_match_jax_encode(n_blocks):
+    """The rows rotated back by r are the JAX encode kernel's check table."""
+    w = _words(n_blocks, 40 + n_blocks)
+    rows, r = _sliced_rows(w)
+    want = np.asarray(JH.encode_hsiao(jnp.asarray(w), interpret=True))
+    np.testing.assert_array_equal(_rotl(rows, r[:, None]), want)
+
+
+def _sliced_case(kind, seed, n=70):
+    """(corrupted words, corrupted table) over n blocks, so that every
+    thread position of a tile and a tail past one tile are covered."""
+    rs = np.random.RandomState(seed)
+    w = _words(n, seed)
+    p = H.encode_hsiao_ref(_to_t(w)).numpy().view(np.uint32).copy()
+    blocks = rs.choice(n, 40, replace=False)
+    if kind == "single_data":                    # 3 words in each block
+        for b in blocks:
+            for i in rs.choice(BLOCK, 3, replace=False):
+                _flip(w, b * BLOCK + i, rs.randint(32))
+    elif kind == "one_flip_every_word":
+        for b in blocks[:10]:
+            for i in range(BLOCK):
+                _flip(w, b * BLOCK + i, rs.randint(32))
+    elif kind == "check_bit":
+        for b in blocks:                         # 1 or 2 words per row
+            for i in rs.choice(BLOCK, 1 + b % 2, replace=False):
+                p[b, rs.randint(7)] ^= np.uint32(1 << i)
+    elif kind == "same_word_double":
+        for b in blocks:
+            i, k = rs.randint(BLOCK), rs.choice(32, 2, replace=False)
+            _flip(w, b * BLOCK + i, k[0])
+            _flip(w, b * BLOCK + i, k[1])
+            _flip(w, b * BLOCK + (i + 1) % BLOCK, rs.randint(32))
+    elif kind == "different_word_double":
+        for b in blocks:
+            for i in rs.choice(BLOCK, 2, replace=False):
+                _flip(w, b * BLOCK + i, 9)
+    elif kind == "fuzz":
+        for _ in range(300):
+            _flip(w, rs.randint(n * BLOCK), rs.randint(32))
+        for _ in range(20):
+            p[rs.randint(n), rs.randint(7)] ^= np.uint32(1 << rs.randint(32))
+    return w, p
+
+
+@pytest.mark.parametrize("kind", KINDS)
+def test_bitsliced_scrub_emulation_matches_jax(kind):
+    bad, p = _sliced_case(kind, 50 + KINDS.index(kind))
+    jw, jp, jc = (np.asarray(x) for x in JH.scrub(
+        jnp.asarray(bad), jnp.asarray(p), interpret=True))
+    ow, _, oc = (np.asarray(x) for x in j_scrub_ref(jnp.asarray(bad),
+                                                    jnp.asarray(p)))
+    ew, ep, ec = emulate_bitsliced_scrub(bad, p)
+    np.testing.assert_array_equal(ew, jw)
+    np.testing.assert_array_equal(ew, ow)
+    np.testing.assert_array_equal(ep, jp)
+    np.testing.assert_array_equal(ec, jc)
+    np.testing.assert_array_equal(ec, oc)
+    if kind == "same_word_double":
+        assert ec.tolist() == [40, 0, 40]
+    if kind == "different_word_double":
+        assert ec.tolist() == [80, 0, 0]
+    if kind == "one_flip_every_word":
+        assert ec.tolist() == [320, 0, 0]
+
+
+@pytest.mark.parametrize("layout", ["out_all", "shared3_dropped"])
+def test_bitsliced_scrub_emulation_shared_table_matches_jax(layout):
+    """Three copies against one table, rows written for every block or
+    dropped: the JAX scrub of the concatenated copies and tables."""
+    bad, p = _sliced_case("fuzz", 77)
+    rs = np.random.RandomState(78)
+    copies = [bad.copy() for _ in range(3)]
+    for c in copies[1:]:
+        for _ in range(100):
+            _flip(c, rs.randint(c.size), rs.randint(32))
+    words = np.concatenate(copies)
+    jw, jp, jc = (np.asarray(x) for x in JH.scrub(
+        jnp.asarray(words), jnp.asarray(np.concatenate([p] * 3)),
+        interpret=True))
+    out = np.zeros_like(np.concatenate([p] * 3)) if layout == "out_all" \
+        else None
+    ew, ep, ec = emulate_bitsliced_scrub(words, p, out)
+    np.testing.assert_array_equal(ew, jw)
+    np.testing.assert_array_equal(ec, jc)
+    if out is None:
+        assert ep is None
+    else:
+        np.testing.assert_array_equal(ep, jp)
+
+
 def _cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the CUDA kernel has no CPU mode")
@@ -251,3 +492,71 @@ def test_read_corrected_matches_jax(spec):
                                       np.asarray(jpay[k]).view(np.int32))
     assert [int(x) for x in rep] == [int(x) for x in jrep]
     assert int(rep[0]) > 0
+
+
+# Edge cases of the thread-per-block scrub on the card: a warp tile is 32
+# blocks, so 1, 33 and 45 blocks leave tails; corrected rows in place, for
+# every row, for three copies against one table, or dropped.  Each block
+# carries one of: a single data-bit error in one word, one in every word,
+# a check-bit error, a same-word double, a different-word double, nothing.
+EDGE_BLOCKS = [1, 33, 45]
+EDGE_LAYOUTS = ["in_place", "out_all", "shared3_out", "shared3_dropped"]
+
+
+def _plant_edge(w, p, n, rs, shift=0):
+    for b in range(n):
+        kind = (b + shift) % 6
+        if kind == 0:
+            _flip(w, b * BLOCK + rs.randint(BLOCK), rs.randint(32))
+        elif kind == 1:
+            for i in range(BLOCK):
+                _flip(w, b * BLOCK + i, rs.randint(32))
+        elif kind == 2 and p is not None:
+            p[b, rs.randint(7)] ^= np.uint32(1 << rs.randint(32))
+        elif kind == 3:
+            i, k = rs.randint(BLOCK), rs.choice(32, 2, replace=False)
+            _flip(w, b * BLOCK + i, k[0])
+            _flip(w, b * BLOCK + i, k[1])
+        elif kind == 4:
+            for i in rs.choice(BLOCK, 2, replace=False):
+                _flip(w, b * BLOCK + i, rs.randint(32))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("layout", EDGE_LAYOUTS)
+@pytest.mark.parametrize("n_blocks", EDGE_BLOCKS)
+def test_kernel_edge_cases_match_plain_on_card(n_blocks, layout):
+    dev = _cuda()
+    rs = np.random.RandomState(n_blocks)
+    w = _words(n_blocks, n_blocks)
+    p = H.encode_hsiao_ref(_to_t(w)).numpy().view(np.uint32).copy()
+    copies = 3 if layout.startswith("shared3") else 1
+    bufs = [w.copy() for _ in range(copies)]
+    for c, wc in enumerate(bufs):
+        _plant_edge(wc, p if c == 0 else None, n_blocks, rs, shift=c)
+    words = np.concatenate(bufs)
+    out = None if layout in ("in_place", "shared3_dropped") else \
+        np.zeros((copies * n_blocks, 7), np.uint32)
+    want = H.scrub_hsiao_ref(_to_t(words), _to_t(p),
+                             None if out is None else _to_t(out))
+    buf, par = _to_t(words).to(dev), _to_t(p).to(dev)
+    out_t = None if out is None else _to_t(out).to(dev)
+    _, got_p, counts = H.scrub(buf, par, out_parity=out_t)
+    torch.cuda.synchronize()
+    assert torch.equal(buf.cpu(), want[0])
+    assert torch.equal(counts.cpu(), want[2])
+    if layout == "shared3_dropped":
+        assert got_p is None and want[1] is None
+    else:
+        assert torch.equal(got_p.cpu(), want[1])
+    if layout == "in_place":
+        assert got_p is par
+
+
+@pytest.mark.gpu
+def test_kernel_rejects_misaligned_buffer_on_card():
+    dev = _cuda()
+    words = _to_t(_words(3, 5)).to(dev)
+    par = H.encode_hsiao(words[:64])
+    with pytest.raises(RuntimeError):
+        H.scrub(words[1:65], par)       # 4 bytes past the allocation's start
