@@ -64,10 +64,14 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      voting at 3e-5: the flipped gate lanes within the binomial 99% interval
      of p x G x trials, and the closed form inside the 99% Wilson interval
      of the first 4,096 trials (for TMR, whose closed form is a word-level
-     upper bound, not below it); p_hat over all trials is reported.  Before
-     it, in phase 3, both netlist kernels against their plain versions at
-     these shapes: `netlist_exec` over 2^20 trials in its three mask modes
-     (random keep and flip), `crossbar_nor` over 13,792 trials, bit for bit.
+     upper bound, not below it); p_hat over all trials is reported, and
+     `netlist_exec`'s launches by mask mode and trial words.  Before it, in
+     phase 3, both netlist kernels against their plain versions, bit for
+     bit: `netlist_exec` in its three mask modes (random keep and flip)
+     over 2^20 trials (also timed at the next narrower trial tile than its
+     shared-memory plan takes) and over 13,792 trials, and the 64-bit
+     multiplier's schedule over 2^16 trials, whose plan takes a narrower
+     tile; `crossbar_nor` over 13,792 trials.
 
 The second-to-last line is a JSON object of per-kernel numbers; the last is
 {"ok": true, "device": {...}}.  Times are CUDA-event means on this card
@@ -541,6 +545,8 @@ def check_hsiao(torch, dev):
         f"bound {enc_bound[0]:.3f} ms ({enc_bound[1]}); bit-exact")
     npool, npage = server_pool_words()
     page = words[:npage]
+    check(torch.equal(H.encode_hsiao(page), H.encode_hsiao_ref(page)),
+          "encode_hsiao kernel != plain version (a page refresh)")
     page_ms, page_call_ms = small_shape_ms(torch, lambda: H.encode_hsiao(page))
     log(f"encode_hsiao (a page refresh, {npage} words): kernel "
         f"{page_ms:.4f} ms (per call {page_call_ms:.4f}), bound "
@@ -797,6 +803,10 @@ N_BITS = 32
 MC_TRIALS = 1 << 20
 FIG4_PGATES = (1e-5, 3e-5)
 SINGLE_FAULT_WRONG_32 = 12559
+#: the schedule whose shared-memory plan takes a narrower trial tile
+#: (8 words: 4,541 live rows), and its trials (1.4 GB of state)
+NARROW_BITS = 64
+NARROW_TRIALS = 1 << 16
 Z99 = 2.576
 
 
@@ -810,54 +820,104 @@ def operands(torch, n: int, seed: int, dev):
     return a, b
 
 
-def check_netlist_exec(torch, dev):
-    from repro_torch.core import multpim, scheduler
-    from repro_torch.kernels.netlist_exec import netlist_exec, netlist_exec_ref
+def netlist_bound(L, W, base, tw, n_masks, n_rows_in):
+    """bytes: rows [0, base) and the masks read, the level rows written;
+    operations: 6 bitwise word ops a gate, + 1 a mask."""
+    return bound_ms((base + (1 + n_masks) * L * W) * tw * 4 + n_rows_in * 4,
+                    (6 + n_masks) * L * W * tw)
 
-    sch = scheduler.schedule(multpim.multiplier_netlist(N_BITS))
-    L, W, base, tw = sch.n_levels, sch.max_width, sch.base, MC_TRIALS // 32
-    g = torch.Generator(device=dev).manual_seed(SEED + 5)
+
+def check_netlist_modes(torch, dev, n_bits, trials, seed, narrow=False):
+    """netlist_exec over the n_bits multiplier's schedule at `trials`
+    trials in its three mask modes (random state, keep and flip) against
+    the plain version, bit for bit, through the op; the kernel's binding
+    timed at the tile the op launches and, with `narrow`, at the next
+    narrower one.  Returns {mode: (ms, plain ms, bound)}."""
+    from repro_torch.core import multpim, scheduler
+    from repro_torch.kernels.netlist_exec import kernel, netlist_exec
+    from repro_torch.kernels.netlist_exec import netlist_exec_ref
+    from repro_torch.kernels.netlist_exec import plan as P
+
+    sch = scheduler.schedule(multpim.multiplier_netlist(n_bits))
+    L, W, base, tw = sch.n_levels, sch.max_width, sch.base, -(-trials // 32)
+    plan = P.plan(sch.rows_in, base)
+    g = torch.Generator(device=dev).manual_seed(seed)
     rows_in = torch.as_tensor(sch.rows_in, device=dev)
     # random words everywhere (rows >= base too: the kernel overwrites them)
     state = random_words(torch, sch.n_rows * tw, g, dev).view(sch.n_rows, tw)
     masks = [random_words(torch, L * W * tw, g, dev).view(L, W, tw)
              for _ in range(2)]
-    log(f"netlist_exec: {N_BITS}-bit multiplier schedule L={L} W={W} "
-        f"base={base}, state {sch.n_rows} x {tw} words "
-        f"({sch.n_rows * tw * 4 / 1e9:.2f} GB)")
+    log(f"netlist_exec: {n_bits}-bit multiplier schedule L={L} W={W} "
+        f"base={base}, {trials} trials, state {sch.n_rows} x {tw} words "
+        f"({sch.n_rows * tw * 4 / 1e9:.2f} GB); plan {plan.n_slots} live "
+        f"rows, trial tiles that fit {plan.tile(0)} / {plan.tile(1)} / "
+        f"{plan.tile(2)} words (none / xor / keep+xor)")
     timed = {}
     for mode, (keep, flip) in (("none", (None, None)),
                                ("xor", (None, masks[1])),
                                ("keep+xor", tuple(masks))):
+        n_masks = (flip is not None) + (keep is not None)
         got = netlist_exec(rows_in, state.clone(), keep, flip, base=base)
         plain = state.clone()
         _, plain_ms = timed_once(torch, lambda: netlist_exec_ref(
             rows_in, plain, keep, flip, base=base))
         check(torch.equal(got, plain),
-              f"netlist_exec kernel != plain version ({mode})")
+              f"netlist_exec kernel != plain version ({n_bits}-bit, {mode})")
         check(torch.equal(got[:base], state[:base]),
-              f"netlist_exec wrote below base ({mode})")
+              f"netlist_exec wrote below base ({n_bits}-bit, {mode})")
         del got, plain
         work = state.clone()
-        ms = time_ms(torch, lambda: netlist_exec(rows_in, work, keep, flip,
-                                                 base=base))
-        n_masks = (flip is not None) + (keep is not None)
-        # bytes: rows [0, base) and the masks read, the level rows written;
-        # operations: 6 bitwise word ops a gate, + 1 a mask
-        bnd = bound_ms((base + (1 + n_masks) * L * W) * tw * 4
-                       + rows_in.numel() * 4, (6 + n_masks) * L * W * tw)
-        log(f"netlist_exec ({mode}): kernel {ms:.3f} ms, plain "
-            f"{plain_ms:.1f} ms, bound {bnd[0]:.3f} ms ({bnd[1]}); "
-            f"bit-exact")
+        tile = plan.tile(n_masks)
+        launched = P.launch_tile(tile, tw, torch.cuda.get_device_properties(
+            dev).multi_processor_count) if dev.type == "cuda" else tile
+
+        def at(t):
+            return lambda: kernel.netlist_exec(plan, t, work, keep, flip)
+        ms = time_ms(torch, at(launched))
+        bnd = netlist_bound(L, W, base, tw, n_masks, rows_in.numel())
+        extra = ""
+        if narrow and launched > 1:
+            extra = (f"; at a {launched // 2}-word tile "
+                     f"{time_ms(torch, at(launched // 2)):.3f} ms")
+        log(f"netlist_exec ({n_bits}-bit, {trials} trials, {mode}, "
+            f"{launched}-word tile): kernel {ms:.3f} ms, plain {plain_ms:.1f} "
+            f"ms, bound {bnd[0]:.3f} ms ({bnd[1]}){extra}; bit-exact")
         timed[mode] = (ms, plain_ms, bnd)
         del work
+    # the op's host work a launch: rows_in to the host, its plan from the
+    # cache (keyed by the bytes), as at every Monte Carlo call
+    reps = 50
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        P.plan(rows_in.cpu().numpy(), base)
+    log(f"netlist_exec plan lookup ({n_bits}-bit, rows_in "
+        f"{rows_in.numel() * 4} bytes to the host and a cache hit): "
+        f"{(time.perf_counter() - t0) / reps * 1e3:.3f} ms a launch "
+        f"(host clock)")
     del state, masks
     torch.cuda.empty_cache()
-    ms, plain_ms, bnd = timed["keep+xor"]     # the Monte Carlo runs' mode
-    return {"netlist_exec": row(
+    return timed
+
+
+def check_netlist_exec(torch, dev):
+    from repro_torch.core import multpim
+
+    timed = check_netlist_modes(torch, dev, N_BITS, MC_TRIALS, SEED + 5,
+                                narrow=True)
+    # phase 7 (b)'s shape: one single-fault trial per gate, flip only
+    G = multpim.multiplier_netlist(N_BITS).n_gates
+    single = check_netlist_modes(torch, dev, N_BITS, G, SEED + 7)["xor"]
+    log(f"netlist_exec single-fault shape ({G} trials, xor): kernel "
+        f"{single[0]:.4f} ms, bound {single[2][0]:.4f} ms")
+    # a schedule whose plan takes a narrower tile: the 64-bit multiplier
+    check_netlist_modes(torch, dev, NARROW_BITS, NARROW_TRIALS, SEED + 8)
+    # the row times the Monte Carlo runs' mode, and names it: a row of
+    # another mode is not the same measurement
+    ms, plain_ms, bnd = timed["xor"]
+    return {"netlist_exec": dict(row(
         "netlist_exec", "src/repro_torch/kernels/csrc/netlist_exec.cu",
         "src/repro/kernels/netlist_exec/kernel.py:76", ms, plain_ms, bnd,
-        0.0)}
+        0.0), mode="xor")}
 
 
 def check_crossbar_nor(torch, dev):
@@ -1184,6 +1244,9 @@ def run_netlist_path(torch, dev):
     log(f"netlist path: peak device memory "
         f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB, launches "
         f"{counts}")
+    log("netlist_exec launches by mode and shape (netlist path): " + ", ".join(
+        f"{shape}: {n}" for (name, shape), n in
+        sorted(kernels.launch_shapes().items()) if name == "netlist_exec"))
     del a, b, want
     torch.cuda.empty_cache()
     return counts

@@ -218,6 +218,13 @@ def schedule(nl: Netlist, max_width: Optional[int] = None) -> Schedule:
     return sch
 
 
+def _all_ones_broadcast(keep: torch.Tensor) -> bool:
+    """keep is one all-ones word broadcast over every gate and lane (every
+    stride 0): read with one scalar copy, never materialized."""
+    return (keep.numel() > 0 and all(st == 0 for st in keep.stride())
+            and int(keep[(0,) * keep.ndim]) == -1)
+
+
 def schedule_fault_masks(sch: Schedule, trials: int,
                          generator: Optional[torch.Generator] = None,
                          p_gate=0.0,
@@ -231,7 +238,9 @@ def schedule_fault_masks(sch: Schedule, trials: int,
     `device` (default: fault_gate's, else the generator's): slot (l, s)'s
     freshly computed packed column corrupts as ``(val & keep[l, s]) ^
     flip[l, s]`` -- identity on padding slots.  keep is None when no iid
-    model is active (single-fault only): the corruption is then a pure XOR.
+    model is active (single-fault only) or when the model's keep is an
+    all-ones broadcast (TransientGateFaults): the corruption is then a pure
+    XOR, with the same bits.
     A float p_gate means TransientGateFaults(p_gate); the iid model comes
     before the single-fault XOR (scan order), which in affine form is
     flip ^= single_fault_plane.
@@ -244,8 +253,11 @@ def schedule_fault_masks(sch: Schedule, trials: int,
         device = fault_gate.device if fault_gate is not None \
             else generator.device
     if model is not None:
-        keep_g, flip_g = (m.to(device) for m in
-                          model.gate_lane_masks(generator, G, trials))
+        keep_g, flip_g = model.gate_lane_masks(generator, G, trials)
+        # an all-ones keep (TransientGateFaults' broadcast) changes no bit:
+        # v & ~0 == v, so the corruption is the pure XOR
+        keep_g = None if _all_ones_broadcast(keep_g) else keep_g.to(device)
+        flip_g = flip_g.to(device)
     else:
         keep_g = None
         flip_g = torch.zeros((G, tw), dtype=torch.int32, device=device)

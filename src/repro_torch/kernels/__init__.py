@@ -23,6 +23,6 @@ Kernels (TPU kernel each replaces, in the JAX package):
   crossbar_nor    -- gate-serial Minority3 netlist interpreter
                      (kernels/crossbar_nor/kernel.py)
 """
-from ._build import build, launch_counts, reset_launch_counts
+from ._build import build, launch_counts, launch_shapes, reset_launch_counts
 
-__all__ = ["build", "launch_counts", "reset_launch_counts"]
+__all__ = ["build", "launch_counts", "launch_shapes", "reset_launch_counts"]

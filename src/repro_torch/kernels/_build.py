@@ -21,11 +21,11 @@ import subprocess
 import time
 from collections import Counter
 from pathlib import Path
-from typing import Dict
+from typing import Dict, Optional, Tuple
 
 __all__ = ["SOURCES", "build", "library", "library_path", "check",
-           "count_launch", "launch_counts", "reset_launch_counts",
-           "build_dir"]
+           "count_launch", "launch_counts", "launch_shapes",
+           "reset_launch_counts", "build_dir"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("diag_parity", "inject_scrub", "hsiao_secded", "tmr_vote",
@@ -35,6 +35,7 @@ FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _LAUNCHES: Counter = Counter()
+_SHAPES: Counter = Counter()
 
 
 def build_dir() -> Path:
@@ -117,13 +118,23 @@ def check(lib: ctypes.CDLL, code: int, what: str) -> None:
                            f"({lib.repro_error_string(code).decode()})")
 
 
-def count_launch(name: str) -> None:
+def count_launch(name: str, shape: Optional[str] = None) -> None:
+    """One launch of kernel `name`; `shape` also tallies it under (name,
+    shape) -- a mode and size, say."""
     _LAUNCHES[name] += 1
+    if shape is not None:
+        _SHAPES[name, shape] += 1
 
 
 def launch_counts() -> Dict[str, int]:
     return dict(_LAUNCHES)
 
 
+def launch_shapes() -> Dict[Tuple[str, str], int]:
+    """Launches by (name, shape), for the wrappers that pass a shape."""
+    return dict(_SHAPES)
+
+
 def reset_launch_counts() -> None:
     _LAUNCHES.clear()
+    _SHAPES.clear()

@@ -83,20 +83,27 @@ __device__ __forceinline__ int load_block(const uint32_t* sw, int lane,
   return (4 * lane) & (BLOCK - 1);
 }
 
+struct NoEpilogue {
+  __device__ void operator()(long long, uint32_t*) const {}
+};
+
 // Walk this warp's tiles of `words` (and with kInject of `mask`, staged
 // beside them): body(b, sw, sm, row) for every block b < n_blocks this
 // thread owns, with sw and sm its block's staged words and mask in shared
 // memory and row its NP table words (table row b mod n_pblocks; NP = 0
-// reads no table).  words and mask are 16-byte aligned; the CTA has WARPS
-// warps and WARPS * STAGES * (kInject ? 2 : 1) * TILE_WORDS words of dynamic
-// shared memory at smem.
-template <bool kInject, int NP, class Body>
+// reads no table); then, in every lane, epilogue(tile, st) with st the
+// tile's stage, read out and free until the epilogue's last __syncwarp.
+// words and mask are 16-byte aligned; the CTA has WARPS warps and WARPS *
+// STAGES * (kInject ? 2 : 1) * TILE_WORDS words of dynamic shared memory at
+// smem.
+template <bool kInject, int NP, class Body, class Epilogue = NoEpilogue>
 __device__ __forceinline__ void walk_tiles(uint32_t* smem,
                                            const uint32_t* words,
                                            const uint32_t* mask,
                                            long long n_blocks,
                                            const uint32_t* table,
-                                           long long n_pblocks, Body&& body) {
+                                           long long n_pblocks, Body&& body,
+                                           Epilogue&& epilogue = Epilogue{}) {
   constexpr int PLANES = kInject ? 2 : 1;
   constexpr int NR = NP > 0 ? NP : 1;
   const int lane = threadIdx.x & 31;
@@ -138,11 +145,13 @@ __device__ __forceinline__ void walk_tiles(uint32_t* smem,
     __syncwarp();  // every lane's part of this tile has landed
 
     const long long b = tile * BLOCK + lane;
+    uint32_t* st = ring + stage * PLANES * TILE_WORDS;
     if (b < n_blocks) {
-      const uint32_t* sw = ring + stage * PLANES * TILE_WORDS + lane * BLOCK;
+      const uint32_t* sw = st + lane * BLOCK;
       body(b, sw, sw + TILE_WORDS, row);
     }
     __syncwarp();  // the stage is read out before the next issue refills it
+    epilogue(tile, st);
 #pragma unroll
     for (int f = 0; f < NR; ++f) row[f] = row_next[f];
     stage = (stage + 1) % STAGES;

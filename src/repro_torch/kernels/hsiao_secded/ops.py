@@ -28,7 +28,9 @@ __all__ = ["encode_hsiao", "scrub"]
 
 
 def encode_hsiao(buf: torch.Tensor) -> torch.Tensor:
-    """Check table (n_blocks, 7) int32 of a flat word buffer."""
+    """Check table (n_blocks, 7) int32 of a flat word buffer.  The kernel
+    refuses (RuntimeError) a CUDA buffer that is not 16-byte aligned; a view
+    that starts on a block boundary is."""
     _check_buf(buf)
     if buf.device.type == "cpu":
         return encode_hsiao_ref(buf)

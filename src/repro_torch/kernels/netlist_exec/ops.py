@@ -7,8 +7,10 @@ from a generator, single-fault planes, bool (trials, n_in) in, bool
 (trials, n_out) out): scheduling and fault masks are core/scheduler.py's,
 shared with the plain levelized path, and only the level loop differs.
 
-A CPU tensor takes the plain version; a CUDA tensor launches the kernel or
-raises.
+Both check the schedule through its shared-memory plan (plan.py, cached by
+the exact bytes of rows_in, which a CUDA rows_in is copied to the host
+for); a CPU tensor then takes the plain version, a CUDA tensor launches
+the kernel or raises.
 """
 from __future__ import annotations
 
@@ -20,6 +22,7 @@ from .. import _build
 from ...core import scheduler
 from ...core.netlist import Netlist
 from . import kernel
+from . import plan as _plan
 from .ref import netlist_exec_ref
 
 __all__ = ["netlist_exec", "execute_packed"]
@@ -41,7 +44,9 @@ def netlist_exec(rows_in: torch.Tensor, state: torch.Tensor,
     rows below base + l*W); state: (base + L*W, tw) int32 trial-packed wire
     state, updated in place; keep/flip: optional (L, W, tw) int32
     corruption masks, ``(val & keep) ^ flip`` (flip without keep: a pure
-    XOR).  Returns `state`."""
+    XOR).  The kernel takes the widest trial tile whose live rows fit a
+    CTA's shared memory, narrowed for a small tw (plan.launch_tile).
+    Returns `state`."""
     if rows_in.ndim != 3 or rows_in.shape[2] != 3:
         raise ValueError(f"netlist_exec: rows_in must be (L, W, 3), got "
                          f"{tuple(rows_in.shape)}")
@@ -59,16 +64,18 @@ def netlist_exec(rows_in: torch.Tensor, state: torch.Tensor,
             _check(name, m, (L, W, state.shape[1]), dev)
     if L == 0:
         return state
-    limit = base + W * torch.arange(L, device=dev).view(L, 1, 1)
-    if bool(((rows_in < 0) | (rows_in >= limit)).any()):
-        raise ValueError("netlist_exec: a level reads a row at or above its "
-                         "own output block")
+    plan = _plan.plan(rows_in.cpu().numpy(), base)     # validates rows_in
     if dev.type == "cpu":
         return netlist_exec_ref(rows_in, state, keep, flip, base=base)
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
-    kernel.netlist_exec(rows_in, state, keep, flip, base)
-    _build.count_launch("netlist_exec")
+    tw = state.shape[1]
+    tile = _plan.launch_tile(
+        plan.tile((flip is not None) + (keep is not None)), tw,
+        torch.cuda.get_device_properties(dev).multi_processor_count)
+    kernel.netlist_exec(plan, tile, state, keep, flip)
+    mode = "none" if flip is None else "xor" if keep is None else "keep+xor"
+    _build.count_launch("netlist_exec", f"{mode}, tw {tw}")
     return state
 
 

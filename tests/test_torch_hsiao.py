@@ -4,11 +4,12 @@ against the JAX package's Pallas kernels (interpret mode) and its oracle,
 bit for bit -- words, check tables and per-word counts -- on random words,
 planted single data-bit flips, check-bit flips, same-word doubles (detected,
 left as they are) and different-word doubles (both corrected); the
-shared-table 3-copy scrub; the scheme tokens and grid; a plain emulation
-of the CUDA scrub's bit-sliced arithmetic (rotated read order, 32x32 bit
-transpose, XOR of bit-planes, sparse classification) against the JAX
-kernels; plus the CUDA kernels against the plain versions on the card
-(skipped without one)."""
+shared-table 3-copy scrub; the scheme tokens and grid; plain emulations
+of the CUDA encode's and scrub's bit-sliced arithmetic (rotated read
+order, 32x32 bit transpose, XOR of bit-planes, rotation back or sparse
+classification) against the JAX kernels; plus the CUDA kernels against
+the plain versions on the card, and their refusals (skipped without
+one)."""
 import re
 from pathlib import Path
 
@@ -260,6 +261,15 @@ def _sliced_rows(w):
     return rows, r
 
 
+def emulate_bitsliced_encode(words):
+    """The kernel's encode of uint32 `words`: each thread's block in the
+    staged read order, transposed, the bit-planes of each check mask XORed
+    (the rows the scrub forms too), rotated back to word order by r.
+    Returns the (n, 7) check table, numpy."""
+    rows, r = _sliced_rows(words)
+    return _rotl(rows, r[:, None])
+
+
 def emulate_bitsliced_scrub(words, parity, out=None):
     """The kernel's scrub of uint32 `words` against `parity` (row b mod
     len(parity)); corrected rows to `out` (every row), else in place when
@@ -336,6 +346,15 @@ def test_bitsliced_check_rows_match_jax_encode(n_blocks):
     rows, r = _sliced_rows(w)
     want = np.asarray(JH.encode_hsiao(jnp.asarray(w), interpret=True))
     np.testing.assert_array_equal(_rotl(rows, r[:, None]), want)
+
+
+@pytest.mark.parametrize("n_blocks", [1, 5, 31, 32, 45, 97])
+def test_bitsliced_encode_emulation_matches_jax(n_blocks):
+    """The encode kernel's arithmetic, tiles of 32 blocks with tails of
+    fewer, against the JAX encode kernel in interpret mode."""
+    w = _words(n_blocks, 60 + n_blocks)
+    want = np.asarray(JH.encode_hsiao(jnp.asarray(w), interpret=True))
+    np.testing.assert_array_equal(emulate_bitsliced_encode(w), want)
 
 
 def _sliced_case(kind, seed, n=70):
@@ -560,3 +579,50 @@ def test_kernel_rejects_misaligned_buffer_on_card():
     par = H.encode_hsiao(words[:64])
     with pytest.raises(RuntimeError):
         H.scrub(words[1:65], par)       # 4 bytes past the allocation's start
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_blocks", [1, 31, 32, 33, 45, 4099])
+def test_encode_edge_shapes_match_plain_on_card(n_blocks):
+    """Tails past a 32-block tile, and a page-like view that starts on a
+    block boundary inside a larger buffer."""
+    dev = _cuda()
+    w = _to_t(_words(n_blocks + 3, n_blocks)).to(dev)
+    for view in (w[:n_blocks * BLOCK], w[3 * BLOCK:]):
+        got = H.encode_hsiao(view)
+        torch.cuda.synchronize()
+        assert torch.equal(got.cpu(), H.encode_hsiao_ref(view.cpu()))
+
+
+@pytest.mark.gpu
+def test_encode_rejects_misaligned_buffer_on_card():
+    dev = _cuda()
+    words = _to_t(_words(3, 6)).to(dev)
+    with pytest.raises(RuntimeError):
+        H.encode_hsiao(words[1:65])     # 4 bytes past the allocation's start
+
+
+@pytest.mark.gpu
+def test_encode_rejects_foreign_masks_on_card():
+    """The check rows' XOR trees are compiled in: the C entry points refuse
+    any other masks (and the scrub too)."""
+    import ctypes
+    from repro_torch.kernels.hsiao_secded import kernel as K
+    dev = _cuda()
+    words = _to_t(_words(2, 7)).to(dev)
+    parity = torch.zeros((2, 7), dtype=torch.int32, device=dev)
+    masks = list(H.CHECK_MASKS)
+    masks[3] ^= 1
+    foreign = (ctypes.c_uint32 * 7)(*masks)
+    lib = K._lib()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    assert lib.hsiao_encode(words.data_ptr(), 2, parity.data_ptr(), foreign,
+                            K._COLUMNS, stream) != 0
+    counts = torch.zeros(3, dtype=torch.int32, device=dev)
+    assert lib.hsiao_scrub(words.data_ptr(), 2, parity.data_ptr(), 2, None,
+                           0, foreign, K._COLUMNS, counts.data_ptr(),
+                           stream) != 0
+    assert lib.hsiao_encode(words.data_ptr(), 2, parity.data_ptr(),
+                            K._MASKS, K._COLUMNS, stream) == 0
+    torch.cuda.synchronize()
+    assert torch.equal(parity.cpu(), H.encode_hsiao_ref(words.cpu()))

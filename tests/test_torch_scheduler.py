@@ -5,7 +5,8 @@ width overrides), `pack_trials`/`unpack_trials` and `to_bits`/`from_bits`
 bit for bit, the packed initial state and the single-fault masks, and the
 final packed state under JAX's own fault masks (TransientGateFaults, and
 StuckAtFaults, whose keep is not all ones) through the port's
-level-by-level plain version."""
+level-by-level plain version, and the same state with TransientGateFaults'
+all-ones keep dropped."""
 import numpy as np
 import pytest
 import torch
@@ -203,6 +204,53 @@ def test_final_state_under_jax_masks_matches_jax(case, nb, trials):
         tile_tw=jstate.shape[1], interpret=True))
     got = TS.run_levels(rows, t(jstate), None, t(jflip), base=jsch.base)
     np.testing.assert_array_equal(got.numpy().view(np.uint32), want)
+
+
+@pytest.mark.parametrize("case", ["gate", "gate+single"])
+@pytest.mark.parametrize("nb,trials", [(4, 45), (8, 200)])
+def test_all_ones_keep_dropped_with_the_same_final_state(case, nb, trials):
+    """TransientGateFaults' keep is an all-ones broadcast, so the port's
+    masks drop it (pure XOR): under JAX's masks, whose keep is an all-ones
+    plane, the final state without keep equals the one with it and JAX's,
+    in the plain version and through the op."""
+    nl = TM.multiplier_netlist(nb)
+    sch = TS.schedule(nl)
+    fg = np.random.default_rng(3).integers(-1, nl.n_gates, trials) \
+        .astype(np.int32)
+    kw = dict(fault_gate=torch.from_numpy(fg)) if case == "gate+single" \
+        else {}
+    keep, flip = TS.schedule_fault_masks(
+        sch, trials, torch.Generator().manual_seed(9), 0.04, **kw)
+    assert keep is None and flip.shape == (sch.n_levels, sch.max_width,
+                                           -(-trials // 32))
+    jsch = JS.schedule(JM.multiplier_netlist(nb))
+    jkeep, jflip = _jax_masks(case, jsch, trials, fg)
+    assert bool((np.asarray(jkeep) == 0xFFFFFFFF).all())
+    x = _inputs(nl, trials, trials + 1)
+    jstate = JS.packed_initial_state(jsch, jnp.asarray(x))
+    want = np.asarray(netlist_exec_kernel(
+        jnp.asarray(jsch.rows_in), jstate, jkeep, jflip, base=jsch.base,
+        tile_tw=jstate.shape[1], interpret=True))
+
+    def t(a):
+        return torch.from_numpy(np.asarray(a).view(np.int32).copy())
+
+    rows = torch.from_numpy(jsch.rows_in)
+    for run in (TS.run_levels, netlist_exec):
+        with_keep = run(rows, t(jstate), t(jkeep), t(jflip), base=jsch.base)
+        without = run(rows, t(jstate), None, t(jflip), base=jsch.base)
+        np.testing.assert_array_equal(without.numpy(), with_keep.numpy())
+        np.testing.assert_array_equal(without.numpy().view(np.uint32), want)
+
+
+def test_only_an_all_ones_broadcast_keep_is_dropped():
+    ones = torch.full((1, 1), -1, dtype=torch.int32)
+    assert TS._all_ones_broadcast(ones.expand(5, 3))
+    assert not TS._all_ones_broadcast(torch.full((5, 3), -1,
+                                                 dtype=torch.int32))
+    assert not TS._all_ones_broadcast(torch.full((1, 1), -2, dtype=torch.int32)
+                                      .expand(5, 3))
+    assert not TS._all_ones_broadcast(ones.expand(0, 3))
 
 
 @pytest.mark.parametrize("nb,trials", [(4, 33), (8, 300)])
