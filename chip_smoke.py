@@ -71,7 +71,11 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      over 2^20 trials (also timed at the next narrower trial tile than its
      shared-memory plan takes) and over 13,792 trials, and the 64-bit
      multiplier's schedule over 2^16 trials, whose plan takes a narrower
-     tile; `crossbar_nor` over 13,792 trials.
+     tile; `crossbar_nor` (levelized over its own plan) over 13,792 trials
+     of the 32-bit multiplier and 2^16 trials of the 64-bit one; its row
+     times the op on a CUDA gate list, with the launch from the host list
+     (execute_netlist's route) and the binding alone beside it, and the
+     binding's time a level beside the ASAP depth.
 
 The second-to-last line is a JSON object of per-kernel numbers; the last is
 {"ok": true, "device": {...}}.  Times are CUDA-event means on this card
@@ -920,31 +924,95 @@ def check_netlist_exec(torch, dev):
         0.0), mode="xor")}
 
 
-def check_crossbar_nor(torch, dev):
+def check_crossbar_nor_shape(torch, dev, n_bits, trials, seed):
+    """crossbar_nor over the n_bits multiplier's gate list at `trials`
+    trials (random words in every wire) against the plain version, bit for
+    bit, through the op.  Timed three ways: the op on a CUDA gate list (the
+    row's ms, as earlier trees timed it: the list's copy to the host, the
+    plan lookup, the launch), `launch` from the host list (execute_netlist's
+    route, no copy back), and the kernel's binding alone at the op's tile;
+    the plan on a line of its own and its lookup by the host clock.
+    Returns (op ms, binding ms, plain ms, bound)."""
     from repro_torch.core import multpim
     from repro_torch.kernels.crossbar_nor import crossbar_nor, crossbar_nor_ref
+    from repro_torch.kernels.crossbar_nor import kernel
+    from repro_torch.kernels.crossbar_nor import plan as CP
+    from repro_torch.kernels.crossbar_nor.ops import launch
+    from repro_torch.kernels.netlist_exec.plan import launch_tile
 
-    nl = multpim.multiplier_netlist(N_BITS)
-    tw = -(-nl.n_gates // 32)          # phase 7's golden run: one per gate
-    g = torch.Generator(device=dev).manual_seed(SEED + 6)
+    nl = multpim.multiplier_netlist(n_bits)
+    tw = -(-trials // 32)
+    plan = CP.plan(nl.gates, nl.n_wires)
+    tile = launch_tile(plan.tile(), tw, torch.cuda.get_device_properties(
+        dev).multi_processor_count) if dev.type == "cuda" else plan.tile()
+    log(f"crossbar_nor plan ({n_bits}-bit multiplier, {nl.n_gates} gates, "
+        f"{nl.n_wires} wires, {trials} trials): L={plan.L} levels of "
+        f"W={plan.W} ({plan.gate_levels} with gates, ASAP depth "
+        f"{plan.depth}; the rest only flush), {plan.n_slots} live slots, "
+        f"{len(plan.base_wire)} base rows, {len(plan.copy_wire)} wires "
+        f"copied; trial tile {tile} words, {-(-tw // tile)} CTAs over {tw} "
+        f"words")
+    g = torch.Generator(device=dev).manual_seed(seed)
     state = random_words(torch, tw * nl.n_wires, g, dev).view(tw, nl.n_wires)
     gates = torch.as_tensor(nl.gates, device=dev)
     got = crossbar_nor(gates, state)
     plain, plain_ms = timed_once(torch, lambda: crossbar_nor_ref(gates,
                                                                  state))
-    check(torch.equal(got, plain), "crossbar_nor kernel != plain version")
-    ms = time_ms(torch, lambda: crossbar_nor(gates, state), reps=10)
+    check(torch.equal(got, plain),
+          f"crossbar_nor kernel != plain version ({n_bits}-bit)")
+    check(torch.equal(launch(nl.gates, state), plain),
+          f"crossbar_nor from the host list != plain version ({n_bits}-bit)")
+    del plain
+    op_ms = time_ms(torch, lambda: crossbar_nor(gates, state), reps=10)
+    host_ms = time_ms(torch, lambda: launch(nl.gates, state), reps=10)
+    ms = time_ms(torch, lambda: kernel.crossbar_nor(plan, tile, state, got),
+                 reps=10)
     bnd = bound_ms(2 * state.numel() * 4 + gates.numel() * 4,
                    6 * nl.n_gates * tw)
-    log(f"crossbar_nor: {nl.n_gates} gates over {tw} x {nl.n_wires} words: "
-        f"kernel {ms:.3f} ms, plain {plain_ms:.1f} ms, bound {bnd[0]:.4f} ms "
-        f"({bnd[1]}; the gate walk is a chain of dependent loads, bound by "
-        f"latency); bit-exact")
-    del state, got, plain
-    return {"crossbar_nor": row(
+    log(f"crossbar_nor ({n_bits}-bit, {trials} trials, {tile}-word tile): "
+        f"op {op_ms:.4f} ms a call (CUDA gate list); from the host list "
+        f"{host_ms:.4f} ms a call; kernel {ms:.4f} ms, "
+        f"{ms / max(plan.L, 1) * 1e3:.3f} us a level over {plan.L} levels "
+        f"(ASAP depth {plan.depth}); plain {plain_ms:.1f} ms; bound "
+        f"{bnd[0]:.4f} ms ({bnd[1]}; latency a level bounds the walk); "
+        f"bit-exact")
+    # the host work a launch, by the host clock: the CUDA list to the host
+    # and its plan from the cache (the op), or the lookup alone (the host
+    # list, as execute_netlist launches)
+    reps = 50
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        CP.plan(gates.cpu().numpy(), nl.n_wires)
+    t1 = time.perf_counter()
+    for _ in range(reps):
+        CP.plan(nl.gates, nl.n_wires)
+    t2 = time.perf_counter()
+    log(f"crossbar_nor plan lookup ({n_bits}-bit, gates {gates.numel() * 4} "
+        f"bytes, a cache hit): {(t1 - t0) / reps * 1e3:.3f} ms a launch "
+        f"with the copy to the host, {(t2 - t1) / reps * 1e3:.3f} ms from "
+        f"the host list (host clock)")
+    del state, got
+    torch.cuda.empty_cache()
+    return op_ms, ms, plain_ms, bnd
+
+
+def check_crossbar_nor(torch, dev):
+    from repro_torch.core import multpim
+
+    # phase 7's golden run: one trial per gate (the row's shape)
+    G = multpim.multiplier_netlist(N_BITS).n_gates
+    op_ms, ms, plain_ms, bnd = check_crossbar_nor_shape(torch, dev, N_BITS,
+                                                        G, SEED + 6)
+    # 56,386 wires: a trial word's whole row (225.5 KB) would all but fill
+    # a CTA's shared memory; its live versions take a tenth of that
+    check_crossbar_nor_shape(torch, dev, NARROW_BITS, NARROW_TRIALS,
+                             SEED + 9)
+    # the row times the op, as earlier trees' rows did; the binding alone
+    # is beside it
+    return {"crossbar_nor": dict(row(
         "crossbar_nor", "src/repro_torch/kernels/csrc/crossbar_nor.cu",
-        "src/repro/kernels/crossbar_nor/kernel.py:40", ms, plain_ms, bnd,
-        0.0)}
+        "src/repro/kernels/crossbar_nor/kernel.py:40", op_ms, plain_ms, bnd,
+        0.0), binding_ms=ms)}
 
 
 # ----------------------------------------------------------------------------

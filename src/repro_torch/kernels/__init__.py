@@ -20,7 +20,8 @@ Kernels (TPU kernel each replaces, in the JAX package):
                      (kernels/flash_attention/kernel.py)
   netlist_exec    -- levelized Minority3 netlist over trial-packed words,
                      optional fault masks (kernels/netlist_exec/kernel.py)
-  crossbar_nor    -- gate-serial Minority3 netlist interpreter
+  crossbar_nor    -- any Minority3 gate list in list order over
+                     trial-packed words, run level by level
                      (kernels/crossbar_nor/kernel.py)
 """
 from ._build import build, launch_counts, launch_shapes, reset_launch_counts

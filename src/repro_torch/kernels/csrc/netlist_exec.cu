@@ -28,6 +28,8 @@
 // of kStages levels in shared memory by cp.async, two levels ahead of the
 // level being computed.  Offsets into the state and masks are 64-bit (the
 // state passes 2^31 words at 2^21 trials) and advance by constant steps.
+// The walk's accesses, cp.async and Min3 come from level_walk.cuh, shared
+// with crossbar_nor.cu.
 //
 // Bound: device-memory bytes -- rows [0, base) and the masks read once,
 // rows [base, base + L*W) written once: for the 32-bit multiplier at 2^20
@@ -42,59 +44,22 @@
 // for its words, LDGSTS for the next levels' descriptors and masks, no
 // LDG (rows below base are read before the loop); 32-58 registers, no
 // spills.  The kernel it replaces held 24-32 LDG.32 gathers in its loop.
-#include "common.cuh"
+#include "level_walk.cuh"
 
 namespace {
+
+using walk::cp_async;
+using walk::cp_async_desc;
+using walk::kNoSlot;
+using walk::ld;
+using walk::st;
+using walk::Vec;
 
 constexpr int kThreads = 1024;  // threads per CTA
 constexpr int kStages = 3;      // ring levels (plan.STAGES)
 constexpr int kUnroll = 2;      // slots a thread reads before it writes
-constexpr uint32_t kNoSlot = 0xFFFFu;
 
 enum Mode { kNone = 0, kXor = 1, kKeepXor = 2 };
-
-// V consecutive words of a row, moved as one access (V = 1 or 4).
-template <int V>
-struct Vec;
-template <>
-struct Vec<1> {
-  uint32_t x[1];
-};
-template <>
-struct alignas(16) Vec<4> {
-  uint32_t x[4];
-};
-
-template <int V>
-__device__ __forceinline__ Vec<V> ld(const uint32_t* p) {
-  return *reinterpret_cast<const Vec<V>*>(p);
-}
-
-template <int V>
-__device__ __forceinline__ void st(uint32_t* p, const Vec<V>& v) {
-  *reinterpret_cast<Vec<V>*>(p) = v;
-}
-
-// cp.async of V words (4 or 16 bytes; both addresses aligned to that).
-template <int V>
-__device__ __forceinline__ void cp_async(uint32_t* dst, const void* src) {
-  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
-  if constexpr (V == 4)
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d),
-                 "l"(src)
-                 : "memory");
-  else
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d),
-                 "l"(src)
-                 : "memory");
-}
-
-__device__ __forceinline__ void cp_async_desc(uint2* dst, const uint2* src) {
-  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(d),
-               "l"(src)
-               : "memory");
-}
 
 // Words of a ring stage's W descriptors (2 words each), rounded up to 16
 // bytes: the stage's mask planes follow them.
@@ -139,7 +104,7 @@ __device__ __forceinline__ void stage_level(
       }
     }
   }
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
+  walk::commit_stage();
 }
 
 // Thread t owns words w .. w+V-1 of the CTA's tile (w = V * (t mod T/V))
@@ -178,7 +143,7 @@ __global__ void __launch_bounds__(kThreads)
   }
   uint32_t* my = slots + w;   // slot k's words: my[k * T ...]
   for (int l = 0; l < L; ++l, out += level_step) {
-    asm volatile("cp.async.wait_group %0;\n" ::"n"(kStages - 2) : "memory");
+    walk::wait_stages<kStages - 2>();
     // level l's stage has landed for every thread, level l-1's slot
     // writes are visible, and its stage is read out
     __syncthreads();
@@ -211,8 +176,7 @@ __global__ void __launch_bounds__(kThreads)
           if constexpr (kMode != kNone) fm = ld<V>(fl + su * T);
 #pragma unroll
           for (int j = 0; j < V; ++j) {
-            uint32_t x = ~((a.x[j] & b.x[j]) | (b.x[j] & c.x[j]) |
-                           (a.x[j] & c.x[j]));
+            uint32_t x = walk::min3(a.x[j], b.x[j], c.x[j]);
             if constexpr (kMode == kKeepXor) x &= km.x[j];
             if constexpr (kMode != kNone) x ^= fm.x[j];
             v[u].x[j] = x;
@@ -229,7 +193,7 @@ __global__ void __launch_bounds__(kThreads)
       }
     }
   }
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+  walk::wait_stages<0>();
 }
 
 template <int T, int V, int kMode>

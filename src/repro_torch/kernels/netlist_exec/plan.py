@@ -26,13 +26,13 @@ from __future__ import annotations
 
 import dataclasses
 import heapq
-from typing import Dict, Tuple
+from typing import Callable, Dict, Tuple
 
 import numpy as np
 import torch
 
-__all__ = ["Plan", "plan", "launch_tile", "TILES", "STAGES", "SMEM_BUDGET",
-           "NO_SLOT"]
+__all__ = ["Plan", "plan", "launch_tile", "widest_tile", "TILES", "STAGES",
+           "SMEM_BUDGET", "NO_SLOT"]
 
 #: trial words a CTA may own, widest first
 TILES = (32, 16, 8, 4, 2, 1)
@@ -49,7 +49,8 @@ class Plan:
     """Slot assignment of one schedule.
 
     desc:      (L, W, 4) uint16 -- slots of inputs a, b, c and of the
-               output; out == NO_SLOT: nobody reads the row.
+               output; out == NO_SLOT: nobody reads the row (with k reads
+               a slot, (L, W, k + 1)).
     base_slot: (base,) int32 -- slot of row r < base, -1 if nobody reads it.
     n_slots:   slots the plan uses (the most rows live at once).
     """
@@ -87,10 +88,10 @@ class Plan:
     def tile(self, n_masks: int, budget: int = SMEM_BUDGET) -> int:
         """The widest trial tile whose shared memory fits `budget` bytes
         (a smaller budget forces a narrower tile)."""
-        if self.n_slots <= NO_SLOT:       # a descriptor names the slot
-            for t in TILES:
-                if self.smem_bytes(t, n_masks) <= budget:
-                    return t
+        t = widest_tile(lambda t: self.smem_bytes(t, n_masks), self.n_slots,
+                        budget)
+        if t:
+            return t
         limit = min(budget // 4 - STAGES * self.stage_words(1, n_masks),
                     NO_SLOT)
         raise ValueError(
@@ -98,6 +99,18 @@ class Plan:
             f"{budget} bytes of shared memory even at one trial word a "
             f"CTA (at most {max(limit, 0)} live rows with W={self.W} and "
             f"{n_masks} mask planes)")
+
+
+def widest_tile(smem_bytes: Callable[[int], int], n_slots: int,
+                budget: int) -> int:
+    """The widest of TILES whose shared memory `smem_bytes(tile)` fits
+    `budget` bytes; 0 where none does, or where a uint16 descriptor cannot
+    name `n_slots` slots."""
+    if n_slots <= NO_SLOT:
+        for t in TILES:
+            if smem_bytes(t) <= budget:
+                return t
+    return 0
 
 
 def launch_tile(tile: int, tw: int, n_sm: int) -> int:
@@ -117,13 +130,16 @@ def _check_rows(rows_in: np.ndarray, base: int) -> None:
 
 
 def build_plan(rows_in: np.ndarray, base: int) -> Plan:
-    """Assign slots to the rows of `rows_in` ((L, W, 3), rows below base +
-    l*W at level l); raises ValueError on a row out of range."""
+    """Assign slots to the rows of `rows_in` ((L, W, k), the k rows a slot
+    of level l reads, below base + l*W; k = 3 here, and 4 for
+    crossbar_nor's plan); raises ValueError on a row out of range.  The
+    plan's desc is then (L, W, k + 1): the k read slots and the output
+    slot."""
     rows_in = np.asarray(rows_in, dtype=np.int64)
-    L, W, _ = rows_in.shape
+    L, W, k = rows_in.shape
     _check_rows(rows_in, base)
     n_rows = base + L * W
-    lvl = np.repeat(np.arange(L), W * 3)
+    lvl = np.repeat(np.arange(L), W * k)
     flat = rows_in.reshape(-1)
     last = np.full(n_rows, -1, np.int64)
     np.maximum.at(last, flat, lvl)                 # last reader, -1: none
@@ -147,10 +163,10 @@ def build_plan(rows_in: np.ndarray, base: int) -> Plan:
         slot[r] = s
         heapq.heappush(busy, (int(last[r]), s))
 
-    desc = np.empty((L, W, 4), np.int64)
-    desc[..., :3] = slot[rows_in]
+    desc = np.empty((L, W, k + 1), np.int64)
+    desc[..., :k] = slot[rows_in]
     out = slot[base:].reshape(L, W)
-    desc[..., 3] = np.where(out < 0, NO_SLOT, out)
+    desc[..., k] = np.where(out < 0, NO_SLOT, out)
     return Plan(L, W, base, n_slots, desc.astype(np.uint16),
                 slot[:base].astype(np.int32))
 
