@@ -75,7 +75,33 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      of the 32-bit multiplier and 2^16 trials of the 64-bit one; its row
      times the op on a CUDA gate list, with the launch from the host list
      (execute_netlist's route) and the binding alone beside it, and the
-     binding's time a level beside the ASAP depth.
+     binding's time a level beside the ASAP depth;
+  8. the campaigns of the paper's Fig. 4 (bottom) and Fig. 5 (run right
+     after phase 7, its launches counted apart) through
+     `repro_torch.experiments` and the campaign engine: (a) the two
+     multiplication and the two scaled-NN campaigns at `campaign_mc`'s
+     full-mode budget (32-bit multiplier, batches of 1024, 2048 to 4096
+     trials, half-width 0.02, z 2.576), each closed form inside its 99%
+     Wilson interval, and the TMR point beside its upper bound; (b) the
+     Fig. 5 sweep over AlexNet's weight store (62e6 words = 1,937,500
+     blocks) as one batch a point, eight inject_scrub launches a point, at
+     p_input 1e-4 and 5e-4: `weight_corruption_ecc(m=32)` inside the 99%
+     interval, the summed corrected and uncorrectable counts beside T x
+     `expected_scrub_rates`; (c) the scheme grid (`standard_grid()`, the
+     kernels) batched over the same blocks at p_input 2e-4 and T 4: every
+     protected scheme at most unprotected + 0.02; (d) the `fig4_nn` and
+     `fig5_weights` curves and headlines at the 32-bit alpha of phase 7;
+     (e) `simulate_store` over 62e6 fp32 weights at p_bit 2e-6 and 32
+     scrubs: fewer corrupted weights than the unprotected copy under the
+     same flips, and at most W x `weight_corruption_ecc(m=32)`.  Every
+     campaign's seconds (host clock around a sync), trials a second and
+     peak device memory are printed.  Before it (launches not counted),
+     each kernel of the path at the campaigns' own shapes against its
+     plain version, bit for bit: netlist_exec over the first batch of the
+     multiplication, TMR and NN campaigns (1024 and 16,384 products);
+     encode_parity, scrub and tmr_vote over the 62e6-word store and its
+     three copies; inject_scrub over the first Fig. 5 interval at each
+     p_input.
 
 The second-to-last line is a JSON object of per-kernel numbers; the last is
 {"ok": true, "device": {...}}.  Times are CUDA-event means on this card
@@ -189,14 +215,16 @@ def main() -> int:
     torch.cuda.empty_cache()
     # 7. the netlist path (Fig. 4)
     netlist = run_netlist_path(torch, dev)
+    # 8. the campaigns (Fig. 4 bottom, Fig. 5, the scheme grid)
+    campaigns = run_campaign_path(torch, dev)
+    paths = (launches, server, netlist, campaigns)
     for name, row in rows.items():
-        row["launches"] = (launches.get(name, 0) + server.get(name, 0)
-                           + netlist.get(name, 0))
+        row["launches"] = sum(p.get(name, 0) for p in paths)
         check(row["launches"] > 0, f"{name} never launched on the main path")
     log("launches by path (one-shot ecc+tmr-parallel / server, 4 runs / "
-        "netlist): " + ", ".join(
-            f"{name} {launches.get(name, 0)}/{server.get(name, 0)}/"
-            f"{netlist.get(name, 0)}" for name in rows))
+        "netlist / campaigns): " + ", ".join(
+            f"{name} " + "/".join(str(p.get(name, 0)) for p in paths)
+            for name in rows))
 
     # 6. small-input reference
     check_small_reference(torch, dev)
@@ -1316,6 +1344,227 @@ def run_netlist_path(torch, dev):
         f"{shape}: {n}" for (name, shape), n in
         sorted(kernels.launch_shapes().items()) if name == "netlist_exec"))
     del a, b, want
+    torch.cuda.empty_cache()
+    return counts
+
+
+# ----------------------------------------------------------------------------
+# 8. the campaigns (paper Fig. 4 bottom, Fig. 5, the scheme grid)
+# ----------------------------------------------------------------------------
+
+#: AlexNet's weight store (`AlexNetCaseStudy.W`, paper §VI): 62e6 32-bit
+#: words, 1,937,500 32-word ECC blocks, one Fig. 5 trial each
+CASE_STUDY_WORDS = 62_000_000
+CASE_STUDY_BLOCKS = CASE_STUDY_WORDS // 32
+#: the store simulation's rate and scrubs (`benchmarks/fig5_weights.py`)
+SIM_P_BIT, SIM_SCRUBS = 2e-6, 32
+
+
+def check_campaign_shapes(torch, dev):
+    """Every kernel of phase 8 at the shapes the campaigns give it, held
+    against its plain version on the same inputs, bit for bit (run before
+    the counts are reset, so these launches are not the path's):
+    netlist_exec over one Fig. 4 batch of each kind at p_gate 3e-5, its
+    inputs and fault masks drawn as the campaign draws its first batch
+    (1024 products: 32 trial words, a narrower launch tile than phase 3's;
+    the TMR batch's three launches and faulty voting gates; 16,384 NN
+    products: 512 words), against the `level` plain version; and over the
+    case study's store of 62e6 words: encode_parity and the first scrub of
+    `simulate_store`, the grid ECC scheme's scrub at its rate, the ECC+TMR
+    scrub of three copies against their own tables, tmr_vote of the grid's
+    three copies, and the first Fig. 5 interval of inject_scrub at each
+    p_input."""
+    from repro_torch.core import multpim, scheduler
+    from repro_torch.experiments import campaign_mc as C
+    from repro_torch.faults import (TransientBitFlips, derive_seed,
+                                    inject_bit_flips)
+    from repro_torch.kernels import diag_parity as D
+    from repro_torch.kernels.inject_scrub import (inject_scrub,
+                                                  inject_scrub_ref)
+    from repro_torch.kernels.netlist_exec import plan as P
+    from repro_torch.kernels.tmr_vote import vote, vote_ref
+
+    mode = C.FULL
+    p_gate = mode.fig4_pgates[-1]
+    sch = scheduler.schedule(multpim.multiplier_netlist(mode.n_bits))
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+
+    def fig4_batch(impl, seed, n, tmr):
+        """The first batch of the campaign seeded `seed` (run_campaign's
+        batch generator, the trial's operand draws)."""
+        g = torch.Generator(device=dev).manual_seed(derive_seed(seed, 0))
+        a, b = (torch.randint(0, 2**mode.n_bits, (n,), dtype=torch.int64,
+                              generator=g, device=dev) for _ in range(2))
+        if tmr:
+            bits = multpim.multiply_tmr_bits(a, b, mode.n_bits, g, p_gate,
+                                             impl=impl)
+        else:
+            bits = multpim.multiply_bits(a, b, mode.n_bits, generator=g,
+                                         p_gate=p_gate, impl=impl)
+        return bits, (bits != multpim.true_product_bits(a, b, mode.n_bits)
+                      ).any(-1)
+
+    for kind, seed, n, tmr in (
+            ("mult", derive_seed(C.SEED, 1), mode.batch, False),
+            ("tmr", derive_seed(C.SEED, 200), mode.batch, True),
+            ("nn", derive_seed(C.SEED, 101), mode.batch * mode.m_scaled,
+             False)):
+        got, wrong = fig4_batch("kernel", seed, n, tmr)
+        plain, _ = fig4_batch("level", seed, n, tmr)
+        check(torch.equal(got, plain), f"netlist_exec kernel != plain "
+              f"version on the {kind} campaign's batch ({n} trials)")
+        tw = -(-n // 32)
+        tile = P.launch_tile(P.plan(sch.rows_in, sch.base).tile(1), tw, sms)
+        log(f"campaign shapes: netlist_exec, the {kind} campaign's first "
+            f"batch ({n} trials, {tw} words, {tile}-word tile, p_gate "
+            f"{p_gate:g}): {int(wrong.sum())} wrong products; bit-exact")
+
+    n = CASE_STUDY_WORDS
+
+    def hold_scrub(what, words, parity):
+        w_p, par_p = words.clone(), parity.clone()
+        _, _, counts = D.scrub(words, parity)
+        _, _, counts_p = D.scrub_ref(w_p, par_p)
+        check(torch.equal(words, w_p) and torch.equal(parity, par_p)
+              and torch.equal(counts, counts_p),
+              f"scrub kernel != plain version ({what})")
+        log(f"campaign shapes: scrub, {what}: counts {counts.tolist()}; "
+            f"bit-exact")
+
+    # simulate_store's weights and first batch of flips (its generator)
+    g = torch.Generator(device=dev).manual_seed(0)
+    w = torch.randn(n, generator=g, device=dev)
+    words = w.view(torch.int32)
+    par = D.encode_parity(words)
+    check(torch.equal(par, D.encode_parity_ref(words)),
+          "encode_parity kernel != plain version (the store, 62e6 words)")
+    log(f"campaign shapes: encode_parity, the store ({n} fp32 words): "
+        f"bit-exact")
+    inject_bit_flips({"w": w}, g, SIM_P_BIT)
+    hold_scrub(f"the store's first scrub at p_bit {SIM_P_BIT:g}", words, par)
+    # the grid's schemes at its rate over random words
+    g = torch.Generator(device=dev).manual_seed(SEED + 9)
+    words = random_words(torch, n, g, dev)
+    par = D.encode_parity(words)
+    model = TransientBitFlips(C.GRID_P_INPUT)
+    w1 = words.clone()
+    model.corrupt({"w": w1}, g)
+    hold_scrub(f"the grid's ECC at p_input {C.GRID_P_INPUT:g}", w1,
+               par.clone())
+    w3 = words.repeat(3).view(3, n)
+    model.corrupt({"c0": w3[0], "c1": w3[1], "c2": w3[2]}, g)
+    check(torch.equal(vote(w3[0], w3[1], w3[2]), vote_ref(w3[0], w3[1],
+                                                           w3[2])),
+          "tmr_vote kernel != plain version (the grid's 3 x 62e6 words)")
+    log(f"campaign shapes: tmr_vote, the grid's 3 x {n} int32 words at "
+        f"p_input {C.GRID_P_INPUT:g}: bit-exact")
+    hold_scrub("ECC+TMR's three copies against their own tables",
+               w3.view(-1), par.repeat(3, 1))
+    del w, w1, w3, words, par
+    # inject_scrub: the Fig. 5 sweep's first interval at each point
+    for i, pt in enumerate(C.FIG5_POINTS):
+        seed = derive_seed(derive_seed(derive_seed(C.SEED, 300), i), 0)
+        g = torch.Generator(device=dev).manual_seed(seed)
+        buf = torch.randint(-2**31, 2**31, (n,), dtype=torch.int64,
+                            generator=g, device=dev).to(torch.int32)
+        par = D.encode_parity(buf)
+        mask = TransientBitFlips(pt["p_input"]).word_mask(g, buf)
+        buf_p, par_p = buf.clone(), par.clone()
+        _, _, counts = inject_scrub(buf, par, mask)
+        _, _, counts_p = inject_scrub_ref(buf_p, par_p, mask)
+        check(torch.equal(buf, buf_p) and torch.equal(par, par_p)
+              and torch.equal(counts, counts_p),
+              f"inject_scrub kernel != plain version (Fig. 5 at p_input "
+              f"{pt['p_input']:g})")
+        log(f"campaign shapes: inject_scrub, the Fig. 5 sweep's first "
+            f"interval at p_input {pt['p_input']:g} ({n // 32} blocks): "
+            f"counts {counts.tolist()}; bit-exact")
+        del buf, par, mask, buf_p, par_p
+    torch.cuda.empty_cache()
+
+
+def run_campaign_path(torch, dev):
+    """(a)-(e) of phase 8; returns the launch counts of the path's runs.
+    The checks are the experiments' own (AssertionError) and this
+    phase's."""
+    from repro_torch import kernels
+    from repro_torch.core import analytics as A
+    from repro_torch.core import multpim
+    from repro_torch.experiments import campaign_mc as C
+    from repro_torch.experiments import fig4_nn, fig5_weights
+
+    cs = A.AlexNetCaseStudy()
+    check(cs.W == CASE_STUDY_WORDS, f"the case study's W is {cs.W:g}")
+    # phase 7 (b) checked that its single-fault count is exactly this
+    alpha = SINGLE_FAULT_WRONG_32 / multpim.multiplier_netlist(N_BITS).n_gates
+    store = C.store_config(CASE_STUDY_BLOCKS)
+    check_campaign_shapes(torch, dev)
+    kernels.reset_launch_counts()
+    t_path = time.perf_counter()
+
+    def show(part, rows):
+        for name, _, derived in rows:
+            log(f"campaigns ({part}) {name}: {derived}")
+
+    # (a) Fig. 4 at the reference's full-mode budget
+    rows, res = C.fig4(alpha, C.FULL, dev)
+    show("a", rows)
+    check(all(2048 <= r.n_trials <= 4096 for r in res),
+          f"campaigns (a): trials {[r.n_trials for r in res]}")
+
+    # (b) Fig. 5 over the whole store, one batch a point
+    rows, res = C.fig5(store, dev)
+    show("b", rows)
+    for pt, r in zip(C.FIG5_POINTS, res):
+        check(r.n_trials == CASE_STUDY_BLOCKS,
+              f"campaigns (b): {r.n_trials} trials, not the store's blocks")
+        exp = A.expected_scrub_rates(pt["p_input"], CASE_STUDY_BLOCKS)
+        log(f"campaigns (b) {r.name}: corrected {r.extras['corrected']:.0f} "
+            f"(T x expected {pt['T'] * exp['corrected_per_scrub']:.0f}), "
+            f"uncorrectable {r.extras['uncorrectable']:.0f} (T x expected "
+            f"new {pt['T'] * exp['uncorrectable_per_scrub']:.0f}; a failed "
+            f"block stays uncorrectable at every later scrub)")
+
+    # (c) the scheme grid over the same blocks, on the kernels
+    rows, res = C.scheme_grid(store, dev)
+    show("c", rows)
+    check(all(r.n_trials == CASE_STUDY_BLOCKS for r in res),
+          "campaigns (c): a scheme ran fewer trials than the store's blocks")
+
+    # (d) the closed-form curves at phase 7's alpha
+    show("d", fig4_nn.run(dev, alpha=alpha) + fig5_weights.run(dev))
+
+    # (e) the store simulation at the case study's size
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    ecc = fig5_weights.simulate_store(SIM_P_BIT, SIM_SCRUBS, CASE_STUDY_WORDS,
+                                      dev)
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    plain = fig5_weights.simulate_store(SIM_P_BIT, SIM_SCRUBS,
+                                        CASE_STUDY_WORDS, dev,
+                                        protected=False)
+    T = np.array([SIM_SCRUBS])
+    refined = cs.W * float(A.weight_corruption_ecc_refined(SIM_P_BIT, T,
+                                                           m=32)[0])
+    bound = cs.W * float(A.weight_corruption_ecc(SIM_P_BIT, T, m=32)[0])
+    log(f"campaigns (e) simulate_store: {CASE_STUDY_WORDS} fp32 weights, "
+        f"p_bit {SIM_P_BIT:g}, {SIM_SCRUBS} scrubs: {ecc} corrupted under "
+        f"ECC, {plain} unprotected (the same flips, no scrub); W x "
+        f"weight_corruption_ecc_refined(m=32) {refined:.1f}, W x "
+        f"weight_corruption_ecc(m=32) {bound:.1f}; {sec:.3f} s "
+        f"({SIM_SCRUBS / sec:.1f} scrubs/s), peak device memory "
+        f"{peak / 1e9:.2f} GB")
+    check(ecc < plain, f"campaigns (e): {ecc} corrupted under ECC, not "
+          f"fewer than the unprotected {plain}")
+    check(ecc <= bound, f"campaigns (e): {ecc} corrupted under ECC, above "
+          f"the conservative bound {bound:.1f}")
+
+    counts = kernels.launch_counts()
+    log(f"campaign path: {time.perf_counter() - t_path:.1f} s, launches "
+        f"{counts}")
     torch.cuda.empty_cache()
     return counts
 

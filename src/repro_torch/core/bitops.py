@@ -1,5 +1,6 @@
-"""Word-level bit operations (port of `repro.core.bitops`: the subset the
-word code uses, and the bit-plane and trial packing of the netlist engines).
+"""Word-level bit operations (port of `repro.core.bitops`): rotations,
+population count and bit position of packed words, the float <-> raw-bit
+views, and the bit-plane and trial packing of the netlist engines.
 
 Packed words live in ``torch.int32`` storage, which holds the same 32 bits
 as the reference's uint32: torch cannot shift, subtract or sum
@@ -10,7 +11,8 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["MASK32", "PACK", "as_u64", "as_i32", "rotl32", "popcount32",
+__all__ = ["MASK32", "PACK", "as_u64", "as_i32", "rotl32", "rotr32",
+           "popcount32", "bit_position", "float_view_u32", "u32_view_float",
            "as_unsigned", "to_bits", "from_bits", "pack_trials",
            "unpack_trials"]
 
@@ -40,6 +42,12 @@ def rotl32(x: torch.Tensor, r) -> torch.Tensor:
     return ((x << r) | (x >> (32 - r))) & MASK32
 
 
+def rotr32(x: torch.Tensor, r) -> torch.Tensor:
+    """Rotate-right 32-bit words by r: int32 words or unsigned values in
+    int64 in, unsigned values in int64 out."""
+    return rotl32(as_unsigned(x), (32 - r % 32) % 32)
+
+
 def popcount32(x: torch.Tensor) -> torch.Tensor:
     """Population count of unsigned 32-bit values held in int64 -> int32."""
     x = x - ((x >> 1) & 0x55555555)
@@ -51,6 +59,46 @@ def popcount32(x: torch.Tensor) -> torch.Tensor:
 def as_unsigned(x: torch.Tensor) -> torch.Tensor:
     """Integer values as int64, int32 words read as unsigned."""
     return as_u64(x) if x.dtype == torch.int32 else x.to(torch.int64)
+
+
+def bit_position(x: torch.Tensor) -> torch.Tensor:
+    """Index of the single set bit of each 32-bit word -> int32 in [0, 32);
+    0 for 0.  As the reference, a word with several set bits gives the sum
+    of their indices."""
+    shifts = torch.arange(32, dtype=torch.int64, device=x.device)
+    isset = (as_unsigned(x)[..., None] >> shifts) & 1
+    return (isset * shifts).sum(-1).to(torch.int32)
+
+
+#: raw-bit storage of each float dtype: the reference's u32 / u16 views,
+#: held in the signed integer of the same width (the same bits)
+_RAW = {torch.float32: torch.int32, torch.bfloat16: torch.int16,
+        torch.float16: torch.int16, torch.int32: torch.int32}
+
+
+def float_view_u32(x: torch.Tensor) -> torch.Tensor:
+    """The raw bits of a float32 / bfloat16 / float16 / int32 tensor: an
+    int32 view for 32-bit dtypes, an int16 view for 16-bit ones (the
+    reference's uint32 / uint16; it has no float16 case)."""
+    if x.dtype not in _RAW:
+        raise TypeError(f"unsupported dtype {x.dtype}")
+    return x.view(_RAW[x.dtype])
+
+
+def u32_view_float(bits: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """Inverse of `float_view_u32`: integer bits (int16, int32, or unsigned
+    values in int64) viewed as `dtype`; a 16-bit dtype takes the low 16
+    bits of each value, a 32-bit one the low 32."""
+    if dtype not in _RAW:
+        raise TypeError(f"unsupported dtype {dtype}")
+    if _RAW[dtype] == torch.int16:
+        if bits.dtype != torch.int16:
+            low = bits.to(torch.int64) & 0xFFFF
+            bits = ((low ^ 0x8000) - 0x8000).to(torch.int16)
+        return bits.view(dtype)
+    if bits.dtype != torch.int32:
+        bits = as_i32(bits.to(torch.int64) & MASK32)
+    return bits.view(dtype)
 
 
 def to_bits(x: torch.Tensor, width: int) -> torch.Tensor:

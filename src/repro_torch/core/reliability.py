@@ -1,6 +1,7 @@
-"""Word-level diagonal-parity code (port of the word functions of
-`repro.core.reliability`): the plain version behind
-`kernels/diag_parity/ref.py`.
+"""Word-level diagonal-parity code (port of `repro.core.reliability`): the
+word functions, the plain version behind `kernels/diag_parity/ref.py`;
+`ReliableStore`, the ECC-protected parameter tree over the packed arena;
+the per-leaf path (`protect_leaves`, `scrub_leaves`); and `tmr_serve`.
 
 A block is 32 consecutive words, a 32 x 32 bit matrix; the slope-s parity
 word is ``XOR_i rotl32(w_i, s*i)``.  Slopes (1, 2) locate a single flipped
@@ -10,15 +11,18 @@ storage; the arithmetic runs in int64 masked to 32 bits (`core.bitops`).
 from __future__ import annotations
 
 import dataclasses
-from typing import NamedTuple, Tuple
+from typing import Any, NamedTuple, Tuple
 
 import torch
 
+from . import arena
+from . import tree as T
 from .arena import BLOCK
 from .bitops import MASK32, as_i32, as_u64, popcount32, rotl32
 
 __all__ = ["WordEccConfig", "ScrubReport", "encode_words", "syndrome_words",
-           "correct_words"]
+           "correct_words", "ReliableStore", "protect_leaves",
+           "scrub_leaves", "tmr_serve"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -110,3 +114,109 @@ def correct_words(words: torch.Tensor, parity: torch.Tensor,
         uncorrectable=uncorrectable.sum(dtype=torch.int32))
     return (as_i32(fixed.reshape(-1)),
             as_i32(as_u64(parity) ^ parity_fix), report)
+
+
+# --------------------------------------------------------------------------
+# parameter-store integration (arena-backed)
+# --------------------------------------------------------------------------
+
+def _ecc(cfg: WordEccConfig, backend: str):
+    """The scheme a ReliableStore delegates to (one implementation of pack,
+    encode and scrub, in `reliability.scheme`)."""
+    if backend not in ("kernel", "torch"):
+        raise ValueError(f"backend must be 'kernel' or 'torch', got "
+                         f"{backend!r}")
+    from ..reliability.scheme import DiagParityEcc
+    return DiagParityEcc(slopes=cfg.slopes, impl=backend)
+
+
+class ReliableStore:
+    """ECC-protected parameter tree (the paper's §IV at datacenter scale).
+
+    `protect` packs the tree into one arena (`core.arena`) and encodes its
+    (n_blocks, 3) parity table in one launch; `params` are views of that
+    arena.  `scrub()` runs the fused encode -> syndrome -> locate -> correct
+    over the whole arena in one launch, in place (the reference returns a
+    new store): it returns the store, whose params now hold the corrected
+    bits, and a ScrubReport.  `refresh(params)` re-protects after the
+    weights were rewritten.  A store built from params and a parity table
+    (`ReliableStore(params, parity)`) scrubs the params' own arena in place
+    when they are views laid out over one, else a packed copy.
+
+    backend="kernel" (default) dispatches the CUDA kernels on CUDA tensors
+    (their plain versions on CPU tensors); backend="torch" runs the plain
+    versions on any device.  Both give the same bits.
+    """
+
+    def __init__(self, params: Any, parity: torch.Tensor,
+                 cfg: WordEccConfig = WordEccConfig(),
+                 backend: str = "kernel"):
+        _ecc(cfg, backend)
+        self.params = params
+        self.parity = parity
+        self.cfg = cfg
+        self.backend = backend
+
+    @staticmethod
+    def protect(params: Any, cfg: WordEccConfig = WordEccConfig(),
+                backend: str = "kernel") -> "ReliableStore":
+        prot = _ecc(cfg, backend).protect(params)
+        return ReliableStore(prot.payload, prot.redundancy, cfg, backend)
+
+    def refresh(self, new_params: Any) -> "ReliableStore":
+        return ReliableStore.protect(new_params, self.cfg, self.backend)
+
+    def scrub(self) -> Tuple["ReliableStore", ScrubReport]:
+        scheme = _ecc(self.cfg, self.backend)
+        fixed, report = scheme.scrub(scheme.adopt(self.params, self.parity))
+        return ReliableStore(fixed.payload, fixed.redundancy, self.cfg,
+                             self.backend), report
+
+    @property
+    def n_blocks(self) -> int:
+        return int(self.parity.shape[0])
+
+
+# --------------------------------------------------------------------------
+# per-leaf path: one encode or scrub a leaf, the pre-arena layout
+# --------------------------------------------------------------------------
+
+def _pad_leaf_words(x: torch.Tensor) -> torch.Tensor:
+    words = arena.leaf_to_words(x)
+    pad = (-words.numel()) % BLOCK
+    return torch.cat([words, words.new_zeros(pad)]) if pad else words
+
+
+def protect_leaves(params: Any, cfg: WordEccConfig = WordEccConfig()) -> Any:
+    """Per-leaf parity tree (the pre-arena layout): one encode a leaf."""
+    return T.map_tree(lambda x: encode_words(_pad_leaf_words(x), cfg), params)
+
+
+def scrub_leaves(params: Any, parity_tree: Any,
+                 cfg: WordEccConfig = WordEccConfig()):
+    """Per-leaf scrub (the pre-arena path): one plain scrub a leaf.
+    Returns new (params, parity tree, summed ScrubReport); the inputs are
+    not modified."""
+    leaves, pleaves = T.leaves(params), T.leaves(parity_tree)
+    out_p, out_c, reps = [], [], []
+    for x, par in zip(leaves, pleaves):
+        fixed, par2, rep = correct_words(_pad_leaf_words(x), par, cfg)
+        n_words = arena.words_for(x.shape, x.dtype)
+        spec = arena.LeafSpec(offset=0, n_words=n_words, pad_words=0,
+                              dtype=x.dtype, shape=tuple(x.shape))
+        out_p.append(arena.words_to_leaf(fixed[:n_words], spec))
+        out_c.append(par2)
+        reps.append(rep)
+    total = ScrubReport(*(sum(r[i] for r in reps) for i in range(3)))
+    paths = T.paths(params)
+    return T.unflatten(paths, out_p), T.unflatten(paths, out_c), total
+
+
+def tmr_serve(serve_fn, mode: str = "serial", use_kernel: bool = True):
+    """TMR-voted serving through `reliability.Tmr.wrap` (the reference's
+    deprecated shim): wrapped(p1, p2, p3, *inputs) with the three copies'
+    parameters; mode is 'serial', 'parallel' or 'semi_parallel';
+    use_kernel=False votes with the plain version."""
+    from ..reliability.scheme import Tmr
+    return Tmr(discipline=mode,
+               impl=None if use_kernel else "torch").wrap(serve_fn)

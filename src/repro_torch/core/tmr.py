@@ -1,13 +1,44 @@
-"""Per-bit 2-of-3 majority voters (port of `repro.core.tmr`, the voters).
+"""Triple modular redundancy with per-bit voting (port of `repro.core.tmr`,
+paper §V): the voters, the disciplines' cost table and the `tmr` wrapper.
+
+Three execution disciplines, identical output semantics, different cost:
+
+* serial        -- 3x latency, ~1x area (inputs and intermediates reused)
+* parallel      -- 1x latency, 3x area (memristive partitions)
+* semi-parallel -- 1x latency, 1x area, 1/3 throughput (repeat across rows)
 
 Voting is per bit, the Minority3 gate's majority: any single corrupted copy
 is corrected exactly, including NaN-producing flips in float words.
 """
 from __future__ import annotations
 
+import dataclasses
+from typing import Callable, Optional
+
 import torch
 
-__all__ = ["vote_bits", "vote_words", "vote_array"]
+from . import tree as T
+from .seeds import derive_seed
+
+__all__ = ["TmrCost", "TMR_COSTS", "vote_bits", "vote_words", "vote_array",
+           "tmr"]
+
+
+@dataclasses.dataclass(frozen=True)
+class TmrCost:
+    latency_x: float
+    area_x: float
+    throughput_x: float
+
+
+#: paper §V trade-off surface, relative to the unreliable baseline (the one
+#: definition: `reliability.scheme` reads it for `Tmr.overhead`)
+TMR_COSTS = {
+    "serial": TmrCost(latency_x=3.0, area_x=1.0, throughput_x=1.0),
+    "parallel": TmrCost(latency_x=1.0, area_x=3.0, throughput_x=1.0),
+    "semi_parallel": TmrCost(latency_x=1.0, area_x=1.0,
+                             throughput_x=1.0 / 3.0),
+}
 
 
 def vote_bits(a: torch.Tensor, b: torch.Tensor,
@@ -37,3 +68,33 @@ def vote_array(a: torch.Tensor, b: torch.Tensor,
         return vote_words(a.view(bits), b.view(bits),
                           c.view(bits)).view(a.dtype)
     return vote_words(a, b, c)
+
+
+def tmr(fn: Callable, mode: str = "serial", voter: Optional[Callable] = None,
+        device=None) -> Callable:
+    """Wrap `fn(generator, *args) -> tree` with triple modular redundancy.
+
+    `fn` takes a `torch.Generator` first (its copy's fault stream).  The
+    wrapper is called as wrapped(seed, *args): it runs `fn` three times, on
+    generators seeded derive_seed(seed, 0..2) on `device` (CUDA unless the
+    caller passes the CPU), and votes every leaf of the outputs per bit.
+    `voter` defaults to the registry's ``tmr_vote`` (on a CUDA tensor the
+    kernel).  Every mode evaluates the copies one after another (the
+    reference vmaps parallel and semi_parallel); the voted bits are the
+    same and `wrapped.cost` reports the mode's accounting.
+    """
+    if mode not in TMR_COSTS:
+        raise ValueError(f"mode must be one of {sorted(TMR_COSTS)}")
+    from ..device import resolve_device
+    dev = resolve_device(device)
+    if voter is None:
+        from ..reliability import backend
+        voter = backend.dispatch("tmr_vote")
+
+    def wrapped(seed: int, *args):
+        outs = [fn(torch.Generator(device=dev).manual_seed(
+            derive_seed(seed, i)), *args) for i in range(3)]
+        return T.map_tree(voter, *outs)
+
+    wrapped.cost = TMR_COSTS[mode]
+    return wrapped

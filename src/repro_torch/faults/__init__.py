@@ -1,6 +1,9 @@
-from .campaign import wilson_interval
+from .campaign import (CampaignConfig, CampaignResult, derive_seed,
+                       run_campaign, sweep, sweep_schemes, wilson_interval)
 from .models import (FaultModel, TransientBitFlips, TransientGateFaults,
-                     flip_random_bits_)
+                     flip_random_bits_, inject_bit_flips, pack_flip_mask)
 
 __all__ = ["FaultModel", "TransientBitFlips", "TransientGateFaults",
-           "flip_random_bits_", "wilson_interval"]
+           "flip_random_bits_", "inject_bit_flips", "pack_flip_mask",
+           "CampaignConfig", "CampaignResult", "derive_seed", "run_campaign",
+           "sweep", "sweep_schemes", "wilson_interval"]

@@ -1,6 +1,6 @@
 """Fault models (port of `repro.faults.models`: `FaultModel` with its
-word, pytree, boolean-state and packed-trial surfaces, `TransientBitFlips`
-and `TransientGateFaults`).
+word, pytree, boolean-state and packed-trial surfaces, `TransientBitFlips`,
+`TransientGateFaults`, `pack_flip_mask` and `inject_bit_flips`).
 
 Sampling takes an explicit `torch.Generator`.  The reference draws a dense
 (n_words, 32) Bernoulli plane per leaf; at phi3-mini width the largest leaf
@@ -27,10 +27,10 @@ import torch
 
 from ..core import arena
 from ..core import tree as T
-from ..core.bitops import PACK, pack_trials
+from ..core.bitops import PACK, as_i32, pack_trials
 
 __all__ = ["FaultModel", "TransientBitFlips", "TransientGateFaults",
-           "flip_random_bits_"]
+           "flip_random_bits_", "pack_flip_mask", "inject_bit_flips"]
 
 
 def _p_interval(p: float, dt: float) -> float:
@@ -40,6 +40,14 @@ def _p_interval(p: float, dt: float) -> float:
     if p >= 1.0:
         return 1.0
     return -math.expm1(dt * math.log1p(-p))
+
+
+def pack_flip_mask(flips: torch.Tensor) -> torch.Tensor:
+    """Pack a (..., 32) bool flip plane, bit i of a word at [..., i], into
+    a (...,) int32 XOR mask (the reference's uint32 bits)."""
+    shifts = torch.arange(arena.BLOCK, dtype=torch.int64,
+                          device=flips.device)
+    return as_i32((flips.to(torch.int64) << shifts).sum(-1))
 
 
 def _bits_view(x: torch.Tensor) -> torch.Tensor:
@@ -209,3 +217,11 @@ class TransientGateFaults(FaultModel):
         keep = torch.full((1, 1), -1, dtype=torch.int32,
                           device=dev).expand(n_gates, tw)
         return keep, flip
+
+
+def inject_bit_flips(params: Any, generator: torch.Generator,
+                     p_bit: float) -> Any:
+    """Flip each stored bit of every leaf with probability p_bit, in place
+    (`TransientBitFlips(p_bit).corrupt`); returns the tree.  The reference
+    returns a corrupted copy."""
+    return TransientBitFlips(p_bit).corrupt(params, generator)

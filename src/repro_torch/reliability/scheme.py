@@ -26,6 +26,7 @@ from ..core import arena
 from ..core import tree as T
 from ..core.bitops import as_u64, popcount32
 from ..core.reliability import ScrubReport
+from ..core.tmr import TMR_COSTS
 from . import backend
 
 __all__ = ["CostReport", "Protected", "Scheme", "Unprotected", "ArenaEcc",
@@ -47,13 +48,6 @@ class CostReport:
                 f"area={self.area_x:.0f}x throughput={self.throughput_x:.2f}x")
 
 
-#: paper §V trade-off surface, relative to the unreliable baseline
-TMR_COSTS = {
-    "serial": CostReport(latency_x=3.0, area_x=1.0, throughput_x=1.0),
-    "parallel": CostReport(latency_x=1.0, area_x=3.0, throughput_x=1.0),
-    "semi_parallel": CostReport(latency_x=1.0, area_x=1.0,
-                                throughput_x=1.0 / 3.0),
-}
 
 
 class Protected:
@@ -114,6 +108,16 @@ class Scheme:
 
     def scrub(self, prot: Protected) -> Tuple[Protected, ScrubReport]:
         raise NotImplementedError
+
+    def adopt(self, payload: Any, redundancy: Any) -> Protected:
+        """Rebuild a Protected from a stored payload and redundancy (a
+        checkpoint restore, a scrub of a kept store) without re-encoding.
+        The arena is the payload's own when its leaves are views laid out
+        over one as `arena.pack` places them (so a scrub repairs them in
+        place), else a packed copy."""
+        words, spec = arena.words_of(payload)
+        return Protected(arena.unpack(words, spec), redundancy, self, words,
+                         spec)
 
     def read(self, prot: Protected) -> Any:
         return prot.payload
@@ -353,15 +357,40 @@ class Tmr(Scheme):
                              uncorrectable=conflicts)
         return prot, report
 
+    def adopt(self, payload: Any, redundancy: Any) -> Protected:
+        """The three copies (payload and the (c1, c2) redundancy) stacked
+        into a fresh (3, n_words) arena."""
+        return _adopt_copies(self, (payload,) + tuple(redundancy),
+                             lambda views: (views[1], views[2]))
+
     def corrupt_store(self, prot, model, generator, dt: float = 1.0):
         c1, c2 = prot.redundancy
         for copy in (prot.payload, c1, c2):
             model.corrupt(copy, generator, dt)
         return prot
 
+    def wrap(self, serve_fn, sequential: bool = False):
+        """TMR-voted serving: `serve_fn(params, *inputs) -> tree`, called as
+        wrapped(p1, p2, p3, *inputs) with the three copies' parameters;
+        every leaf of the three outputs is voted per bit through the
+        ``tmr_vote`` backend.  The copies run one after another under every
+        discipline, and `wrapped.cost` reports the discipline's accounting.
+        `sequential` has no effect here: it is kept for the reference's
+        signature, where it turns off the vmap of parallel and
+        semi_parallel (the voted bits are the same either way)."""
+        vote = self._vote()
+
+        def wrapped(p1, p2, p3, *inputs):
+            outs = [serve_fn(p, *inputs) for p in (p1, p2, p3)]
+            return T.map_tree(vote, *outs)
+
+        wrapped.cost = self.overhead()
+        return wrapped
+
     def overhead(self) -> CostReport:
         c = TMR_COSTS[self.discipline]
-        return dataclasses.replace(c, storage_x=3.0)
+        return CostReport(storage_x=3.0, latency_x=c.latency_x,
+                          area_x=c.area_x, throughput_x=c.throughput_x)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -408,6 +437,16 @@ class Compose(Scheme):
         parity3[:] = self.ecc._encode(w[0])
         return prot, report
 
+    def adopt(self, payload: Any, redundancy: Any) -> Protected:
+        """The three copies stacked into a fresh (3, n_words) arena beside
+        the per-copy parity: redundancy ((c1, c2), parity3), parity3 a
+        (3, n_blocks, F) tensor or three (n_blocks, F) tables."""
+        (c1, c2), parity = redundancy
+        if not isinstance(parity, torch.Tensor):
+            parity = torch.stack(list(parity))
+        return _adopt_copies(self, (payload, c1, c2),
+                             lambda views: ((views[1], views[2]), parity))
+
     def corrupt_store(self, prot, model, generator, dt: float = 1.0):
         (c1, c2), _ = prot.redundancy
         for copy in (prot.payload, c1, c2):
@@ -420,6 +459,17 @@ class Compose(Scheme):
                           latency_x=e.latency_x * t.latency_x,
                           area_x=e.area_x * t.area_x,
                           throughput_x=e.throughput_x * t.throughput_x)
+
+
+def _adopt_copies(scheme: Scheme, copies, redundancy) -> Protected:
+    """A Protected over a fresh (3, n_words) arena holding the three given
+    copies; `redundancy(views)` builds its redundancy from the three
+    copies' views."""
+    packed = [arena.words_of(c) for c in copies]
+    spec = packed[0][1]
+    words3 = torch.stack([w for w, _ in packed])
+    views = [arena.unpack(words3[i], spec) for i in range(3)]
+    return Protected(views[0], redundancy(views), scheme, words3, spec)
 
 
 # --------------------------------------------------------------------------

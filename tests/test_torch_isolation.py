@@ -54,6 +54,24 @@ NO_GPU = textwrap.dedent("""
             assert "no CUDA device" in str(e), e
         else:
             raise AssertionError("ran without a GPU")
+    from repro_torch.core import tmr
+    from repro_torch.experiments import campaign_mc, fig4_nn, fig5_weights
+    from repro_torch.faults import run_campaign
+    for call in (lambda: campaign_mc.run(smoke=True),
+                 lambda: fig4_nn.run(smoke=True),
+                 lambda: fig5_weights.run(smoke=True),
+                 lambda: campaign_mc.main(["--smoke"]),
+                 lambda: campaign_mc.measure_alpha(8),
+                 lambda: fig5_weights.simulate_store(1e-4, 1, 64),
+                 lambda: run_campaign(lambda g, n: g, 0),
+                 lambda: tmr.tmr(lambda g: g)):
+        try:
+            call()
+        except RuntimeError as e:
+            assert "no CUDA device" in str(e), e
+        else:
+            raise AssertionError("ran without a GPU")
+    fig5_weights.simulate_store(1e-4, 1, 64, device="cpu")   # asked for
     GenerationEngine(cfg, gen=1, device="cpu")        # asked for: fine
     ContinuousBatcher(cfg, device="cpu")
     PagedKVPool(cfg, spec, copies=False, device="cpu")
@@ -82,7 +100,12 @@ def test_port_imports_without_jax():
               "repro_torch.kernels.inject_scrub.ops",
               "repro_torch.core.scheduler", "repro_torch.core.multpim",
               "repro_torch.kernels.netlist_exec.ops",
-              "repro_torch.kernels.crossbar_nor.ops"):
+              "repro_torch.kernels.crossbar_nor.ops",
+              "repro_torch.core.ecc", "repro_torch.core.seeds",
+              "repro_torch.faults.campaign",
+              "repro_torch.experiments.campaign_mc",
+              "repro_torch.experiments.fig4_nn",
+              "repro_torch.experiments.fig5_weights"):
         assert m in out.split(), (m, out)
 
 
