@@ -101,7 +101,37 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      multiplication, TMR and NN campaigns (1024 and 16,384 products);
      encode_parity, scrub and tmr_vote over the 62e6-word store and its
      three copies; inject_scrub over the first Fig. 5 interval at each
-     p_input.
+     p_input;
+  9. the rest of the serve entry point (run right after phase 8, its
+     launches counted apart), phi3-mini at full width and depth again from
+     the same seed: (a) `--fault stuckat` and `--fault drift` one-shot under
+     `ecc` and `ecc+tmr-parallel` at p 1e-9 (batch 4, prompt 256, gen 32)
+     with `--mmpu-cost --mmpu-events`: tokens equal the clean run's, no
+     uncorrectable block, the corrections inside the binomial 99% interval
+     of the errors (stuck-at: p/2 of every copy's stored bits, since a
+     defect is an error with probability 1/2 whatever the stored bit;
+     drift: p), every scrubbed copy
+     equal to the clean arena bit for bit, the event file's lines equal to
+     n_events and the `mmpu_events` gauge; (b) `--chunk 8` under `off`,
+     `ecc`, `ecc+tmr-parallel --vote-every 8` and `tmr-serial` at p_bit
+     1e-9: tokens and vote counters equal to the same store's unchunked
+     run, TTFT and TPOT p50/p95 printed; (c) the mMPU projection of every
+     `standard_grid(include_hsiao=True)` scheme at phi3-mini's
+     `StepProfile` with its event file, the ordering off < ecc < tmr-* <
+     ecc+tmr and its agreement with `overhead()`, and the §V table of
+     `experiments.tmr_tradeoff`; (d) the server (phase 5's 8 requests,
+     submitted at once) under `hsiao-wb --adaptive-scrub`, the pool quiet
+     for three served ticks and then corrupted every tick by
+     `RetentionDrift(1e-8)` over dt = chunk: tokens equal phase 5's `off`
+     run, no uncorrectable word, every interval inside [min, max], the
+     pool-size scrub launches equal the controller's recorded schedule,
+     which is printed, the interval doubled after `patience` quiet scrubs
+     and halved in the storm; the schedule replayed through
+     `forced_scrub_ticks` gives the same scrub ticks, tokens and counters;
+     (e) a 1024 x 1024 crossbar on the card: row,
+     column and partitioned gates, writes and drift at zero error equal to
+     the CPU's states and cycle counts; under `StuckAtFaults(1e-4, 1e-4)`
+     the pinned cells hold.  Every run prints its peak device memory.
 
 The second-to-last line is a JSON object of per-kernel numbers; the last is
 {"ok": true, "device": {...}}.  Times are CUDA-event means on this card
@@ -210,19 +240,22 @@ def main() -> int:
     torch.cuda.synchronize()
     log(f"{cfg.name}: random init in {time.perf_counter() - t0:.1f}s")
     launches = run_main_path(torch, cfg, inputs)
-    server = run_server_path(torch, cfg, inputs["params"])
+    server, server_clean = run_server_path(torch, cfg, inputs["params"])
     del inputs
     torch.cuda.empty_cache()
     # 7. the netlist path (Fig. 4)
     netlist = run_netlist_path(torch, dev)
     # 8. the campaigns (Fig. 4 bottom, Fig. 5, the scheme grid)
     campaigns = run_campaign_path(torch, dev)
-    paths = (launches, server, netlist, campaigns)
+    # 9. the rest of the serve entry point (faults, chunks, the cost model,
+    # the adaptive scrub, the crossbar simulator)
+    serve_rest = run_serve_rest_path(torch, cfg, server_clean, dev)
+    paths = (launches, server, netlist, campaigns, serve_rest)
     for name, row in rows.items():
         row["launches"] = sum(p.get(name, 0) for p in paths)
         check(row["launches"] > 0, f"{name} never launched on the main path")
     log("launches by path (one-shot ecc+tmr-parallel / server, 4 runs / "
-        "netlist / campaigns): " + ", ".join(
+        "netlist / campaigns / phase 9): " + ", ".join(
             f"{name} " + "/".join(str(p.get(name, 0)) for p in paths)
             for name in rows))
 
@@ -1073,7 +1106,6 @@ def serve_and_check(torch, cfg, params, tokens, clean, spec_s, p_bit, kw,
     """One serve run with its launch counts and checks; the store it built
     is freed on return.  Returns (tokens, launch counts)."""
     from repro_torch import kernels
-    from repro_torch.core import arena
     from repro_torch.launch.serve import serve
     from repro_torch.reliability import parse_scheme
 
@@ -1096,11 +1128,8 @@ def serve_and_check(torch, cfg, params, tokens, clean, spec_s, p_bit, kw,
         check(int(stats["ecc_corrected"]) > 0, f"{spec_s}: no corrections")
         check(int(stats["ecc_uncorrectable"]) == 0,
               f"{spec_s}: uncorrectable blocks")
-        copies = 3 if "tmr" in spec_s else 0
-        store, _ = arena.words_of(res["store"], copies=copies)
-        for i, w in enumerate(store if copies else [store]):
-            check(torch.equal(w, clean),
-                  f"{spec_s}: scrubbed copy {i} != clean arena")
+        check_copies_clean(torch, res["store"], 3 if "tmr" in spec_s else 1,
+                           clean, spec_s)
         check(torch.equal(out, clean_tokens),
               f"{spec_s}: tokens differ from the clean run")
     if "tmr" in spec_s:
@@ -1116,7 +1145,8 @@ def serve_and_check(torch, cfg, params, tokens, clean, spec_s, p_bit, kw,
 
 def run_server_path(torch, cfg, params):
     """The four server runs and the join-live check; returns the launch
-    counts summed over the runs (each counted from 0 around its run)."""
+    counts summed over the runs (each counted from 0 around its run) and
+    the `off` run's tokens by request."""
     from repro_torch import kernels
     from repro_torch.faults import TransientBitFlips
     from repro_torch.launch.batching import (ContinuousBatcher, Request,
@@ -1220,7 +1250,7 @@ def run_server_path(torch, cfg, params):
     log(f"join-live == alone (hsiao-wb, full width): request 9's 16 tokens "
         f"and counters {dict((k, int(v)) for k, v in pa.items())} equal; "
         f"{ta} ticks live, {ts} alone")
-    return total
+    return total, clean
 
 
 # ----------------------------------------------------------------------------
@@ -1567,6 +1597,423 @@ def run_campaign_path(torch, dev):
         f"{counts}")
     torch.cuda.empty_cache()
     return counts
+
+
+# ----------------------------------------------------------------------------
+# 9. the rest of the serve entry point
+# ----------------------------------------------------------------------------
+
+#: phase 9's fault rates: the weights' (one-shot and server), the server
+#: pool's retention drift per unit of time (one tick exposes `chunk` units)
+P9_WEIGHTS = 1e-9
+P9_POOL = 1e-8
+#: (d): served ticks with no pool exposure before the drift storm
+P9_QUIET_TICKS = 3
+
+
+def binom99(n: int, p: float):
+    """The binomial 99% interval of a count of n trials at rate p."""
+    from scipy.stats import binom
+    lo, hi = binom.interval(0.99, n, p)
+    return int(lo), int(hi)
+
+
+def leaf_bits(params) -> int:
+    """Stored bits over the leaves of a parameter tree."""
+    from repro_torch.core import tree
+    return sum(x.numel() * x.element_size() * 8 for x in tree.leaves(params))
+
+
+def run_serve_rest_path(torch, cfg, server_clean, dev):
+    """(a)-(e) of phase 9; returns the launch counts of the path's runs,
+    each counted from 0 around its run."""
+    from repro_torch import kernels
+    from repro_torch.launch.serve import make_inputs
+
+    t_path = time.perf_counter()
+    t0 = time.perf_counter()
+    inputs = make_inputs(cfg, batch=4, prompt_len=256, seed=SEED, device=dev)
+    torch.cuda.synchronize()
+    log(f"phase 9: {cfg.name} random init again in "
+        f"{time.perf_counter() - t0:.1f}s (the same seed as phase 4)")
+    total = {}
+
+    def add(counts):
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+
+    kernels.reset_launch_counts()
+    add(check_fault_runs(torch, cfg, inputs))
+    add(check_chunked_runs(torch, cfg, inputs))
+    check_cost_model(torch, cfg, dev)
+    add(check_adaptive_server(torch, cfg, inputs["params"], server_clean))
+    del inputs
+    torch.cuda.empty_cache()
+    check_crossbar_on_card(torch, dev)
+    log(f"phase 9: {time.perf_counter() - t_path:.1f} s, launches {total}")
+    return total
+
+
+def check_fault_runs(torch, cfg, inputs):
+    """(a) --fault stuckat / drift under ecc and ecc+tmr-parallel, one-shot,
+    with --mmpu-cost --mmpu-events: tokens == the clean run's, no
+    uncorrectable block, the corrections inside the binomial 99% interval
+    of the errors the faults make, every scrubbed copy == the clean arena,
+    the event file's lines == n_events == the mmpu_events gauge."""
+    from repro_torch import kernels
+    from repro_torch.configs.mmpu_paper import get_device
+    from repro_torch.core import arena
+    from repro_torch.launch.serve import serve
+    from repro_torch.reliability import parse_scheme
+
+    params, tokens = inputs["params"], inputs["tokens"]
+    clean, _ = arena.words_of(params)
+    bits = leaf_bits(params)
+    log(f"phase 9 (a): {bits} stored weight bits a copy")
+    events = ROOT / "build" / "phase9"
+    events.mkdir(parents=True, exist_ok=True)
+    total = {}
+    for fault in ("stuckat", "drift"):
+        for spec_s in ("ecc", "ecc+tmr-parallel"):
+            copies = 3 if "tmr" in spec_s else 1
+            path = events / f"{fault}_{spec_s}.jsonl"
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            kernels.reset_launch_counts()
+            res = serve(cfg, params, tokens, parse_scheme(spec_s), gen=32,
+                        p_bit=P9_WEIGHTS, fault=fault, seed=SEED,
+                        cost_spec=get_device("paper"),
+                        mmpu_events=str(path), device=clean.device)
+            counts = kernels.launch_counts()
+            for k, v in counts.items():
+                total[k] = total.get(k, 0) + v
+            peak = torch.cuda.max_memory_allocated()
+            stats = res["stats"]
+            # stuck-at: a bit is stuck at 0 w.p. p/2 and at 1 w.p. p/2, so
+            # it is in error w.p. p/2 whatever it stores: errors ~
+            # Binomial(bits, p/2) a copy.  drift: Binomial(bits, p).
+            rate = P9_WEIGHTS / 2 if fault == "stuckat" else P9_WEIGHTS
+            lo, hi = binom99(copies * bits, rate)
+            corrected = int(stats["ecc_corrected"])
+            log(f"(a) {fault} {spec_s}: prepare {res['prepare_s']:.2f} s, "
+                f"{res['tok_s']:.1f} tok/s, corrected {corrected} (99% "
+                f"interval [{lo}, {hi}] of {copies} x {bits} bits at "
+                f"{rate:g}), parity_fixed {int(stats['ecc_parity_fixed'])}, "
+                f"uncorrectable {int(stats['ecc_uncorrectable'])}, peak "
+                f"device memory {peak / 1e9:.2f} GB, launches {counts}")
+            check(res["agreement"] == 1.0, f"(a) {fault} {spec_s}: "
+                  f"agreement {res['agreement']} with the clean run")
+            check(int(stats["ecc_uncorrectable"]) == 0,
+                  f"(a) {fault} {spec_s}: uncorrectable blocks")
+            check(lo <= corrected <= hi, f"(a) {fault} {spec_s}: corrected "
+                  f"{corrected} outside [{lo}, {hi}]")
+            check_copies_clean(torch, res["store"], copies, clean,
+                               f"(a) {fault} {spec_s}")
+            _, cost = res["mmpu"]
+            with open(path) as f:
+                lines = sum(1 for _ in f)
+            check(lines == cost.n_events == int(stats["mmpu_events"]),
+                  f"(a) {fault} {spec_s}: {lines} event lines, n_events "
+                  f"{cost.n_events}, gauge {int(stats['mmpu_events'])}")
+            if "tmr" in spec_s:
+                check(int(stats["tmr_final_disagreements"]) == 0,
+                      f"(a) {fault} {spec_s}: vote disagreements")
+            del res
+    return total
+
+
+def check_copies_clean(torch, store, copies, clean, what):
+    """Every data copy of a scrubbed store equals the clean arena (the
+    views are local, so the store is freed when the caller drops it)."""
+    from repro_torch.core import arena
+    words, _ = arena.words_of(store, copies=3 if copies == 3 else 0)
+    for i, w in enumerate(words if copies == 3 else [words]):
+        check(torch.equal(w, clean), f"{what}: scrubbed copy {i} != clean")
+
+
+def check_chunked_runs(torch, cfg, inputs):
+    """(b) --chunk 8 under off, ecc, ecc+tmr-parallel --vote-every 8 and
+    tmr-serial at p_bit 1e-9: the chunked tokens and vote counters == the
+    same store's unchunked run; TTFT and TPOT p50/p95 printed."""
+    from repro_torch import kernels
+    from repro_torch.launch.engine import fetch_telemetry
+    from repro_torch.launch.serve import serve
+    from repro_torch.reliability import parse_scheme
+
+    params, tokens = inputs["params"], inputs["tokens"]
+    total = {}
+    for spec_s, kw in (("off", {}), ("ecc", {}),
+                       ("ecc+tmr-parallel", dict(vote_every=8)),
+                       ("tmr-serial", {})):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launch_counts()
+        res = serve(cfg, params, tokens, parse_scheme(spec_s), gen=32,
+                    p_bit=P9_WEIGHTS, seed=SEED, chunk=8,
+                    device=tokens.device, **kw)
+        counts = kernels.launch_counts()
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+        eng, store = res["engine"], res["store"]
+        with torch.no_grad():
+            utok, utel = eng.generate(store, {"tokens": tokens})
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        ustats = fetch_telemetry(utel)
+        stats, lat = res["stats"], res["latency"]
+        log(f"(b) chunk 8 {spec_s} {kw}: ttft {lat['ttft_s'] * 1e3:.1f} ms, "
+            f"tpot p50/p95 {lat['tpot_p50'] * 1e3:.2f}/"
+            f"{lat['tpot_p95'] * 1e3:.2f} ms, {res['tok_s']:.1f} tok/s, "
+            f"agreement {res['agreement']:.3f}, counters "
+            f"{ {k: int(v.sum()) for k, v in stats.items()} }, peak device "
+            f"memory {peak / 1e9:.2f} GB, launches {counts}")
+        check(torch.equal(res["tokens"], utok),
+              f"(b) {spec_s}: chunked tokens != unchunked")
+        for k, v in ustats.items():
+            check(k in stats and np.array_equal(stats[k], v),
+                  f"(b) {spec_s}: {k} chunked {stats.get(k)} != "
+                  f"unchunked {v}")
+        del res, eng, store
+    return total
+
+
+def check_cost_model(torch, cfg, dev):
+    """(c) every standard_grid() scheme's projection at phi3-mini's
+    StepProfile (batch 4, gen 32), its event file, the reference
+    benchmark's ordering and agreement with overhead(), and the §V
+    table."""
+    from repro_torch import costmodel as cm
+    from repro_torch.configs.mmpu_paper import get_device
+    from repro_torch.experiments import tmr_tradeoff
+    from repro_torch.launch.engine import GenerationEngine
+    from repro_torch.reliability import standard_grid
+
+    spec = get_device("paper")
+    t0 = time.perf_counter()
+    profile = cm.StepProfile.from_model_config(cfg, batch=4)
+    log(f"(c) {cfg.name} StepProfile {profile}")
+    out = ROOT / "build" / "phase9"
+    cyc, occ = {}, {}
+    for scheme in standard_grid(include_hsiao=True):
+        eng = GenerationEngine(cfg, scheme, gen=32, device=dev,
+                               cost_spec=spec)
+        stream, cost = eng.mmpu_projection(4)
+        path = out / f"mmpu_{scheme.name}.jsonl"
+        n = cm.dump_jsonl(stream, str(path))
+        with open(path) as f:
+            check(sum(1 for _ in f) == n == cost.n_events,
+                  f"(c) {scheme.name}: event file lines != n_events")
+        o = scheme.overhead()
+        cyc[scheme.name] = cost.cycles_per_token
+        occ[scheme.name] = o.latency_x * o.area_x / o.throughput_x
+    costs = cm.evaluate_grid(standard_grid(include_hsiao=True), profile,
+                             spec, device=dev)
+    off = cyc["unprotected"]
+    for name, c in costs.items():
+        check(abs(c.cycles_per_token - cyc[name]) <= 1e-9 * cyc[name],
+              f"(c) {name}: grid fold != the engine's projection")
+        log(f"(c) {name}: {c.describe()}; cycles/token x{cyc[name] / off:.4f}"
+            f" of off, overhead() occupancy x{occ[name]:.2f}")
+    eccs = [cyc["ecc"], cyc["hsiao"]]
+    tmrs = [v for k, v in cyc.items() if k.startswith("tmr-")]
+    joint = [v for k, v in cyc.items() if "+" in k]
+    check(cyc["unprotected"] < min(eccs) <= max(eccs) < min(tmrs)
+          and max(tmrs) < min(joint), f"(c) cost ordering violated: {cyc}")
+    order = sorted(cyc, key=cyc.get)
+    check(order == sorted(occ, key=lambda k: (occ[k], cyc[k])),
+          f"(c) event ordering {order} != overhead() ordering")
+    log("(c) ordering: " + " < ".join(order))
+    for name, us, derived in tmr_tradeoff.run(dev):
+        print(f"{name},{us:.3f},{derived}", flush=True)
+    log(f"(c) cost model and table in {time.perf_counter() - t0:.1f} s")
+
+
+def check_adaptive_server(torch, cfg, params, server_clean):
+    """(d) the server under hsiao-wb --adaptive-scrub (phase 5's 8
+    requests, submitted at once so that every run ticks alike): the pool
+    quiet for the first `P9_QUIET_TICKS` served ticks, then drifting every
+    tick at RetentionDrift(1e-8) over dt = chunk.  Tokens == phase 5's off
+    run, no uncorrectable word, every interval in [min, max], the
+    pool-size scrub launches == the controller's recorded schedule, the
+    interval doubled after `patience` quiet scrubs and halved at a storm
+    scrub.  Then the schedule replayed through `forced_scrub_ticks` under
+    the same exposure: the same scrub ticks, tokens and counters, bit for
+    bit."""
+    from repro_torch import kernels
+    from repro_torch.faults import RetentionDrift
+    from repro_torch.launch.serve import serve_server
+    from repro_torch.reliability import parse_scheme
+
+    dev = params["final_ln"].device
+    spec = server_spec()
+    drift = RetentionDrift(P9_POOL)
+
+    def run(what, **kw):
+        """One server run under the quiet-then-storm exposure, its
+        results taken off the batcher so that its store is freed."""
+        g = torch.Generator(device=dev).manual_seed(SEED + 9)
+        flips = []
+
+        def expose(b):
+            storm = len(flips) >= P9_QUIET_TICKS
+            flips.append(b.pool.corrupt(g, drift, dt=spec.chunk)[None]
+                         if storm else None)
+
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launch_counts()
+        res = serve_server(cfg, params, parse_scheme("hsiao-wb"), spec=spec,
+                           requests=8, rate=2.0, p_bit=P9_WEIGHTS, seed=SEED,
+                           on_tick=expose, realtime=False, device=dev, **kw)
+        counts = kernels.launch_counts()
+        b, stats = res["batcher"], res["stats"]
+        out = {"counts": counts, "stats": stats, "ticks": b.ticks,
+               "scrub_ticks": list(b.scrub_ticks), "adaptive": b.adaptive,
+               "tokens": {r.rid: r.tokens for r in res["results"]},
+               "pool_scrubs": kernels.launch_shapes().get(
+                   ("scrub_hsiao", f"words {b.pool.words.numel()}"), 0)}
+        lat = res["latency"]
+        storm = [f for f in flips if f is not None]
+        log(f"(d) {what}: goodput {res['goodput_tok_s']:.2f} tok/s "
+            f"(submitted at once), ttft p50/p99 "
+            f"{lat['ttft_p50_s'] * 1e3:.1f}/{lat['ttft_p99_s'] * 1e3:.1f} "
+            f"ms, tpot p50/p99 {lat['tpot_p50_s'] * 1e3:.2f}/"
+            f"{lat['tpot_p99_s'] * 1e3:.2f} ms, {b.ticks} ticks, scrub "
+            f"ticks {b.scrub_ticks}, pool flips "
+            f"{int(torch.cat(storm).sum()) if storm else 0} over "
+            f"{len(storm)} storm ticks after {len(flips) - len(storm)} "
+            f"quiet, counters "
+            f"{ {k: int(v.sum()) for k, v in stats.items()} }, peak device "
+            f"memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB, "
+            f"launches {counts}")
+        del res, b
+        return out
+
+    ad = run("adaptive hsiao-wb server", adaptive_scrub=True)
+    ctl = ad["adaptive"]
+    c = ctl.cfg
+    schedule = [t for t, _, _ in ctl.history]
+    events = [e for _, e, _ in ctl.history]
+    intervals = [i for _, _, i in ctl.history]
+    log(f"(d) controller {c}: scrubbed at ticks {schedule}, events "
+        f"{events}, intervals {intervals}; {ad['pool_scrubs']} pool-size "
+        f"scrub_hsiao launches")
+    for rid, t in server_clean.items():
+        check(rid in ad["tokens"] and np.array_equal(ad["tokens"][rid], t),
+              f"(d) request {rid} tokens differ from the off run")
+    check(sorted(ad["tokens"]) == sorted(server_clean),
+          f"(d) requests {sorted(ad['tokens'])}")
+    stats = ad["stats"]
+    check(int(stats["ecc_uncorrectable"]) == 0
+          and int(stats["ecc_read_uncorrectable"]) == 0,
+          "(d) uncorrectable words")
+    check(int(stats["ecc_corrected"]) > 0, "(d) no pool corrections")
+    check(schedule and schedule == ad["scrub_ticks"]
+          and ad["pool_scrubs"] == len(schedule),
+          f"(d) {ad['pool_scrubs']} pool scrub launches, schedule "
+          f"{schedule}, scrub ticks {ad['scrub_ticks']}")
+    check(all(c.min_interval <= i <= c.max_interval for i in intervals),
+          f"(d) intervals {intervals}")
+    prev = [c.interval0] + intervals[:-1]
+    doubled = [k for k in range(len(schedule))
+               if intervals[k] == 2 * prev[k] and k + 1 >= c.patience
+               and max(events[k + 1 - c.patience:k + 1]) < c.low_events]
+    halved = [k for k in range(len(schedule))
+              if intervals[k] == max(c.min_interval, prev[k] // 2) < prev[k]
+              and events[k] > c.high_events]
+    check(doubled and halved and doubled[0] < halved[0],
+          f"(d) the interval did not double after {c.patience} quiet "
+          f"scrubs and then halve in the storm: {ctl.history}")
+    log(f"(d) the law: doubled at ticks {[schedule[k] for k in doubled]}, "
+        f"halved at ticks {[schedule[k] for k in halved]}")
+
+    rp = run("replay of the schedule", forced_scrub_ticks=schedule)
+    check(rp["scrub_ticks"] == schedule
+          and rp["pool_scrubs"] == len(schedule),
+          f"(d) replay scrubbed at {rp['scrub_ticks']} "
+          f"({rp['pool_scrubs']} pool launches), schedule {schedule}")
+    check(sorted(rp["tokens"]) == sorted(ad["tokens"])
+          and all(np.array_equal(rp["tokens"][r], t)
+                  for r, t in ad["tokens"].items()),
+          "(d) replay tokens != the adaptive run's")
+    check(sorted(rp["stats"]) == sorted(stats)
+          and all(np.array_equal(rp["stats"][k], v)
+                  for k, v in stats.items()),
+          f"(d) replay counters {rp['stats']} != {stats}")
+    total = dict(ad["counts"])
+    for k, v in rp["counts"].items():
+        total[k] = total.get(k, 0) + v
+    return total
+
+
+def check_crossbar_on_card(torch, dev):
+    """(e) a 1024 x 1024 crossbar: row, column and partitioned gates,
+    writes and drift at zero error give the CPU's states and cycle
+    counts; under stuck-at defects the pinned cells hold."""
+    from repro_torch.core.crossbar import Crossbar, ErrorModel
+    from repro_torch.faults import StuckAtFaults
+
+    n = 1024
+    a = np.random.default_rng(SEED + 11).random((n, n)) < 0.5
+    xs = [Crossbar.from_array(torch.from_numpy(a), device=d)
+          for d in ("cpu", dev)]
+    rng = np.random.default_rng(SEED + 12)
+    gates = (("nor", 2), ("min3", 3), ("xor", 2), ("and", 2), ("maj3", 3),
+             ("not", 1), ("or", 2), ("nand", 2))
+    t0 = time.perf_counter()
+    for step in range(96):
+        gate, k = gates[step % len(gates)]
+        kind = step % 4
+        if kind == 2:                    # offsets within a 64-column part
+            ins = [int(c) for c in rng.choice(64, k, replace=False)]
+            out = int(rng.integers(0, 64))
+        else:
+            ins = [int(c) for c in rng.choice(n, k, replace=False)]
+            out = int(rng.integers(0, n))
+        vals = torch.from_numpy(rng.random(n) < 0.5)
+        for i, x in enumerate(xs):
+            if kind == 0:
+                xs[i] = x.row_gate(gate, ins, out)
+            elif kind == 1:
+                xs[i] = x.col_gate(gate, ins, out)
+            elif kind == 2:
+                xs[i] = x.partitioned_row_gate(gate, 64, ins, out)
+            else:
+                xs[i] = x.write_col(out, vals).drift(
+                    torch.Generator(device=x.state.device).manual_seed(step))
+    cpu, card = xs
+    torch.cuda.synchronize()
+    check(torch.equal(card.state.cpu(), cpu.state)
+          and (card.counter.cycles, card.counter.gate_evals)
+          == (cpu.counter.cycles, cpu.counter.gate_evals),
+          "(e) crossbar on the card != the CPU")
+    log(f"(e) crossbar {n} x {n}: 96 ops on the card == the CPU "
+        f"(cycles {card.counter.cycles}, gate evaluations "
+        f"{card.counter.gate_evals}) in {time.perf_counter() - t0:.1f} s")
+
+    stuck = StuckAtFaults(1e-4, 1e-4)
+    x = Crossbar.from_array(torch.from_numpy(a),
+                            ErrorModel(input=stuck, retention=stuck),
+                            device=dev)
+    seeded = lambda s: torch.Generator(device=dev).manual_seed(s)  # noqa
+    d1 = x.drift(seeded(1))
+    d2 = d1.drift(seeded(1))
+    moved = int((d1.state != x.state).sum())
+    lo, hi = binom99(n * n, 1e-4)
+    check(torch.equal(d1.state, d2.state), "(e) stuck cells moved when the "
+          "same defect map was applied again")
+    check(lo <= moved <= hi, f"(e) {moved} cells pinned away from their "
+          f"value, outside [{lo}, {hi}]")
+    y1 = d1.partitioned_row_gate("nor", 64, [0, 1], 2, seeded(2))
+    y2 = y1.partitioned_row_gate("nor", 64, [0, 1], 2, seeded(2))
+    v = y1.state.view(n, 16, 64)
+    check(torch.equal(v[:, :, 2], ~(v[:, :, 0] | v[:, :, 1])),
+          "(e) the gate did not read its pinned inputs")
+    check(torch.equal(y1.state, y2.state), "(e) pinned inputs moved")
+    log(f"(e) StuckAtFaults(1e-4, 1e-4): drift pinned {moved} cells "
+        f"(99% interval [{lo}, {hi}]), held under the same map; a "
+        f"partitioned NOR read its pinned inputs "
+        f"({int((y1.state != d1.state).sum())} cells changed)")
 
 
 # ----------------------------------------------------------------------------

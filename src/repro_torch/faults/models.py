@@ -1,6 +1,7 @@
 """Fault models (port of `repro.faults.models`: `FaultModel` with its
 word, pytree, boolean-state and packed-trial surfaces, `TransientBitFlips`,
-`TransientGateFaults`, `pack_flip_mask` and `inject_bit_flips`).
+`TransientGateFaults`, `StuckAtFaults`, `RetentionDrift`,
+`CompositeFault`, `pack_flip_mask` and `inject_bit_flips`).
 
 Sampling takes an explicit `torch.Generator`.  The reference draws a dense
 (n_words, 32) Bernoulli plane per leaf; at phi3-mini width the largest leaf
@@ -9,8 +10,16 @@ samples sparsely instead: a binomial flip count per leaf, then that many
 distinct uniform bit positions, XORed in place.  `TransientGateFaults`
 does the same over a netlist's whole (gates, trials) plane at once (the
 reference draws one Bernoulli plane per gate: 1.4e10 draws for the 32-bit
-multiplier at 2^20 trials).  That is the same distribution, not the same
-bits as the reference's threefry stream; the tests feed JAX's own masks.
+multiplier at 2^20 trials).  `RetentionDrift` is the same sampler at the
+per-interval drift probability.  `StuckAtFaults` is sparse too: a
+Binomial(n_bits, p0 + p1) count of distinct defective positions, each
+stuck-at-1 with probability p1 / (p0 + p1), else stuck-at-0, then those
+bits cleared or set in place (the reference draws a uniform per bit: 1.2e11
+draws for one phi3-mini arena copy).  `CompositeFault` applies its members
+in order from one generator where the reference splits keys.  That is the
+same distribution, not the same bits as the reference's threefry stream;
+the tests feed JAX's own masks (`StuckAtFaults.stick_bits`,
+`stuck_word_mask`, `lane_masks_from`, `CompositeFault.compose_lane_masks`).
 
 Where the reference returns a corrupted copy, `corrupt` flips the bits of
 the given tree in place (its leaves are views of an arena) and returns it.
@@ -30,6 +39,7 @@ from ..core import tree as T
 from ..core.bitops import PACK, as_i32, pack_trials
 
 __all__ = ["FaultModel", "TransientBitFlips", "TransientGateFaults",
+           "StuckAtFaults", "RetentionDrift", "CompositeFault",
            "flip_random_bits_", "pack_flip_mask", "inject_bit_flips"]
 
 
@@ -92,6 +102,19 @@ def _xor_bits_(flat: torch.Tensor, elem: torch.Tensor,
     flat[elem] ^= masks.to(flat.dtype)
 
 
+def _stick_bits_(flat: torch.Tensor, elem: torch.Tensor, bit: torch.Tensor,
+                 set_: torch.Tensor) -> None:
+    """Bit `bit` of flat[elem] := set_ for distinct (elem, bit) pairs, in
+    place (stuck-at-1 where set_, stuck-at-0 elsewhere)."""
+    elem, inverse = torch.unique(elem, return_inverse=True)
+    one = torch.ones_like(bit) << bit
+    ones = torch.zeros(elem.numel(), dtype=torch.int64, device=flat.device)
+    clear = torch.zeros_like(ones)
+    ones.index_add_(0, inverse, torch.where(set_, one, 0))
+    clear.index_add_(0, inverse, torch.where(set_, 0, one))
+    flat[elem] = ((flat[elem].to(torch.int64) & ~clear) | ones).to(flat.dtype)
+
+
 def flip_random_bits_(bits: torch.Tensor, p: float,
                       generator: torch.Generator) -> int:
     """Flip each bit of the flat int16/int32 tensor `bits` independently
@@ -110,6 +133,14 @@ def flip_random_bits_(bits: torch.Tensor, p: float,
 class FaultModel:
     """Abstract error process over stored bits.  Subclasses are frozen
     dataclasses; sampling draws from the caller's generator."""
+
+    @property
+    def permanent(self) -> bool:
+        """True when the model describes a fixed device property (defect
+        maps) rather than an exposure process: a consumer that corrupts
+        repeatedly must then reseed its generator the same way each time,
+        or the defects would move with every draw."""
+        return False
 
     # -- boolean-state surface (crossbar cells, netlist gate outputs) ------
 
@@ -146,6 +177,11 @@ class FaultModel:
         """int32 XOR mask over the packed words of one leaf."""
         raise NotImplementedError
 
+    def corrupt_words(self, words: torch.Tensor, generator: torch.Generator,
+                      dt: float = 1.0) -> torch.Tensor:
+        """A corrupted copy of int32 `words`."""
+        return words ^ self.word_mask(generator, words, dt).to(words.device)
+
     def corrupt_leaf_(self, x: torch.Tensor, generator: torch.Generator,
                       dt: float = 1.0) -> None:
         """Corrupt one leaf in place through `word_mask` over its words."""
@@ -167,39 +203,29 @@ class FaultModel:
         return params
 
 
-@dataclasses.dataclass(frozen=True)
-class TransientBitFlips(FaultModel):
-    """Indirect soft errors: each stored bit flips i.i.d. w.p. p_bit per
-    interval (read disturb / access corruption, paper §II-B)."""
+class _IidFlips(FaultModel):
+    """Each stored bit flips independently with the per-interval
+    probability `_rate(dt)`, sampled sparsely: a binomial count of distinct
+    uniform positions."""
 
-    p_bit: float = 0.0
-
-    def word_mask(self, generator, words, dt: float = 1.0):
-        mask = torch.zeros_like(words)
-        flip_random_bits_(mask.view(-1), _p_interval(self.p_bit, dt),
-                          generator)
-        return mask
-
-    def corrupt_leaf_(self, x, generator, dt: float = 1.0) -> None:
-        flip_random_bits_(_bits_view(x), _p_interval(self.p_bit, dt),
-                          generator)
-
-
-@dataclasses.dataclass(frozen=True)
-class TransientGateFaults(FaultModel):
-    """Direct soft errors: a stateful gate writes the wrong output w.p.
-    p_gate per evaluation (independently per row/column, paper §II-B)."""
-
-    p_gate: float = 0.0
+    def _rate(self, dt: float) -> float:
+        raise NotImplementedError
 
     def bit_flips(self, generator, shape, dt: float = 1.0):
         plane = torch.zeros(math.prod(shape), dtype=torch.bool,
                             device=generator.device)
-        pos = _distinct_positions(plane.numel(),
-                                  _p_interval(self.p_gate, dt), generator)
+        pos = _distinct_positions(plane.numel(), self._rate(dt), generator)
         if pos is not None:
             plane[pos] = True
         return plane.reshape(shape)
+
+    def word_mask(self, generator, words, dt: float = 1.0):
+        mask = torch.zeros_like(words)
+        flip_random_bits_(mask.view(-1), self._rate(dt), generator)
+        return mask
+
+    def corrupt_leaf_(self, x, generator, dt: float = 1.0) -> None:
+        flip_random_bits_(_bits_view(x), self._rate(dt), generator)
 
     def gate_lane_masks(self, generator, n_gates: int, trials: int,
                         dt: float = 1.0):
@@ -209,14 +235,207 @@ class TransientGateFaults(FaultModel):
         tw = -(-trials // PACK)
         dev = generator.device
         flip = torch.zeros((n_gates, tw), dtype=torch.int32, device=dev)
-        pos = _distinct_positions(n_gates * trials,
-                                  _p_interval(self.p_gate, dt), generator)
+        pos = _distinct_positions(n_gates * trials, self._rate(dt),
+                                  generator)
         if pos is not None:
             g, t = pos // trials, pos % trials
             _xor_bits_(flip.view(-1), g * tw + t // PACK, t % PACK)
         keep = torch.full((1, 1), -1, dtype=torch.int32,
                           device=dev).expand(n_gates, tw)
         return keep, flip
+
+
+@dataclasses.dataclass(frozen=True)
+class TransientBitFlips(_IidFlips):
+    """Indirect soft errors: each stored bit flips i.i.d. w.p. p_bit per
+    interval (read disturb / access corruption, paper §II-B)."""
+
+    p_bit: float = 0.0
+
+    def _rate(self, dt: float) -> float:
+        return _p_interval(self.p_bit, dt)
+
+
+@dataclasses.dataclass(frozen=True)
+class TransientGateFaults(_IidFlips):
+    """Direct soft errors: a stateful gate writes the wrong output w.p.
+    p_gate per evaluation (independently per row/column, paper §II-B)."""
+
+    p_gate: float = 0.0
+
+    def _rate(self, dt: float) -> float:
+        return _p_interval(self.p_gate, dt)
+
+
+@dataclasses.dataclass(frozen=True)
+class RetentionDrift(_IidFlips):
+    """Time-dependent conductance drift (the paper's long-term axis): a
+    stored bit decays w.p. 1 - (1 - p_unit)^dt over an interval of length
+    dt -- the continuous-time process behind `Crossbar.drift`."""
+
+    p_unit: float = 0.0
+
+    def _rate(self, dt: float) -> float:
+        return _p_interval(self.p_unit, dt)
+
+
+@dataclasses.dataclass(frozen=True)
+class StuckAtFaults(FaultModel):
+    """Permanent defects: each cell is stuck-at-0 w.p. p_stuck0 and
+    stuck-at-1 w.p. p_stuck1 (disjoint events).  The defect map ignores dt
+    and is a function of the generator's state alone: the same seed gives
+    the same map, so repeated corruption is idempotent.
+
+    Sampled sparsely (module doc): a cell whose stored bit already equals
+    its stuck value is a defect that makes no error."""
+
+    p_stuck0: float = 0.0
+    p_stuck1: float = 0.0
+
+    @property
+    def permanent(self) -> bool:
+        return True
+
+    def _defects(self, total: int, generator: torch.Generator):
+        """(distinct sorted positions in [0, total), stuck-at-1 flags) on
+        the generator's device, or None when no cell is defective."""
+        p = self.p_stuck0 + self.p_stuck1
+        pos = _distinct_positions(total, p, generator)
+        if pos is None:
+            return None
+        u = torch.rand(pos.numel(), generator=generator,
+                       device=generator.device, dtype=torch.float64)
+        return pos, u < self.p_stuck1 / p
+
+    def stuck_masks(self, generator: torch.Generator,
+                    shape: Tuple[int, ...]):
+        """(sa0, sa1) bool defect maps of `shape` on the generator's
+        device; disjoint by construction."""
+        n = math.prod(shape)
+        sa0 = torch.zeros(n, dtype=torch.bool, device=generator.device)
+        sa1 = torch.zeros_like(sa0)
+        found = self._defects(n, generator)
+        if found is not None:
+            pos, one = found
+            sa1[pos[one]] = True
+            sa0[pos[~one]] = True
+        return sa0.reshape(shape), sa1.reshape(shape)
+
+    @staticmethod
+    def stick_bits(bits: torch.Tensor, sa0: torch.Tensor,
+                   sa1: torch.Tensor) -> torch.Tensor:
+        """Given defect maps applied to a bool plane: ``(bits & ~sa0) |
+        sa1`` (the reference's `corrupt_bits` for its masks)."""
+        return (bits & ~sa0) | sa1
+
+    @staticmethod
+    def stuck_word_mask(words: torch.Tensor, sa0: torch.Tensor,
+                        sa1: torch.Tensor) -> torch.Tensor:
+        """The int32 XOR mask that given (..., 32) bool defect planes make
+        over `words` (the reference's `word_mask` for its masks): set bits
+        stuck at 0 and clear bits stuck at 1 flip."""
+        sa0w, sa1w = pack_flip_mask(sa0), pack_flip_mask(sa1)
+        return (words & sa0w) | (~words & sa1w)
+
+    @staticmethod
+    def lane_masks_from(sa0: torch.Tensor, sa1: torch.Tensor):
+        """(keep, flip) lane masks of given (n_gates, trials) defect maps:
+        ``(v & ~sa0) | sa1 == (v & ~(sa0 | sa1)) ^ sa1`` (disjoint)."""
+        sa1w = pack_trials(sa1.T).T.contiguous()
+        return ~(pack_trials(sa0.T).T | sa1w), sa1w
+
+    def _stick_flat_(self, flat: torch.Tensor,
+                     generator: torch.Generator) -> None:
+        width = flat.element_size() * 8
+        found = self._defects(flat.numel() * width, generator)
+        if found is None:
+            return
+        pos, one = (t.to(flat.device) for t in found)
+        _stick_bits_(flat, pos // width, pos % width, one)
+
+    def corrupt_bits(self, bits, generator, dt: float = 1.0):
+        out = bits.clone().reshape(-1)
+        found = self._defects(out.numel(), generator)
+        if found is not None:
+            pos, one = (t.to(out.device) for t in found)
+            out[pos] = one
+        return out.reshape(bits.shape)
+
+    def corrupt_words(self, words, generator, dt: float = 1.0):
+        out = words.clone()
+        self._stick_flat_(out.view(-1), generator)
+        return out
+
+    def word_mask(self, generator, words, dt: float = 1.0):
+        return self.corrupt_words(words, generator, dt) ^ words
+
+    def corrupt_leaf_(self, x, generator, dt: float = 1.0) -> None:
+        self._stick_flat_(_bits_view(x), generator)
+
+    def gate_lane_masks(self, generator, n_gates: int, trials: int,
+                        dt: float = 1.0):
+        tw = -(-trials // PACK)
+        dev = generator.device
+        stuck = torch.zeros((n_gates, tw), dtype=torch.int32, device=dev)
+        flip = torch.zeros_like(stuck)
+        found = self._defects(n_gates * trials, generator)
+        if found is not None:
+            pos, one = found
+            g, t = pos // trials, pos % trials
+            idx, bit = g * tw + t // PACK, t % PACK
+            _xor_bits_(stuck.view(-1), idx, bit)
+            if bool(one.any()):
+                _xor_bits_(flip.view(-1), idx[one], bit[one])
+        return ~stuck, flip
+
+
+@dataclasses.dataclass(frozen=True)
+class CompositeFault(FaultModel):
+    """Sequential composition: the members corrupt in order, each drawing
+    from the same generator after the one before it (the reference gives
+    each member an independent subkey)."""
+
+    models: Tuple[FaultModel, ...] = ()
+
+    @property
+    def permanent(self) -> bool:
+        return bool(self.models) and all(m.permanent for m in self.models)
+
+    def corrupt_bits(self, bits, generator, dt: float = 1.0):
+        for m in self.models:
+            bits = m.corrupt_bits(bits, generator, dt)
+        return bits
+
+    def corrupt_words(self, words, generator, dt: float = 1.0):
+        for m in self.models:
+            words = m.corrupt_words(words, generator, dt)
+        return words
+
+    def word_mask(self, generator, words, dt: float = 1.0):
+        return self.corrupt_words(words, generator, dt) ^ words
+
+    def corrupt_leaf_(self, x, generator, dt: float = 1.0) -> None:
+        for m in self.models:
+            m.corrupt_leaf_(x, generator, dt)
+
+    @staticmethod
+    def compose_lane_masks(pairs, n_gates: int, tw: int, device=None):
+        """Fold members' (keep, flip) lane masks in order: f2(f1(v)) with
+        f = (v & K) ^ F gives K = K1 & K2, F = (F1 & K2) ^ F2."""
+        keep = torch.full((n_gates, tw), -1, dtype=torch.int32,
+                          device=device)
+        flip = torch.zeros_like(keep)
+        for k2, f2 in pairs:
+            keep = keep & k2
+            flip = (flip & k2) ^ f2
+        return keep, flip
+
+    def gate_lane_masks(self, generator, n_gates: int, trials: int,
+                        dt: float = 1.0):
+        return self.compose_lane_masks(
+            (m.gate_lane_masks(generator, n_gates, trials, dt)
+             for m in self.models),
+            n_gates, -(-trials // PACK), generator.device)
 
 
 def inject_bit_flips(params: Any, generator: torch.Generator,

@@ -73,5 +73,5 @@ def scrub(buf: torch.Tensor, parity: torch.Tensor,
     in_place = out_parity is None and npb == n
     target = parity if in_place else out_parity
     kernel.scrub(buf, parity, target, not in_place, counts)
-    _build.count_launch("scrub_hsiao")
+    _build.count_launch("scrub_hsiao", f"words {buf.numel()}")
     return buf, target, counts

@@ -1,5 +1,5 @@
 """Continuous-batching reliable serving (port of `repro.launch.batching`,
-without the mesh and the adaptive scrub controller).
+without the mesh).
 
 * **paged KV pool** (`PagedKVPool`) -- the KV state of every in-flight
   request lives in fixed-size pages of one int32 word arena: the k plane
@@ -35,7 +35,10 @@ without the mesh and the adaptive scrub controller).
   through `obs.MetricsRegistry`; TMR final votes of finished requests are
   2-of-3 majorities computed on the host from the fetched per-copy rows.
   ``torch.cuda.synchronize`` stands where the reference blocks until
-  ready, so TTFT and TPOT time the same thing.
+  ready, so TTFT and TPOT time the same thing.  The one documented
+  exception: with an adaptive scrub controller (`adaptive=`,
+  `runtime.AdaptiveScrub`) each pool scrub's counters are fetched, one
+  small copy a scrub, for the controller to set the next interval.
 
 Bit-exactness: every decode op is batch-row-local (masked attention reads
 only the row's own pages; page indirection copies values), so a request
@@ -67,7 +70,7 @@ from ..models.config import ModelConfig
 from ..models.steps import make_decode_step, make_prefill_step
 from ..obs import DEFAULT_REGISTRY, LatencyTimeline, MetricsRegistry
 from ..reliability.scheme import ArenaEcc, Compose, Scheme
-from .engine import GenerationEngine, _copy
+from .engine import GenerationEngine, _copy, _sync
 
 __all__ = ["BatchSpec", "Request", "RequestResult", "PagedKVPool",
            "ContinuousBatcher", "poisson_trace", "sequential_slot_steps"]
@@ -75,11 +78,6 @@ __all__ = ["BatchSpec", "Request", "RequestResult", "PagedKVPool",
 
 def _ceil_div(a: int, b: int) -> int:
     return -(-a // b)
-
-
-def _sync(device: torch.device) -> None:
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -298,6 +296,7 @@ class ContinuousBatcher:
 
     def __init__(self, cfg: ModelConfig, scheme: Optional[Scheme] = None,
                  spec: BatchSpec = BatchSpec(), *, scrub_every: int = 0,
+                 adaptive=None,
                  forced_scrub_ticks: Optional[Sequence[int]] = None,
                  registry: MetricsRegistry = DEFAULT_REGISTRY, device=None):
         if cfg.family != "dense":
@@ -332,8 +331,13 @@ class ContinuousBatcher:
         self.ticks = 0
         self.decode_slot_steps = 0
         self.scrub_every = int(scrub_every)
+        #: optional runtime.AdaptiveScrub: pay-as-you-fault scrub cadence.
+        #: Overrides scrub_every; each pool scrub's counts are fetched and
+        #: fed back (`record`) -- the one documented exception to the
+        #: no-transfer tick, and scrubs get rarer as the store quiets down
+        self.adaptive = adaptive
         #: replay hook: scrub at exactly these tick indices (overrides
-        #: scrub_every)
+        #: both cadences) -- replays a recorded adaptive schedule
         self._forced_scrub = (None if forced_scrub_ticks is None
                               else frozenset(int(t)
                                              for t in forced_scrub_ticks))
@@ -600,6 +604,10 @@ class ContinuousBatcher:
         if self.ecc is not None and self._scrub_due():
             counts = self.pool.scrub()       # counters stay on device
             self.scrub_ticks.append(self.ticks)
+            if self.adaptive is not None and self._forced_scrub is None:
+                # the documented exception: one (3,)-int fetch a scrub
+                c = counts.cpu().tolist()
+                self.adaptive.record(self.ticks, c[0], c[2], c[1])
             self._telem = self._registry.accumulate(
                 self._telem, {"ecc_corrected": counts[0],
                               "ecc_parity_fixed": counts[1],
@@ -607,9 +615,12 @@ class ContinuousBatcher:
         return finished
 
     def _scrub_due(self) -> bool:
-        """A forced replay schedule beats the fixed interval."""
+        """Which cadence owns this tick: a forced replay schedule beats the
+        adaptive controller beats the fixed interval."""
         if self._forced_scrub is not None:
             return self.ticks in self._forced_scrub
+        if self.adaptive is not None:
+            return self.adaptive.due(self.ticks)
         return bool(self.scrub_every) and self.ticks % self.scrub_every == 0
 
     def _finish(self, slot, a, row) -> RequestResult:

@@ -1,6 +1,5 @@
 """Generation engine: prefill + greedy decode under a protection scheme
-(port of `repro.launch.engine.GenerationEngine`, without chunking, mesh
-and the mMPU cost model).
+(port of `repro.launch.engine.GenerationEngine`, without the mesh).
 
 * **store** -- `prepare` builds the serving store from clean parameters.
   One exposure of the fault model hits every held data copy, then the
@@ -16,11 +15,22 @@ and the mMPU cost model).
   inside each step and vote the token ids (and, with `vote_cache`, the KV
   caches) every `vote_every` steps on the reference's schedule
   ``(step + 1) % vote_every == 0``; 'serial' runs three single-copy
-  generations and votes the sequences.  What is held against the reference
+  generations and votes the sequences part by part (elementwise, so the
+  final-sequence vote).  What is held against the reference
   is tokens and counters, not the launch shape.
+* **chunked generation** -- `generate_chunked` runs the decode steps in
+  chunks of the reference's `_chunk_sizes` schedule and marks a
+  `LatencyTimeline` after each chunk lands (a `torch.cuda.synchronize()`
+  and a clock read, no data transfer): the first mark is TTFT, the rest
+  feed the TPOT samples.  The global step offset is threaded through the
+  chunks, so the vote schedule, the tokens and the counters are the
+  unchunked run's.
 * **telemetry** -- scrub counts, per-step and final TMR disagreements and
   `tokens_emitted` stay on the device; `fetch_telemetry` moves them to the
-  host in one transfer after timing.
+  host in one transfer after timing.  With `cost_spec` (a
+  `costmodel.DeviceSpec`) the telemetry also carries the `mmpu_*` gauges of
+  `mmpu_projection`, an mMPU event stream compiled on the host once per
+  batch size.
 
     engine = GenerationEngine(cfg, scheme, gen=32, device="cuda")
     store, prep = engine.prepare(params, generator=g, fault=model)
@@ -29,7 +39,7 @@ and the mMPU cost model).
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, Iterator, List, Optional, Tuple
 
 import torch
 
@@ -38,7 +48,7 @@ from ..core import tree as T
 from ..device import resolve_device
 from ..models.config import ModelConfig
 from ..models.steps import make_decode_step, make_prefill_step
-from ..obs import fetch_telemetry
+from ..obs import NULL_TRACER, LatencyTimeline, Tracer, fetch_telemetry
 from ..reliability.scheme import ArenaEcc, Compose, Scheme, Tmr, Unprotected
 
 __all__ = ["GenerationEngine", "fetch_telemetry"]
@@ -54,6 +64,15 @@ def _disagreements(t3) -> torch.Tensor:
     return ((a != b) | (a != c) | (b != c)).sum(dtype=torch.int32)
 
 
+def _sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def _unmarked(n: int) -> None:
+    """The unchunked run's mark: nothing, so no sync on the timed path."""
+
+
 class GenerationEngine:
     """Batched greedy generation under a protection scheme.
 
@@ -67,12 +86,14 @@ class GenerationEngine:
     execution  : 'scan' (the in-loop vote schedule) or 'loop' (three
                  sequential generations, one final vote -- the reference).
     device     : where it runs; CUDA unless 'cpu' is asked for.
+    cost_spec  : optional `costmodel.DeviceSpec`: telemetry gains the
+                 `mmpu_*` gauges of `mmpu_projection` (None adds nothing).
     """
 
     def __init__(self, cfg: ModelConfig, scheme: Optional[Scheme] = None, *,
                  gen: int, cache_len: Optional[int] = None,
                  vote_every: int = 0, vote_cache: bool = False,
-                 execution: str = "scan", device=None):
+                 execution: str = "scan", device=None, cost_spec=None):
         if execution not in ("scan", "loop"):
             raise ValueError(f"execution must be 'scan' or 'loop', "
                              f"got {execution!r}")
@@ -99,6 +120,8 @@ class GenerationEngine:
         self.vote_every = int(vote_every)
         self.vote_cache = bool(vote_cache)
         self.execution = execution
+        self.cost_spec = cost_spec
+        self._mmpu_cache: Dict[int, Any] = {}
 
     # -- scheme plumbing ----------------------------------------------------
 
@@ -117,6 +140,29 @@ class GenerationEngine:
     def _discipline(self) -> Optional[str]:
         tmr = self._tmr()
         return tmr.discipline if tmr is not None else None
+
+    # -- mMPU cost projection -------------------------------------------------
+
+    def mmpu_projection(self, batch_size: int):
+        """(event stream, MmpuCost) for one full generation at this batch
+        size, or None without a cost_spec.  Compiled on the host from the
+        config's shapes (nothing allocated) and cached per batch size; the
+        fold runs on the engine's device.  `serve --mmpu-events` dumps the
+        stream."""
+        if self.cost_spec is None:
+            return None
+        key = int(batch_size)
+        if key not in self._mmpu_cache:
+            from .. import costmodel
+            profile = costmodel.StepProfile.from_model_config(
+                self.cfg, batch=key)
+            stream = costmodel.scale_stream(
+                costmodel.lower_step(self.scheme, profile, self.cost_spec),
+                self.gen)
+            cost = costmodel.fold(stream, self.cost_spec,
+                                  tokens=key * self.gen, device=self.device)
+            self._mmpu_cache[key] = (stream, cost)
+        return self._mmpu_cache[key]
 
     def prepare(self, params: Any, generator: Optional[torch.Generator] = None,
                 fault=None, dt: float = 1.0) -> Tuple[Any, Dict[str, Any]]:
@@ -186,26 +232,60 @@ class GenerationEngine:
     def _batch(self, batch: Dict[str, torch.Tensor]):
         return {k: v.to(self.device) for k, v in batch.items()}
 
-    def _single(self, params, batch, prefill, decode) -> torch.Tensor:
-        tok, _, cache = prefill(params, batch)
-        toks = [tok]
-        for _ in range(self.gen - 1):
+    def _decode_steps(self, params, tok, cache, n: int, decode):
+        """n decode steps of one copy: (last token, cache, [n tokens])."""
+        toks = []
+        for _ in range(n):
             tok, _, cache = decode(params, tok, cache)
             toks.append(tok)
-        return torch.cat(toks, dim=1)
+        return tok, cache, toks
 
-    def _concurrent(self, store, batch, prefill, decode):
-        """parallel/semi TMR: the three copies advance together, one
-        decode step each per iteration, voted on the reference's schedule."""
-        vote = self._tmr()._vote()
+    def _sizes(self, chunk: Optional[int]) -> List[int]:
+        """Decode steps per launch: all `gen - 1` at once without a chunk,
+        else the reference's `_chunk_sizes(chunk)` schedule."""
+        if chunk is None:
+            return [self.gen - 1] if self.gen > 1 else []
+        return list(self._chunk_sizes(chunk))
+
+    def _single(self, params, batch, prefill, decode, sizes, mark=_unmarked,
+                tracer: Tracer = NULL_TRACER,
+                spans=("prefill", "decode_chunk"), land=None):
+        """One copy: the prefill, then one launch of `n` decode steps per
+        entry of `sizes`, each in its `spans` trace span.  After launch i
+        (0 is the prefill) `land(i, part)` runs, then `mark(n)`.  Returns
+        the token parts [(B, 1), (B, n1), ...]."""
+        with tracer.trace(spans[0], tokens=1):
+            tok, _, cache = prefill(params, batch)
+            parts = [tok]
+            if land is not None:
+                land(0, tok)
+            mark(1)
+        for i, n in enumerate(sizes, start=1):
+            with tracer.trace(spans[1], tokens=n):
+                tok, cache, toks = self._decode_steps(params, tok, cache, n,
+                                                      decode)
+                parts.append(torch.cat(toks, dim=1))
+                if land is not None:
+                    land(i, parts[-1])
+                mark(n)
+        return parts
+
+    def _prefill3(self, store, batch, prefill):
         tok3, cache3 = [], []
         for i in range(3):
             tok, _, cache = prefill(_copy(store, i), batch)
             tok3.append(tok)
             cache3.append(cache)
-        seq3 = [[t] for t in tok3]
-        dis = [_disagreements(tok3)]
-        for step in range(self.gen - 1):
+        return tok3, cache3
+
+    def _tmr_steps(self, store, tok3, cache3, offset: int, n: int, decode):
+        """parallel/semi TMR: n decode steps of the three copies advancing
+        together from global step `offset`, voted on the reference's
+        schedule ``(step + 1) % vote_every == 0``.  Returns (tok3, cache3,
+        [per-step tok3], [per-step disagreements])."""
+        vote = self._tmr()._vote()
+        steps, dis = [], []
+        for step in range(offset, offset + n):
             for i in range(3):
                 tok3[i], _, cache3[i] = decode(_copy(store, i), tok3[i],
                                                cache3[i])
@@ -218,17 +298,70 @@ class GenerationEngine:
                         vote(a, b, c, out=a)   # in place into copy 0,
                         b.copy_(a)             # then to the other copies
                         c.copy_(a)
-            for i in range(3):
-                seq3[i].append(tok3[i])
-        seq3 = [torch.cat(s, dim=1) for s in seq3]
-        return vote(*seq3), {
-            "tmr_step_disagreements": torch.stack(dis),
+            steps.append(list(tok3))
+        return tok3, cache3, steps, dis
+
+    def _concurrent(self, store, batch, prefill, decode, sizes,
+                    mark=_unmarked, tracer: Tracer = NULL_TRACER):
+        """parallel/semi TMR: the three copies advance together, one decode
+        step each per iteration, launch by launch of `sizes` with the
+        global step offset threaded, so the votes land on the reference's
+        schedule whatever the launches."""
+        with tracer.trace("tmr_prefill", tokens=1):
+            tok3, cache3 = self._prefill3(store, batch, prefill)
+            mark(1)
+        first3, steps, dis, off = list(tok3), [], [], 0
+        for n in sizes:
+            with tracer.trace("tmr_decode_chunk", tokens=n, offset=off):
+                tok3, cache3, s, d = self._tmr_steps(store, tok3, cache3,
+                                                     off, n, decode)
+                mark(n)
+            steps += s
+            dis += d
+            off += n
+        seq3 = [torch.cat([first3[i]] + [s[i] for s in steps], dim=1)
+                for i in range(3)]
+        return self._tmr()._vote()(*seq3), {
+            "tmr_step_disagreements": torch.stack(
+                [_disagreements(first3)] + dis),
+            "tmr_final_disagreements": _disagreements(seq3)}
+
+    def _serial(self, store, batch, prefill, decode, sizes, mark=_unmarked,
+                tracer: Tracer = NULL_TRACER):
+        """serial TMR: copies 0 and 1 run to the end one after another
+        (unmarked), then each of copy 2's launches completes a voted part
+        (the vote is elementwise, so part-wise voting equals the
+        final-sequence vote)."""
+        vote = self._tmr()._vote()
+        per_copy = []
+        for i in range(2):
+            with tracer.trace(f"serial_copy{i}", copy=i):
+                per_copy.append(self._single(_copy(store, i), batch, prefill,
+                                             decode, sizes))
+        voted: List[torch.Tensor] = []
+        parts2 = self._single(
+            _copy(store, 2), batch, prefill, decode, sizes, mark, tracer,
+            spans=("serial_copy2_prefill", "serial_decode_chunk"),
+            land=lambda i, part: voted.append(
+                vote(per_copy[0][i], per_copy[1][i], part)))
+        seq3 = [torch.cat(p, dim=1) for p in (*per_copy, parts2)]
+        return torch.cat(voted, dim=1), {
             "tmr_final_disagreements": _disagreements(seq3)}
 
     def _finish(self, tokens, telem):
         out = dict(telem)
         out["tokens_emitted"] = torch.tensor(tokens.numel(), dtype=torch.int32,
                                              device=tokens.device)
+        proj = self.mmpu_projection(tokens.shape[0])
+        if proj is not None:
+            _, cost = proj
+            dev = tokens.device
+            out["mmpu_cycles_per_token"] = torch.tensor(
+                cost.cycles_per_token, dtype=torch.float32, device=dev)
+            out["mmpu_energy_pj_per_token"] = torch.tensor(
+                cost.energy_pj_per_token, dtype=torch.float32, device=dev)
+            out["mmpu_events"] = torch.tensor(cost.n_events,
+                                              dtype=torch.int32, device=dev)
         return tokens, out
 
     def generate(self, store: Any, batch: Dict[str, torch.Tensor]
@@ -247,20 +380,87 @@ class GenerationEngine:
 
     def generate_loop(self, store, batch):
         """Interpreted reference: per-token decode; TMR as three sequential
-        full generations with one final vote."""
+        full generations, voted as the serial discipline votes."""
         return self._generate(store, batch, concurrent=False)
 
-    def _generate(self, store, batch, concurrent: bool):
+    def _generate(self, store, batch, concurrent: bool, chunk=None,
+                  mark=_unmarked, tracer: Tracer = NULL_TRACER):
+        """The one body of every discipline: all decode steps in one
+        launch each without a chunk (and no sync), else chunk by chunk
+        with `mark(n)` after each launch lands."""
         batch = self._batch(batch)
         prefill, decode = self._steps(batch["tokens"].shape[1])
+        sizes = self._sizes(chunk)
         with torch.no_grad():
             if not self.copy_axis:
-                return self._finish(self._single(store, batch, prefill,
-                                                 decode), {})
-            if concurrent:
-                return self._finish(*self._concurrent(store, batch, prefill,
-                                                      decode))
-            outs = [self._single(_copy(store, i), batch, prefill, decode)
-                    for i in range(3)]
-            return self._finish(self._tmr()._vote()(*outs), {
-                "tmr_final_disagreements": _disagreements(outs)})
+                parts = self._single(store, batch, prefill, decode, sizes,
+                                     mark, tracer)
+                return self._finish(torch.cat(parts, dim=1), {})
+            body = self._concurrent if concurrent else self._serial
+            return self._finish(*body(store, batch, prefill, decode, sizes,
+                                      mark, tracer))
+
+    # -- chunked generation ---------------------------------------------------
+
+    def _chunk_sizes(self, chunk: int) -> Iterator[int]:
+        """Chunk-size schedule for `gen - 1` decode steps (the
+        reference's): full `chunk` launches, then the tail in descending
+        powers of two."""
+        rem = self.gen - 1
+        while rem >= chunk:
+            yield chunk
+            rem -= chunk
+        if rem > 0:
+            p = 1 << (rem.bit_length() - 1)
+            while rem > 0:
+                if rem >= p:
+                    yield p
+                    rem -= p
+                p >>= 1
+
+    def generate_chunked(self, store, batch, *, chunk: int,
+                         timeline: Optional[LatencyTimeline] = None,
+                         tracer: Tracer = NULL_TRACER
+                         ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor],
+                                    LatencyTimeline]:
+        """Latency-observable generation: the decode steps in chunks of
+        `_chunk_sizes(chunk)`, a `LatencyTimeline` mark after each chunk
+        lands.  Tokens and telemetry equal `generate_scan`'s under every
+        scheme and `vote_every`.  Each mark is a `torch.cuda.synchronize()`
+        and a clock read, not a device->host data transfer; telemetry
+        stays on the device.
+
+        The first mark is TTFT (prefill -> first token); each later mark
+        times one chunk.  The serial discipline runs copies 0 and 1 to the
+        end first, so its marks start at the third copy's prefill, when
+        voted tokens first exist.
+
+        Returns (tokens, telemetry, timeline)."""
+        if chunk < 1:
+            raise ValueError(f"chunk must be >= 1, got {chunk}")
+        if self.execution == "loop":
+            raise ValueError("chunked generation requires execution='scan' "
+                             "(the loop reference is already per-token)")
+        timeline = timeline if timeline is not None else LatencyTimeline()
+
+        def landed(n: int) -> None:
+            _sync(self.device)
+            timeline.mark(n)
+
+        timeline.begin()
+        tokens, telem = self._generate(
+            store, batch, concurrent=self._discipline() != "serial",
+            chunk=chunk, mark=landed, tracer=tracer)
+        return tokens, telem, timeline
+
+    def ttft(self, store, batch) -> torch.Tensor:
+        """First generated token(s) only -- the prefill, voted across the
+        copies under TMR.  Time this (after a warmup) for time to first
+        token."""
+        batch = self._batch(batch)
+        prefill, _ = self._steps(batch["tokens"].shape[1])
+        with torch.no_grad():
+            if not self.copy_axis:
+                return prefill(store, batch)[0]
+            toks = [prefill(_copy(store, i), batch)[0] for i in range(3)]
+            return self._tmr()._vote()(*toks)

@@ -9,9 +9,21 @@ continuous-batching server (port of `repro.launch.serve`).
 tmr-parallel | tmr-semi | <code>+tmr[-<discipline>]``.  Parameters come
 from random init on a seeded generator, directly into the packed arena on
 the device; faults are drawn on the device from a generator seeded with
-``seed + 100``.  Runs on CUDA by default; ``--device cpu`` runs the plain
-PyTorch versions (use it with ``--smoke``).  Scrub and vote counters stay
-on the device during the timed region and are fetched once afterwards.
+``seed + 100``.  ``--fault`` picks the fault model at rate
+``--inject-p-bit``: ``bitflip`` (transient flips), ``stuckat`` (permanent
+defects, half stuck at 0 and half at 1) or ``drift`` (retention drift).
+Runs on CUDA by default; ``--device cpu`` runs the plain PyTorch versions
+(use it with ``--smoke``).  Scrub and vote counters stay on the device
+during the timed region and are fetched once afterwards.
+
+``--chunk N`` generates in chunks of N decode steps with a latency mark
+after each (TTFT and TPOT p50/p95/p99; the same tokens either way).
+``--trace out.json`` writes the spans as Chrome-trace JSON and ``--metrics
+out.jsonl`` a JSONL record of the run.  ``--mmpu-cost`` projects the run
+onto the mMPU cost model (`costmodel`): cycles and energy per token for
+the scheme, and the ``mmpu_*`` gauges in the telemetry; ``--mmpu-events
+PATH`` dumps the event stream as JSONL; ``--mmpu-device`` picks the
+`configs.mmpu_paper` device spec.
 
 Server mode (``--server``) serves an open-loop Poisson trace through the
 continuous-batching scheduler (`launch.batching`: paged ECC-protected KV
@@ -27,42 +39,68 @@ the report gives p50/p95/p99 tails plus goodput (useful tokens / wall
 time).  ``--gen`` becomes the per-request cap, ``--chunk`` the decode chunk
 between scheduling points (default 8), ``--prompt-len`` the single
 admission bucket, ``--page-tokens`` the KV page size and ``--scrub-every``
-the pool-scrub cadence in ticks.  Under ``ecc-wb`` and ``hsiao-wb`` every
-tick first repairs the KV pages it reads (write-back-on-read).
-``--trace out.json`` writes the spans as Chrome-trace JSON and
-``--metrics out.jsonl`` a JSONL record of the run.
+the pool-scrub cadence in ticks; ``--adaptive-scrub`` lets
+`runtime.AdaptiveScrub` move that cadence from the corrections each pool
+scrub finds (``--scrub-every`` seeds its first interval).  Under ``ecc-wb``
+and ``hsiao-wb`` every tick first repairs the KV pages it reads
+(write-back-on-read).
 """
 from __future__ import annotations
 
 import argparse
 import time
-from typing import Any, Callable, Dict, Optional
+from typing import Any, Callable, Dict, Optional, Sequence
 
 import numpy as np
 import torch
 
 from ..configs import get_config, list_archs
 from ..device import resolve_device
-from ..faults import TransientBitFlips
+from ..faults import (FaultModel, RetentionDrift, StuckAtFaults,
+                      TransientBitFlips)
 from ..models import params as P
 from ..models import transformer as T
 from ..models.config import ModelConfig
-from ..obs import Tracer, fetch_telemetry
+from ..obs import NULL_TRACER, Tracer, fetch_telemetry
 from ..reliability import (ArenaEcc, Compose, Scheme, Tmr, Unprotected,
                            parse_scheme, scheme_choices, scheme_help)
 from .batching import BatchSpec, ContinuousBatcher, Request, poisson_trace
-from .engine import GenerationEngine
+from .engine import GenerationEngine, _sync
 
-__all__ = ["serve", "serve_server", "make_inputs", "main"]
+__all__ = ["serve", "serve_server", "make_inputs", "make_fault",
+           "FAULTS", "main"]
+
+#: the fault kinds of ``--fault``
+FAULTS = ("bitflip", "stuckat", "drift")
 
 
 def _log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def _sync(device: torch.device) -> None:
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
+def make_fault(kind: str, p_bit: float) -> Optional[FaultModel]:
+    """The reference's ``--fault`` mapping at rate p_bit (None when p_bit
+    is 0): stuck-at splits the rate evenly between stuck-at-0 and 1."""
+    if kind not in FAULTS:
+        raise ValueError(f"unknown fault {kind!r} (one of {FAULTS})")
+    if not p_bit:
+        return None
+    return {"bitflip": lambda: TransientBitFlips(p_bit),
+            "stuckat": lambda: StuckAtFaults(p_bit / 2, p_bit / 2),
+            "drift": lambda: RetentionDrift(p_bit)}[kind]()
+
+
+def _write_records(tracer: Tracer, record: Dict[str, Any], kind: str,
+                   trace_path: Optional[str],
+                   metrics_path: Optional[str]) -> None:
+    tracer.metrics(record, kind=kind)
+    if trace_path:
+        tracer.write_chrome(trace_path)
+        _log(f"[serve] chrome trace -> {trace_path} "
+             f"(load in Perfetto / chrome://tracing)")
+    if metrics_path:
+        tracer.write_jsonl(metrics_path)
+        _log(f"[serve] metrics jsonl -> {metrics_path}")
 
 
 def make_inputs(cfg: ModelConfig, batch: int, prompt_len: int, seed: int,
@@ -79,31 +117,46 @@ def make_inputs(cfg: ModelConfig, batch: int, prompt_len: int, seed: int,
 
 def serve(cfg: ModelConfig, params: Any, tokens: torch.Tensor,
           scheme: Scheme, *, gen: int, vote_every: int = 0,
-          vote_cache: bool = False, p_bit: float = 0.0, seed: int = 0,
-          engine: str = "scan", device=None) -> Dict[str, Any]:
-    """Prepare the scheme's store, run one untimed warmup generation and
-    one timed one, fetch the telemetry once, and compare with a clean run.
-    Prints the reference's ``[serve]`` lines and returns the results, the
-    store included."""
+          vote_cache: bool = False, p_bit: float = 0.0,
+          fault: str = "bitflip", seed: int = 0, engine: str = "scan",
+          chunk: int = 0, cost_spec=None, mmpu_events: Optional[str] = None,
+          trace_path: Optional[str] = None,
+          metrics_path: Optional[str] = None, device=None) -> Dict[str, Any]:
+    """Prepare the scheme's store under `fault` at rate `p_bit`, run one
+    untimed warmup generation and one timed one (chunked when `chunk`),
+    fetch the telemetry once, and compare with a clean run.  Prints the
+    reference's ``[serve]`` lines and returns the results: tokens, stats,
+    agreement, tok/s, prepare seconds, the latency summary (chunked runs),
+    the mMPU projection (with `cost_spec`), the store and the engine."""
     device = resolve_device(device)
     batch = {"tokens": tokens}
+    tracer = Tracer(enabled=bool(trace_path or metrics_path))
     eng = GenerationEngine(cfg, scheme, gen=gen, vote_every=vote_every,
                            vote_cache=vote_cache, execution=engine,
-                           device=device)
-    fault = TransientBitFlips(p_bit) if p_bit else None
+                           device=device, cost_spec=cost_spec)
+    model = make_fault(fault, p_bit)
     fault_gen = torch.Generator(device=device).manual_seed(seed + 100)
     t0 = time.perf_counter()
-    store, prep = eng.prepare(params, generator=fault_gen, fault=fault)
-    _sync(device)
+    with tracer.trace("prepare", scheme=scheme.name):
+        store, prep = eng.prepare(params, generator=fault_gen, fault=model)
+        _sync(device)
     prepare_s = time.perf_counter() - t0
 
-    eng.generate(store, batch)          # warmup, untimed
-    _sync(device)
+    def run(tr=NULL_TRACER):
+        if chunk:
+            return eng.generate_chunked(store, batch, chunk=chunk, tracer=tr)
+        return eng.generate(store, batch) + (None,)
+
+    with tracer.trace("warmup"):
+        run()
+        _sync(device)
     t0 = time.perf_counter()
-    out, telem = eng.generate(store, batch)
-    _sync(device)
+    with tracer.trace("generate", scheme=scheme.name, gen=gen, chunk=chunk):
+        out, telem, timeline = run(tracer)
+        _sync(device)
     dt = time.perf_counter() - t0
-    stats = fetch_telemetry({**prep, **telem})      # the single fetch
+    with tracer.trace("fetch_telemetry"):
+        stats = fetch_telemetry({**prep, **telem})      # the single fetch
 
     clean = eng if isinstance(scheme, (Unprotected, ArenaEcc)) \
         else GenerationEngine(cfg, gen=gen, execution=engine, device=device)
@@ -111,9 +164,9 @@ def serve(cfg: ModelConfig, params: Any, tokens: torch.Tensor,
     agree = float((out == ref).float().mean().item())
     tok_s = tokens.shape[0] * gen / dt
     _log(f"[serve] {cfg.name} scheme={scheme.name} engine={engine} "
-        f"device={device.type} p_bit={p_bit:g}: {tokens.shape[0]}x{gen} "
-        f"tokens in {dt:.3f}s ({tok_s:.1f} tok/s), prepare {prepare_s:.2f}s, "
-        f"agreement with clean run: {agree:.3f}")
+         f"device={device.type} fault={fault} p_bit={p_bit:g}: "
+         f"{tokens.shape[0]}x{gen} tokens in {dt:.3f}s ({tok_s:.1f} tok/s), "
+         f"prepare {prepare_s:.2f}s, agreement with clean run: {agree:.3f}")
     parts = []
     if "ecc_corrected" in stats:
         parts.append(f"ecc corrected={int(stats['ecc_corrected'])} "
@@ -127,37 +180,78 @@ def serve(cfg: ModelConfig, params: Any, tokens: torch.Tensor,
         parts.append(f"per-step={int(steps.sum())} over {steps.size} steps")
     if parts:
         _log(f"[serve] reliability (fetched after timing): "
-            f"{'; '.join(parts)}")
+             f"{'; '.join(parts)}")
     _log(f"[serve] cost model ({scheme.name}): "
-        f"{scheme.overhead().describe()}")
+         f"{scheme.overhead().describe()}")
+    proj = eng.mmpu_projection(tokens.shape[0])
+    if proj is not None:
+        stream, cost = proj
+        _log(f"[serve] mMPU projection ({cost_spec.name}): "
+             f"{cost.describe()}")
+        if mmpu_events:
+            from ..costmodel import dump_jsonl
+            n = dump_jsonl(stream, mmpu_events)
+            _log(f"[serve] mmpu event stream -> {mmpu_events} ({n} events)")
+    lat = timeline.summary() if timeline is not None else None
+    if lat is not None:
+        _log(f"[serve] latency tails (chunk={chunk}): "
+             f"ttft={lat['ttft_s'] * 1e3:.1f}ms "
+             f"tpot p50={lat.get('tpot_p50', float('nan')) * 1e3:.2f}ms "
+             f"p95={lat.get('tpot_p95', float('nan')) * 1e3:.2f}ms "
+             f"p99={lat.get('tpot_p99', float('nan')) * 1e3:.2f}ms")
+    if trace_path or metrics_path:
+        record = {"kind": "serve", "arch": cfg.name, "scheme": scheme.name,
+                  "engine": engine, "mesh": "single", "p_bit": p_bit,
+                  "fault": fault, "batch": tokens.shape[0], "gen": gen,
+                  "chunk": chunk, "tok_s": tok_s, "agreement": agree,
+                  **{k: np.asarray(v).sum().item() for k, v in stats.items()}}
+        if lat is not None:
+            record.update({k: float(v) for k, v in lat.items()})
+        _write_records(tracer, record, "serve", trace_path, metrics_path)
     sample = out[0, :16].cpu().tolist()
     _log(f"[serve] sample: {sample}")
     return {"tokens": out, "stats": stats, "agreement": agree,
-            "tok_s": tok_s, "store": store}
+            "tok_s": tok_s, "prepare_s": prepare_s, "latency": lat,
+            "mmpu": proj, "store": store, "engine": eng}
 
 
 def serve_server(cfg: ModelConfig, params: Any, scheme: Scheme, *,
                  spec: BatchSpec, requests: int, rate: float,
-                 p_bit: float = 0.0, seed: int = 0, scrub_every: int = 0,
+                 p_bit: float = 0.0, fault: str = "bitflip",
+                 seed: int = 0, scrub_every: int = 0,
+                 adaptive_scrub: bool = False,
+                 forced_scrub_ticks: Optional[Sequence[int]] = None,
                  trace_path: Optional[str] = None,
                  metrics_path: Optional[str] = None,
                  on_tick: Optional[Callable] = None,
                  realtime: bool = True, device=None) -> Dict[str, Any]:
-    """The reference's `_run_server`: prepare the scheme's store, run the
-    warmup requests (first `slots` prompts of the trace, 2 tokens each),
-    then serve the Poisson trace of `requests` at `rate` paced in real
-    time, fetch the telemetry once and print the ``[serve]`` lines.
+    """The reference's `_run_server`: prepare the scheme's store under
+    `fault` at rate `p_bit`, run the warmup requests (first `slots` prompts
+    of the trace, 2 tokens each), then serve the Poisson trace of
+    `requests` at `rate` paced in real time, fetch the telemetry once and
+    print the ``[serve]`` lines.  With `adaptive_scrub` (and a scheme with
+    a code) a `runtime.AdaptiveScrub` sized for the pool owns the scrub
+    cadence, seeded with interval `scrub_every` (32 when 0);
+    `forced_scrub_ticks` replays a recorded schedule instead (the pool is
+    scrubbed at exactly those ticks, whatever the cadence).
     `on_tick(batcher)` (a fault-injection hook) is installed after the
     warmup.  Returns the results, the fetched stats, the latency tails and
     the batcher."""
     device = resolve_device(device)
     tracer = Tracer(enabled=bool(trace_path or metrics_path))
     b = ContinuousBatcher(cfg, scheme, spec, scrub_every=scrub_every,
+                          forced_scrub_ticks=forced_scrub_ticks,
                           device=device)
+    if adaptive_scrub and b.ecc is not None:
+        from ..runtime import AdaptiveScrub
+        # the prior is sized for the pool the controller scrubs
+        b.adaptive = AdaptiveScrub.from_prior(
+            p_bit, b.pool.arena_spec.n_blocks,
+            interval0=max(1, scrub_every or 32))
     fault_gen = torch.Generator(device=device).manual_seed(seed + 100)
     with tracer.trace("prepare", scheme=scheme.name):
         prep = b.prepare(params, generator=fault_gen,
-                         fault=TransientBitFlips(p_bit) if p_bit else None)
+                         fault=make_fault(fault, p_bit))
     trace = poisson_trace(requests, rate_rps=rate, spec=spec,
                           vocab=cfg.vocab, seed=seed)
     # run the admission and tick paths once before the open-loop clock
@@ -185,7 +279,7 @@ def serve_server(cfg: ModelConfig, params: Any, scheme: Scheme, *,
         return float(np.percentile(a, p)) if a.size else float("nan")
 
     _log(f"[serve] {cfg.name} server scheme={scheme.name} mesh=single "
-         f"p_bit={p_bit:g}: {requests} reqs @ {rate:g} rps, "
+         f"fault={fault} p_bit={p_bit:g}: {requests} reqs @ {rate:g} rps, "
          f"slots={spec.slots} chunk={spec.chunk}: {useful} tokens in "
          f"{dt:.1f}s (goodput {goodput:.1f} tok/s, {b.ticks} ticks, "
          f"{b.decode_slot_steps} slot-steps)")
@@ -203,25 +297,21 @@ def serve_server(cfg: ModelConfig, params: Any, scheme: Scheme, *,
                          f"{int(stats['tmr_final_disagreements'])}")
         _log(f"[serve] reliability (fetched after timing): "
              f"{'; '.join(parts) or 'n/a'}")
+    if b.adaptive is not None:
+        _log(f"[serve] adaptive scrub: {b.adaptive.summary()}")
     lat = {"ttft_p50_s": q(ttft, 50), "ttft_p95_s": q(ttft, 95),
            "ttft_p99_s": q(ttft, 99), "tpot_p50_s": q(tpot, 50),
            "tpot_p95_s": q(tpot, 95), "tpot_p99_s": q(tpot, 99)}
     if trace_path or metrics_path:
         record = {"kind": "server", "arch": cfg.name, "scheme": scheme.name,
-                  "mesh": "single", "p_bit": p_bit, "rate_rps": rate,
+                  "mesh": "single", "p_bit": p_bit, "fault": fault,
+                  "rate_rps": rate,
                   "requests": requests, "slots": spec.slots,
                   "chunk": spec.chunk, "gen_cap": spec.gen_cap,
                   "goodput_tok_s": goodput, "ticks": b.ticks,
                   "decode_slot_steps": b.decode_slot_steps, **lat,
                   **{k: np.asarray(v).sum().item() for k, v in stats.items()}}
-        tracer.metrics(record, kind="server")
-        if trace_path:
-            tracer.write_chrome(trace_path)
-            _log(f"[serve] chrome trace -> {trace_path} "
-                 f"(load in Perfetto / chrome://tracing)")
-        if metrics_path:
-            tracer.write_jsonl(metrics_path)
-            _log(f"[serve] metrics jsonl -> {metrics_path}")
+        _write_records(tracer, record, "server", trace_path, metrics_path)
     return {"results": results, "stats": stats, "goodput_tok_s": goodput,
             "seconds": dt, "latency": lat, "batcher": b}
 
@@ -246,7 +336,11 @@ def main(argv: Optional[list] = None) -> None:
     ap.add_argument("--vote-cache", action="store_true",
                     help="also vote the KV caches at the vote points")
     ap.add_argument("--inject-p-bit", type=float, default=0.0,
-                    help="flip each weight bit of each copy w.p. p")
+                    help="corrupt each weight bit of each copy w.p. p")
+    ap.add_argument("--fault", default="bitflip", choices=list(FAULTS),
+                    help="fault model of the per-copy corruption (rate = "
+                         "--inject-p-bit; stuckat splits it evenly between "
+                         "stuck-at-0 and stuck-at-1)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu")
@@ -268,13 +362,31 @@ def main(argv: Optional[list] = None) -> None:
     ap.add_argument("--scrub-every", type=int, default=0, metavar="TICKS",
                     help="server mode: pool-scrub cadence in scheduler "
                          "ticks (0 = no periodic scrub)")
+    ap.add_argument("--adaptive-scrub", action="store_true",
+                    help="server mode: pay-as-you-fault pool-scrub cadence "
+                         "(runtime.AdaptiveScrub moves the interval from "
+                         "the corrections each scrub finds; --scrub-every "
+                         "seeds the first interval; overrides the fixed "
+                         "cadence)")
     ap.add_argument("--chunk", type=int, default=0,
-                    help="server mode: decode steps per scheduler tick "
-                         "(0 = the default 8)")
+                    help="generate in chunks of N decode steps with a "
+                         "latency mark after each (TTFT/TPOT tails; 0 = one "
+                         "pass); server mode: decode steps per scheduler "
+                         "tick (0 = the default 8)")
     ap.add_argument("--trace", default=None, metavar="PATH",
-                    help="server mode: write spans as Chrome-trace JSON")
+                    help="write spans as Chrome-trace JSON")
     ap.add_argument("--metrics", default=None, metavar="PATH",
-                    help="server mode: write a JSONL telemetry record")
+                    help="write a JSONL telemetry record")
+    ap.add_argument("--mmpu-cost", action="store_true",
+                    help="project the run onto the mMPU cost model: "
+                         "cycles/token and energy/token for the scheme, "
+                         "mmpu_* gauges in the telemetry")
+    ap.add_argument("--mmpu-events", default=None, metavar="PATH",
+                    help="dump the mMPU event stream as JSONL (implies "
+                         "--mmpu-cost)")
+    ap.add_argument("--mmpu-device", default="paper",
+                    help="device spec from configs.mmpu_paper "
+                         "(default: paper)")
     args = ap.parse_args(argv)
 
     scheme = parse_scheme(args.scheme)
@@ -292,6 +404,9 @@ def main(argv: Optional[list] = None) -> None:
         ap.error("--vote-cache needs --vote-every K")
     if args.chunk < 0:
         ap.error(f"--chunk must be >= 0, got {args.chunk}")
+    if args.chunk and args.engine == "loop":
+        ap.error("--chunk requires --engine scan (the loop reference is "
+                 "already per-token)")
     if args.server:
         if args.engine == "loop":
             ap.error("--server runs the scheduler; --engine loop does not "
@@ -302,9 +417,10 @@ def main(argv: Optional[list] = None) -> None:
         if args.rate <= 0 or args.requests < 1 or args.slots < 1:
             ap.error("--server needs --rate > 0, --requests >= 1 and "
                      "--slots >= 1")
-    elif args.chunk or args.trace or args.metrics:
-        ap.error("--chunk, --trace and --metrics apply to --server (chunked "
-                 "one-shot generation is not ported)")
+    cost_spec = None
+    if args.mmpu_cost or args.mmpu_events:
+        from ..configs.mmpu_paper import get_device
+        cost_spec = get_device(args.mmpu_device)
 
     device = resolve_device(args.device)
     cfg = get_config(args.arch)
@@ -317,14 +433,18 @@ def main(argv: Optional[list] = None) -> None:
                          prompt_buckets=(args.prompt_len,), gen_cap=args.gen)
         serve_server(cfg, inputs["params"], scheme, spec=spec,
                      requests=args.requests, rate=args.rate,
-                     p_bit=args.inject_p_bit, seed=args.seed,
-                     scrub_every=args.scrub_every, trace_path=args.trace,
-                     metrics_path=args.metrics, device=device)
+                     p_bit=args.inject_p_bit, fault=args.fault,
+                     seed=args.seed, scrub_every=args.scrub_every,
+                     adaptive_scrub=args.adaptive_scrub,
+                     trace_path=args.trace, metrics_path=args.metrics,
+                     device=device)
         return
     serve(cfg, inputs["params"], inputs["tokens"], scheme, gen=args.gen,
           vote_every=args.vote_every, vote_cache=args.vote_cache,
-          p_bit=args.inject_p_bit, seed=args.seed, engine=args.engine,
-          device=device)
+          p_bit=args.inject_p_bit, fault=args.fault, seed=args.seed,
+          engine=args.engine, chunk=args.chunk, cost_spec=cost_spec,
+          mmpu_events=args.mmpu_events, trace_path=args.trace,
+          metrics_path=args.metrics, device=device)
 
 
 if __name__ == "__main__":

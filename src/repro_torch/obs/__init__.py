@@ -1,12 +1,15 @@
-"""On-device telemetry (port of `repro.obs`: the registry, latency tails
-and the tracer).
+"""On-device telemetry (port of `repro.obs`: the registry, latency tails,
+the tracer and the drift detector).
 
 * `MetricsRegistry` / `SCHEMA` -- named, schema-validated on-device
   counters; `fetch_telemetry` is the single device->host transfer.
 * `Tracer` -- span-based tracing: Chrome-trace JSON plus a JSONL metrics
   log, no device syncs.
 * `LatencyTimeline` / `Histogram` -- TTFT/TPOT tails from host timestamps.
+* `DriftDetector` -- observed correction rates against the closed-form
+  model, the sensor of the adaptive scrub controller.
 """
+from .drift import DriftDetector, DriftStatus
 from .latency import Histogram, LatencyTimeline
 from .registry import (DEFAULT_REGISTRY, SCHEMA, MetricSpec, MetricsRegistry,
                        fetch_telemetry)
@@ -17,4 +20,5 @@ __all__ = [
     "fetch_telemetry",
     "Tracer", "NULL_TRACER",
     "Histogram", "LatencyTimeline",
+    "DriftDetector", "DriftStatus",
 ]

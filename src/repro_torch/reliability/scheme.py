@@ -132,6 +132,15 @@ class Scheme:
     def overhead(self) -> CostReport:
         raise NotImplementedError
 
+    def cost_events(self, base, profile, spec):
+        """mMPU cost-model hookup (`costmodel.compile.lower_step`): extend
+        or transform a redundancy-free step event stream with this
+        scheme's redundancy traffic.  `base` is a sequence of
+        `costmodel.MmpuEvent`; `profile` a `costmodel.StepProfile`;
+        `spec` a `costmodel.DeviceSpec`.  `overhead()` is the closed form
+        these streams agree with."""
+        return tuple(base)
+
 
 @dataclasses.dataclass(frozen=True)
 class Unprotected(Scheme):
@@ -179,6 +188,13 @@ class ArenaEcc(Scheme):
     def _scrub(self, buf: torch.Tensor, parity: torch.Tensor,
                out_parity: Optional[torch.Tensor] = None):
         raise NotImplementedError
+
+    def _ecc_events(self, profile, spec, copies: int = 1):
+        """This code's mMPU redundancy traffic (costmodel hookup)."""
+        raise NotImplementedError
+
+    def cost_events(self, base, profile, spec):
+        return tuple(base) + self._ecc_events(profile, spec)
 
     def protect(self, payload: Any) -> Protected:
         words, spec = arena.pack(payload)
@@ -282,6 +298,10 @@ class DiagParityEcc(ArenaEcc):
         return CostReport(storage_x=1.0 + len(self.slopes) / arena.BLOCK,
                           latency_x=1.26)
 
+    def _ecc_events(self, profile, spec, copies: int = 1):
+        from ..costmodel.compile import ecc_events
+        return ecc_events(profile, spec, self.slopes, copies=copies)
+
 
 @dataclasses.dataclass(frozen=True)
 class HsiaoSecDed(ArenaEcc):
@@ -314,6 +334,10 @@ class HsiaoSecDed(ArenaEcc):
 
     def overhead(self) -> CostReport:
         return CostReport(storage_x=1.0 + 7.0 / arena.BLOCK, latency_x=1.42)
+
+    def _ecc_events(self, profile, spec, copies: int = 1):
+        from ..costmodel.compile import secded_events
+        return secded_events(profile, spec, copies=copies)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -392,6 +416,11 @@ class Tmr(Scheme):
         return CostReport(storage_x=3.0, latency_x=c.latency_x,
                           area_x=c.area_x, throughput_x=c.throughput_x)
 
+    def cost_events(self, base, profile, spec):
+        from ..costmodel.compile import tmr_transform, vote_events
+        return tmr_transform(base, self.discipline) \
+            + vote_events(profile, spec)
+
 
 @dataclasses.dataclass(frozen=True)
 class Compose(Scheme):
@@ -459,6 +488,15 @@ class Compose(Scheme):
                           latency_x=e.latency_x * t.latency_x,
                           area_x=e.area_x * t.area_x,
                           throughput_x=e.throughput_x * t.throughput_x)
+
+    def cost_events(self, base, profile, spec):
+        # execution triplicates under the TMR discipline; each copy
+        # carries its own parity table, so the word-code traffic covers
+        # copies=3 blocks (scrub_copies fuses them in one pass)
+        from ..costmodel.compile import tmr_transform, vote_events
+        return (tmr_transform(base, self.tmr.discipline)
+                + vote_events(profile, spec)
+                + self.ecc._ecc_events(profile, spec, copies=3))
 
 
 def _adopt_copies(scheme: Scheme, copies, redundancy) -> Protected:
