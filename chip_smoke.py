@@ -50,7 +50,11 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      the full-width server pool, each against its plain version;
   6. a small-input reference: the phi3 smoke config in float32 through the
      kernels and through the plain versions must give the same tokens and
-     counters and logits within 1e-4;
+     counters and logits within 1e-4; and one smoke-width train step under
+     `ecc` (weights at std 0.02) on the card against the same step on the
+     CPU's plain path (loss within 1e-5, grad norm within 1e-4, the params
+     within 1e-5 of their leaf's scale but for near-zero-grad elements,
+     the card's parity equal to the plain encode of its params);
   7. the netlist path of the paper's Fig. 4 (run right after phase 5, before
      the launch counts are read): the 32-bit MultPIM multiplier (13,792
      gates; schedule L=320 levels of W=128, base 66) through
@@ -131,7 +135,31 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      (e) a 1024 x 1024 crossbar on the card: row,
      column and partitioned gates, writes and drift at zero error equal to
      the CPU's states and cycle counts; under `StuckAtFaults(1e-4, 1e-4)`
-     the pinned cells hold.  Every run prints its peak device memory.
+     the pinned cells hold.  Every run prints its peak device memory;
+ 10. training through `repro_torch.launch.train.build` at the CLI defaults
+     (batch 8 x 256 tokens of `SyntheticLM(seed=0)`, lr 3e-4, fp32 params
+     and compute, TF32 off), phi3-mini at full width: (a) `--scheme ecc`,
+     32 layers, 12 steps, a scrub every 4 under `TransientBitFlips(1e-9)`,
+     the eval hook at step 12 (32-token prompts, 8 tokens): finite losses
+     (printed with the losses of steps 1 and 12's batches under the final
+     params), a short step against the final params' gradient lowering
+     step 12's batch's loss, each scrub's corrections inside its binomial
+     interval (99% over the run's scrubs) and their total inside its 99%
+     interval, none uncorrectable, the parity after the last refresh equal
+     to a fresh encode, encode launches = steps + 1 and 3 scrubs, the
+     hook's tokens equal to `GenerationEngine.generate`'s; (b)
+     `ecc+tmr-parallel`, 16 layers, 8 steps, the adaptive scrub from the
+     injection prior at 1e-9 into all three copies: scrubs on the
+     controller's schedule, no vote disagreement or uncorrectable word,
+     the corrections over three copies held as in (a), copies 1 and 2
+     equal to copy 0 after every refresh; (c) `hsiao --microbatches 2
+     --grad-compression`, 2 layers, checkpoints every 2 steps: preempted at
+     step 3, restored in a fresh loop (state and parity equal to the saved
+     ones bit for bit, the scheme re-armed), a double error planted in one
+     word after the step-4 checkpoint gives RESTART and a restore from
+     step 4, the run ends at step 6 with finite params and its step-6 loss
+     within 1e-3 of an uninterrupted run's.  Each run prints its step-time
+     median, tok/s and peak device memory beside the card.
 
 The second-to-last line is a JSON object of per-kernel numbers; the last is
 {"ok": true, "device": {...}}.  Times are CUDA-event means on this card
@@ -250,12 +278,17 @@ def main() -> int:
     # 9. the rest of the serve entry point (faults, chunks, the cost model,
     # the adaptive scrub, the crossbar simulator)
     serve_rest = run_serve_rest_path(torch, cfg, server_clean, dev)
-    paths = (launches, server, netlist, campaigns, serve_rest)
+    # 10. training (the protected TrainLoop, launch.train)
+    train = run_train_path(torch, card, dev)
+    for name in ("encode_parity", "scrub", "tmr_vote", "encode_hsiao",
+                 "scrub_hsiao"):
+        check(train.get(name, 0) > 0, f"{name} never launched in training")
+    paths = (launches, server, netlist, campaigns, serve_rest, train)
     for name, row in rows.items():
         row["launches"] = sum(p.get(name, 0) for p in paths)
         check(row["launches"] > 0, f"{name} never launched on the main path")
     log("launches by path (one-shot ecc+tmr-parallel / server, 4 runs / "
-        "netlist / campaigns / phase 9): " + ", ".join(
+        "netlist / campaigns / phase 9 / train): " + ", ".join(
             f"{name} " + "/".join(str(p.get(name, 0)) for p in paths)
             for name in rows))
 
@@ -369,6 +402,16 @@ def server_pool_words():
     pool = PagedKVPool(get_config("phi3-mini-3.8b"), server_spec(),
                        copies=False, device="meta")
     return pool.arena_spec.n_words, 16 * pool.page_words
+
+
+def distinct_ints(torch, hi: int, k: int, g):
+    """k distinct uniform ints below hi >> k, in random order, on g's
+    device (a randperm of hi would sort hi keys: gigabytes beside an
+    arena's copies)."""
+    x = torch.unique(torch.randint(0, hi, (2 * k,), device=g.device,
+                                   generator=g))
+    check(x.numel() >= k, "too few distinct draws")
+    return x[torch.randperm(x.numel(), device=g.device, generator=g)[:k]]
 
 
 def flip_bits(torch, words, idx, bit):
@@ -511,13 +554,6 @@ def check_scrub_three_copies(torch, dev, n, g, code):
     def arena_gen():
         return torch.Generator(device=dev).manual_seed(SEED + 8)
 
-    def distinct(hi, k):
-        """k distinct uniform ints below hi >> k, in random order (a
-        randperm of hi would sort hi keys: gigabytes beside the copies)."""
-        x = torch.unique(rint(hi, 2 * k))
-        check(x.numel() >= k, "too few distinct draws")
-        return x[torch.randperm(x.numel(), device=dev, generator=g)[:k]]
-
     w3 = torch.empty(3 * n, dtype=torch.int32, device=dev)
     for i, j, chunk in random_word_chunks(torch, n, arena_gen(), dev):
         w3[i:j] = chunk
@@ -529,7 +565,8 @@ def check_scrub_three_copies(torch, dev, n, g, code):
     # of a block for the diagonal code, two bits of one word for Hsiao: both
     # detected, and Hsiao's must be left as they are), and 100 single-bit
     # errors in the shared table (every copy sees them)
-    blk, prow = distinct(3 * nb, 3300), distinct(nb, 100)
+    blk = distinct_ints(torch, 3 * nb, 3300, g)
+    prow = distinct_ints(torch, nb, 100, g)
     hit = torch.unique(torch.cat([blk, prow, prow + nb, prow + 2 * nb]))
     w3v = w3.view(-1, 32)
     clean_rows = w3v[hit].clone()
@@ -626,8 +663,40 @@ def check_hsiao(torch, dev):
             f"call {call_ms:.4f}), bound {bnd[0]:.4f} ms")
         del w_, par_
 
-    # plant 1000 single data-bit flips, 100 check-bit flips and 100
-    # same-word double flips, each in its own block (so in distinct words)
+    counts, scrub_plain_ms = hold_hsiao_scrub(torch, dev, words, parity, g,
+                                              "the arena")
+    scrub_ms = time_ms(torch, lambda: H.scrub(words, parity))
+    scrub_bound = bound_ms(n * 4 + nb * 28 + (1000 + 100) * 4,
+                           HSIAO_SCRUB_OPS_PER_WORD * n)
+    log(f"scrub_hsiao: kernel {scrub_ms:.3f} ms (clean arena), plain "
+        f"{scrub_plain_ms:.1f} ms, bound {scrub_bound[0]:.3f} ms; counts "
+        f"{counts.tolist()} bit-exact, doubles untouched")
+    del words, parity
+    torch.cuda.empty_cache()
+
+    check_scrub_three_copies(torch, dev, n, g, "hsiao")
+
+    src = "src/repro_torch/kernels/csrc/hsiao_secded.cu"
+    return {
+        "encode_hsiao": row("encode_hsiao", src,
+                            "src/repro/kernels/hsiao_secded/kernel.py:47",
+                            enc_ms, enc_plain_ms, enc_bound, 0.0),
+        "scrub_hsiao": row("scrub_hsiao", src,
+                           "src/repro/kernels/hsiao_secded/kernel.py:112",
+                           scrub_ms, scrub_plain_ms, scrub_bound, 0.0),
+    }
+
+
+def hold_hsiao_scrub(torch, dev, words, parity, g, what):
+    """Plant 1000 single data-bit flips, 100 check-bit flips and 100
+    same-word double flips, each in its own block (so in distinct words),
+    in `words` and a copy of its clean check table `parity`; scrub them with
+    the kernel and a copy with the plain version: bit for bit, the planted
+    counts, the doubles left as they are.  Then undo the doubles: the table
+    must be healed and the words re-encode to it.  Returns (counts, the
+    plain version's ms)."""
+    from repro_torch.kernels import hsiao_secded as H
+    nb = parity.shape[0]
     blocks = torch.randperm(nb, device=dev, generator=g)[:1200]
     single, cblk, double = blocks[:1000], blocks[1000:1100], blocks[1100:]
 
@@ -646,41 +715,25 @@ def check_hsiao(torch, dev):
 
     words_p, bad_par_p = words.clone(), bad_par.clone()
     counts = H.scrub(words, bad_par)[2]
-    counts_p, scrub_plain_ms = timed_once(
+    counts_p, plain_ms = timed_once(
         torch, lambda: H.scrub_hsiao_ref(words_p, bad_par_p)[2])
     check(torch.equal(words, words_p) and torch.equal(bad_par, bad_par_p)
           and torch.equal(counts, counts_p),
-          "scrub_hsiao kernel != plain version")
+          f"scrub_hsiao kernel != plain version ({what})")
     check(counts.tolist() == [1000, 100, 100],
-          f"scrub_hsiao counts {counts.tolist()} != planted [1000, 100, 100]")
+          f"scrub_hsiao counts {counts.tolist()} != planted [1000, 100, 100] "
+          f"({what})")
     check(torch.equal(words[d_idx], doubled),
-          "a double-flip word was modified (must be detected, left as is)")
+          f"a double-flip word was modified ({what}; must be detected, left "
+          f"as is)")
     del words_p, bad_par_p
     flip_bits(torch, words, d_idx, b1)          # undo the doubles
     flip_bits(torch, words, d_idx, b2)
-    check(torch.equal(bad_par, parity), "check rows not healed")
+    check(torch.equal(bad_par, parity), f"check rows not healed ({what})")
     check(torch.equal(H.encode_hsiao(words), parity),
-          "scrubbed arena does not re-encode to the clean check table")
-    scrub_ms = time_ms(torch, lambda: H.scrub(words, parity))
-    scrub_bound = bound_ms(n * 4 + nb * 28 + (1000 + 100) * 4,
-                           HSIAO_SCRUB_OPS_PER_WORD * n)
-    log(f"scrub_hsiao: kernel {scrub_ms:.3f} ms (clean arena), plain "
-        f"{scrub_plain_ms:.1f} ms, bound {scrub_bound[0]:.3f} ms; counts "
-        f"{counts.tolist()} bit-exact, doubles untouched")
-    del words, parity, bad_par
-    torch.cuda.empty_cache()
-
-    check_scrub_three_copies(torch, dev, n, g, "hsiao")
-
-    src = "src/repro_torch/kernels/csrc/hsiao_secded.cu"
-    return {
-        "encode_hsiao": row("encode_hsiao", src,
-                            "src/repro/kernels/hsiao_secded/kernel.py:47",
-                            enc_ms, enc_plain_ms, enc_bound, 0.0),
-        "scrub_hsiao": row("scrub_hsiao", src,
-                           "src/repro/kernels/hsiao_secded/kernel.py:112",
-                           scrub_ms, scrub_plain_ms, scrub_bound, 0.0),
-    }
+          f"scrubbed arena does not re-encode to the clean check table "
+          f"({what})")
+    return counts, plain_ms
 
 
 def check_inject_scrub(torch, dev):
@@ -1611,11 +1664,33 @@ P9_POOL = 1e-8
 P9_QUIET_TICKS = 3
 
 
-def binom99(n: int, p: float):
-    """The binomial 99% interval of a count of n trials at rate p."""
+def binom99(n: int, p: float, k: int = 1):
+    """The binomial 99% interval of a count of n trials at rate p; for one
+    of k counts checked together, the interval at 1 - 0.01 / k, so that
+    all k hold at 99% (Bonferroni)."""
     from scipy.stats import binom
-    lo, hi = binom.interval(0.99, n, p)
+    lo, hi = binom.interval(1 - 0.01 / k, n, p)
     return int(lo), int(hi)
+
+
+def check_scrub_counts(loop, bits, what):
+    """Every scrub's corrected count inside its binomial interval (99% over
+    the run's scrubs) and the run's total inside its 99% interval; no
+    uncorrectable word.  `bits` counts the stored bits of every held data
+    copy, each exposed at P10_P_BIT a scrub interval."""
+    k = len(loop.scrub_reports)
+    lo, hi = binom99(bits, P10_P_BIT, k)
+    counts = [int(r.corrected) for _, r in loop.scrub_reports]
+    tlo, thi = binom99(k * bits, P10_P_BIT)
+    log(f"{what} corrected {counts} at steps "
+        f"{[s for s, _ in loop.scrub_reports]} (each in [{lo}, {hi}], 99% "
+        f"over {k} scrubs of {bits} bits at {P10_P_BIT:g}; total "
+        f"{sum(counts)} in [{tlo}, {thi}])")
+    check(all(lo <= c <= hi for c in counts) and tlo <= sum(counts) <= thi,
+          f"{what} corrected {counts} outside [{lo}, {hi}] or total "
+          f"outside [{tlo}, {thi}]")
+    check(all(int(r.uncorrectable) == 0 for _, r in loop.scrub_reports),
+          f"{what} uncorrectable words")
 
 
 def leaf_bits(params) -> int:
@@ -2020,6 +2095,596 @@ def check_crossbar_on_card(torch, dev):
 # 6. small-input reference: kernels vs plain versions end to end
 # ----------------------------------------------------------------------------
 
+# ----------------------------------------------------------------------------
+# 10. training
+# ----------------------------------------------------------------------------
+
+#: phase 10's soft-error rate per scrub interval (every held copy)
+P10_P_BIT = 1e-9
+#: depths of the runs: (a) ecc the full 32 layers, (b) ecc+tmr-parallel 16
+#: (three copies of 32 layers with their grads and moments would not fit
+#: 80 GB), (c) hsiao 2 (its checkpoints hold params, m, v and err)
+P10_DEPTH = {"ecc": 32, "ecc+tmr-parallel": 16, "hsiao": 2}
+
+
+def p10_words(depth: int) -> int:
+    """Words of phi3-mini's fp32 parameter arena at `depth` layers (one
+    copy), from the layout alone."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as T
+    from repro_torch.models.params import layout
+    cfg = get_config("phi3-mini-3.8b").replace(n_layers=depth)
+    return layout(T.model_specs(cfg), cfg.param_dtype).n_words
+
+
+def check_train_shapes(torch, dev):
+    """The kernels of phase 10 at the shapes (b) and (c) give them, held
+    against their plain versions on random words, bit for bit (run before
+    the counts are reset, so these launches are not the path's; (a)'s
+    encode is held after its run, on its own 32-layer params).  Over (b)'s
+    16-layer copy: encode_parity; then flips planted in three copies and
+    in their own tables, tmr_vote over the three copies, and the scrub of
+    the three copies against the per-copy tables (6.03e9 words: word
+    indices past 2**32).  The plain scrub runs on a gathered copy of the
+    planted blocks (the code is block-local), and every other block must
+    come out as it went in: the clean copy is drawn again from its seed,
+    chunk by chunk, to compare.  Over (c)'s 2-layer arena: encode_hsiao
+    and scrub_hsiao with planted flips."""
+    from repro_torch.kernels import diag_parity as D
+    from repro_torch.kernels import hsiao_secded as H
+    from repro_torch.kernels.tmr_vote import vote, vote_ref
+
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    n = p10_words(P10_DEPTH["ecc+tmr-parallel"])
+    nb = n // 32
+    g = torch.Generator(device=dev).manual_seed(SEED + 10)
+
+    def arena_gen():
+        return torch.Generator(device=dev).manual_seed(SEED + 11)
+
+    def rint(hi, k):
+        return torch.randint(0, hi, (k,), device=dev, generator=g)
+
+    w3 = torch.empty((3, n), dtype=torch.int32, device=dev)
+    for i, j, chunk in random_word_chunks(torch, n, arena_gen(), dev):
+        w3[:, i:j] = chunk
+    par = D.encode_parity(w3[0])
+    plain, plain_ms = timed_once(torch, lambda: D.encode_parity_ref(w3[0]))
+    check(torch.equal(par, plain),
+          f"encode_parity kernel != plain version ((b)'s copy, {n} words)")
+    log(f"training shapes: encode_parity over (b)'s {n}-word copy: "
+        f"bit-exact; plain {plain_ms:.1f} ms")
+    del plain
+    # 3000 single data-bit flips and 300 doubles (two words of a block)
+    # over the three copies, and 100 single-bit errors in their own
+    # tables, each in its own block of the stack
+    par3 = par.repeat(3, 1)
+    blk = distinct_ints(torch, 3 * nb, 3400, g)
+    data, prow = blk[:3300], blk[3300:]
+    flat, w3v = w3.view(-1), w3.view(-1, 32)
+    clean_rows = w3v[blk].clone()
+    i1 = rint(32, 3300)
+    flip_bits(torch, flat, data * 32 + i1, rint(32, 3300))
+    i2 = (i1[3000:] + 1 + rint(31, 300)) % 32
+    flip_bits(torch, flat, data[3000:] * 32 + i2, rint(32, 300))
+    flip_bits(torch, par3.view(-1), prow * 3 + rint(3, 100), rint(32, 100))
+    past = int((blk >= (1 << 32) // 32).sum())
+
+    voted = vote(w3[0], w3[1], w3[2])
+    # the plain voter a 2**28-word slice at a time (its temporaries of the
+    # whole copy would not fit beside the three): elementwise, so exact
+    plain = torch.empty_like(voted)
+
+    def vote_plain():
+        for i in range(0, n, 1 << 28):
+            j = min(n, i + (1 << 28))
+            plain[i:j] = vote_ref(w3[0, i:j], w3[1, i:j], w3[2, i:j])
+
+    _, plain_ms = timed_once(torch, vote_plain)
+    check(torch.equal(voted, plain),
+          f"tmr_vote kernel != plain version ((b)'s 3 x {n} words)")
+    log(f"training shapes: tmr_vote over (b)'s 3 x {n} words, 3300 blocks "
+        f"flipped: bit-exact; plain {plain_ms:.1f} ms (in 2**28-word "
+        f"slices)")
+    del voted, plain
+
+    small = w3v[blk].reshape(-1).clone()
+    small_par = par3[blk].clone()
+    _, _, counts = D.scrub(flat, par3)
+    _, _, counts_p = D.scrub_ref(small, small_par)
+    check(torch.equal(w3v[blk].reshape(-1), small)
+          and torch.equal(par3[blk], small_par)
+          and torch.equal(counts, counts_p),
+          f"scrub kernel != plain version ((b)'s 3 x {n} words, per-copy "
+          f"tables)")
+    check(counts.tolist() == [3000, 100, 300],
+          f"(b)'s per-copy scrub counts {counts.tolist()} != planted "
+          f"[3000, 100, 300]")
+    check(all(torch.equal(t, par) for t in par3.view(3, nb, 3)),
+          "(b)'s per-copy tables not healed")
+    del small, small_par
+    w3v[blk] = clean_rows
+    same = True
+    for i, j, chunk in random_word_chunks(torch, n, arena_gen(), dev):
+        same &= all(torch.equal(c[i:j], chunk) for c in w3)
+    check(same, "the per-copy scrub changed a block outside the planted ones")
+    log(f"training shapes: scrub of (b)'s 3 x {n} words ({3 * n} word "
+        f"indices) against per-copy tables: counts {counts.tolist()} "
+        f"({past} planted blocks past word 2**32) bit-exact, tables healed, "
+        f"no other block changed")
+    del w3, flat, w3v, par, par3, clean_rows
+    torch.cuda.empty_cache()
+
+    n = p10_words(P10_DEPTH["hsiao"])
+    words = random_words(torch, n, g, dev)
+    parity = H.encode_hsiao(words)
+    plain, enc_ms = timed_once(torch, lambda: H.encode_hsiao_ref(words))
+    check(torch.equal(parity, plain),
+          f"encode_hsiao kernel != plain version ((c)'s arena, {n} words)")
+    del plain
+    counts, scrub_ms = hold_hsiao_scrub(torch, dev, words, parity, g,
+                                        f"(c)'s arena, {n} words")
+    log(f"training shapes: encode_hsiao and scrub_hsiao over (c)'s {n}-word "
+        f"arena: counts {counts.tolist()} bit-exact, doubles untouched; "
+        f"plain {enc_ms:.1f} and {scrub_ms:.1f} ms; "
+        f"{time.perf_counter() - t0:.1f} s, peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    del words, parity
+    torch.cuda.empty_cache()
+
+
+def train_args(dev, *extra):
+    """`launch.train`'s CLI defaults (batch 8 x seq 256 of SyntheticLM
+    seed 0, lr 3e-4, fp32 params and compute) on `dev`, plus `extra`
+    flags."""
+    from repro_torch.launch import train
+    return train.parser().parse_args(["--device", str(dev), "--log-every",
+                                      "1", "--checkpoint-every", "0", *extra])
+
+
+def train_run_stats(torch, loop, args, card, what, peak):
+    """Print a run's step-time median, tok/s and peak device memory beside
+    the card; returns the median step seconds."""
+    times = sorted(loop.monitor.times)
+    med = times[len(times) // 2]
+    tok_s = args.batch * args.seq / med
+    log(f"{what}: step median {med:.3f} s (host clock around each step, "
+        f"synchronized), {tok_s:.0f} tok/s, peak device memory "
+        f"{peak / 1e9:.2f} GB on {card}")
+    check(peak < 80e9, f"{what}: peak {peak / 1e9:.2f} GB")
+    return med
+
+
+def train_batch_loss(torch, cfg, loop, step):
+    """The loss of step `step`'s batch under the loop's current params."""
+    from repro_torch.models.steps import make_loss_fn
+    with torch.no_grad():
+        total, _ = make_loss_fn(cfg)(loop.state["params"],
+                                     loop.batch_at(step))
+    return float(total)
+
+
+def check_losses(loop, what):
+    losses = [l for _, l in loop.metrics_history]
+    check(all(math.isfinite(l) for l in losses), f"{what}: loss {losses}")
+    return losses
+
+
+def run_train_path(torch, card, dev):
+    """(a)-(c) of phase 10; returns the launch counts of its runs, each
+    counted from 0 around its run (its build included: `attach_scheme`'s
+    encode is the run's first launch)."""
+    import gc
+    t_path = time.perf_counter()
+    check_train_shapes(torch, dev)
+    total = {}
+    for run in (train_ecc, train_compose, train_hsiao):
+        for k, v in run(torch, card, dev).items():
+            total[k] = total.get(k, 0) + v
+        gc.collect()        # the runs' hooks close over their loops
+        torch.cuda.empty_cache()
+    log(f"phase 10: {time.perf_counter() - t_path:.1f} s, launches {total}")
+    return total
+
+
+def train_ecc(torch, card, dev):
+    """(a) ecc, full depth, 12 steps, a scrub every 4 at p 1e-9, the eval
+    hook at step 12."""
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticLM
+    from repro_torch.launch import train
+    from repro_torch.kernels.diag_parity.ref import encode_parity_ref
+    from repro_torch.launch.engine import GenerationEngine, make_eval_hook
+
+    steps = 12
+    args = train_args(dev, "--steps", str(steps), "--ecc-scrub-every", "4",
+                      "--inject-p-bit", str(P10_P_BIT), "--scheme", "ecc")
+    cfg = get_config("phi3-mini-3.8b")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    cfg, loop, n_params = train.build(args, cfg=cfg)
+    prompt = {"tokens": torch.from_numpy(SyntheticLM(
+        vocab=cfg.vocab, seq_len=32, batch_per_rank=2, seed=1).batch_at(0))}
+    engine = GenerationEngine(cfg, gen=8, device=dev)
+    loop.eval_fn = make_eval_hook(engine, prompt)
+    loop.cfg.eval_every = steps
+    bits = leaf_bits(loop.state["params"])
+    t0 = time.perf_counter()
+    loop.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    what = f"(a) ecc, {cfg.n_layers} layers ({n_params} params)"
+    log(f"{what}: {steps} steps in {wall:.1f} s, launches {counts}")
+    train_run_stats(torch, loop, args, card, what, peak)
+    losses = check_losses(loop, what)
+    seen = [train_batch_loss(torch, cfg, loop, s) for s in (0, steps - 1)]
+    log(f"(a) losses {[round(l, 4) for l in losses]}, mean of the last 4 "
+        f"{sum(losses[-4:]) / 4:.4f}; under the final params step 1's "
+        f"batch {seen[0]:.4f} (was {losses[0]:.4f}), step {steps}'s "
+        f"{seen[1]:.4f} (was {losses[-1]:.4f})")
+    check_scrub_counts(loop, bits, "(a)")
+    check([s for s, _ in loop.scrub_reports] == [4, 8, 12],
+          f"(a) scrubs at {[s for s, _ in loop.scrub_reports]}")
+    check(counts.get("encode_parity") == steps + 1
+          and counts.get("scrub") == 3, f"(a) launches {counts}")
+    fresh = encode_parity_ref(loop.protected.words)
+    check(torch.equal(fresh, loop.parity),
+          "(a) parity after the last refresh != the plain encode")
+    log(f"(a) parity after the last refresh == the plain encode of the "
+        f"{loop.protected.words.numel()}-word arena, bit for bit")
+    del fresh
+    (hook,) = loop.eval_history
+    want, _ = engine.generate(loop.state["params"], prompt)
+    check(hook["step"] == steps and torch.equal(hook["tokens"], want),
+          "(a) the eval hook's tokens != GenerationEngine.generate")
+    log(f"(a) eval hook at step {steps}: {tuple(want.shape)} tokens == "
+        f"GenerationEngine.generate on the post-scrub params")
+    del want, hook, engine
+    check_descent(torch, cfg, loop, steps - 1)
+    return counts
+
+
+#: (a)'s descent check: step lengths along the unit gradient, in L2
+#: distance over all params; the first is gated
+DESCENT_STEPS = (1e-5, 1e-4, 1e-3)
+
+
+def check_descent(torch, cfg, loop, step):
+    """At the final params, one backward of step `step`'s batch: a short
+    step against the gradient (DESCENT_STEPS[0] along its unit vector)
+    must lower that batch's loss; the longer steps are printed.  The
+    shifted params are built in the grad buffers, so the loop's params
+    are not touched."""
+    from repro_torch.core import tree
+    from repro_torch.models.steps import _grad_leaves, make_loss_fn
+    from repro_torch.optim import global_norm
+
+    loss_fn, batch = make_loss_fn(cfg), loop.batch_at(step)
+    params = loop.state["params"]
+    grads = tree.map_tree(torch.zeros_like, params)
+    total, _ = loss_fn(_grad_leaves(params, grads), batch)
+    total.backward()
+    base, norm = float(total.detach()), float(global_norm(grads))
+    shifted, prev = [], None
+    for eta in DESCENT_STEPS:
+        for p, g in zip(tree.leaves(params), tree.leaves(grads)):
+            if prev is None:            # g := p - eta * g / |g|
+                g.mul_(-eta / norm).add_(p)
+            else:                       # rescale the step to eta
+                g.sub_(p).mul_(eta / prev).add_(p)
+        prev = eta
+        with torch.no_grad():
+            shifted.append(float(loss_fn(grads, batch)[0]))
+    log(f"(a) descent on step {step + 1}'s batch at the final params: loss "
+        f"{base:.6f}, grad norm {norm:.4g}; after steps of "
+        f"{', '.join(f'{e:g}' for e in DESCENT_STEPS)} against the unit "
+        f"gradient {', '.join(f'{l:.6f}' for l in shifted)}")
+    check(shifted[0] < base, f"(a) a step of {DESCENT_STEPS[0]:g} against "
+          f"the gradient raised the loss: {base} -> {shifted[0]}")
+
+
+def train_compose(torch, card, dev):
+    """(b) ecc+tmr-parallel at depth 16, 8 steps, the adaptive scrub from
+    the injection prior (p 1e-9 into all three copies)."""
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train
+
+    steps = 8
+    args = train_args(dev, "--steps", str(steps), "--inject-p-bit",
+                      str(P10_P_BIT), "--scheme", "ecc+tmr-parallel")
+    cfg = get_config("phi3-mini-3.8b").replace(
+        n_layers=P10_DEPTH["ecc+tmr-parallel"])
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    cfg, loop, n_params = train.build(args, cfg=cfg)
+    loop.cfg.adaptive_scrub = True
+    loop.attach_scheme()
+    bits = leaf_bits(loop.state["params"])
+    copies_equal = []
+    refresh = loop._refresh
+
+    def checked_refresh():
+        refresh()
+        w = loop.protected.words
+        copies_equal.append(torch.equal(w[1], w[0])
+                            and torch.equal(w[2], w[0]))
+
+    loop._refresh = checked_refresh
+    t0 = time.perf_counter()
+    out = loop.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    what = (f"(b) ecc+tmr-parallel, {cfg.n_layers} layers ({n_params} "
+            f"params, three copies)")
+    log(f"{what}: {steps} steps in {wall:.1f} s, launches {counts}")
+    train_run_stats(torch, loop, args, card, what, peak)
+    check_losses(loop, what)
+    ctl = loop.adaptive
+    scrubbed = [s for s, _ in loop.scrub_reports]
+    log(f"(b) controller: interval0 {ctl.cfg.interval0}, history "
+        f"{ctl.history}, scrubs at steps {scrubbed}")
+    due, expect = ctl.cfg.interval0, []
+    for index, _, interval in ctl.history:
+        expect.append(due)
+        due = index + interval
+    check(scrubbed == [i for i, _, _ in ctl.history] == expect
+          and scrubbed, f"(b) scrubs {scrubbed} off the schedule {expect}")
+    check_scrub_counts(loop, 3 * bits, "(b)")
+    mon = out["monitor"]
+    check(mon["vote_disagreements"] == 0 and mon["uncorrectable"] == 0,
+          f"(b) monitor {mon}")
+    check(len(copies_equal) == steps and all(copies_equal),
+          f"(b) copies after the refreshes: {copies_equal}")
+    # the kernels at this run's shapes (after its counts were read): the
+    # encode of copy 0, the vote over the three 16-layer copies and their
+    # per-copy-table scrub
+    w, parity3 = loop.protected.words, loop.protected.redundancy[1]
+    vote = loop.scheme.tmr._vote()
+    n = w.shape[1]
+    check(n == p10_words(cfg.n_layers), f"(b) arena {tuple(w.shape)}")
+    log_train_shape(torch, "encode_parity", f"{n} words (copy 0)",
+                    lambda: loop.scheme.ecc.encode_arena(w[0]),
+                    4 * n + parity3[0].numel() * 4)
+    log_train_shape(torch, "tmr_vote", f"3 x {n} words",
+                    lambda: vote(w[0], w[1], w[2]), 16 * n)
+    log_train_shape(torch, "scrub", f"3 x {n} words, per-copy tables",
+                    lambda: loop.scheme.ecc.scrub_copies(w, parity3),
+                    3 * 4 * n + 2 * parity3.numel() * 4)
+    return counts
+
+
+def log_train_shape(torch, name, shape, fn, n_bytes):
+    """Time a kernel at a training run's shape (CUDA events, after a
+    warmup) beside its byte bound; on a clean store, so scrubs write
+    nothing but their counts."""
+    ms = time_ms(torch, fn, reps=3)
+    bound, _ = bound_ms(n_bytes)
+    log(f"training shape: {name} over {shape}: {ms:.3f} ms, byte bound "
+        f"{bound:.3f} ms ({100 * bound / ms:.0f}%)")
+
+
+def train_hsiao(torch, card, dev):
+    """(c) hsiao with microbatches 2 and the int8 compression at depth 2:
+    checkpoints every 2 steps, preempted at step 3, restored in a fresh
+    loop, a planted double error after the step-4 checkpoint."""
+    import shutil
+    from repro_torch import kernels
+    from repro_torch.checkpoint import Checkpointer
+    from repro_torch.configs import get_config
+    from repro_torch.core import tree
+    from repro_torch.launch import train
+
+    import gc
+    ckpt_dir = ROOT / "build" / "phase10_ckpt"
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    cfg = get_config("phi3-mini-3.8b").replace(n_layers=P10_DEPTH["hsiao"])
+    common = ("--steps", "6", "--scheme", "hsiao", "--microbatches", "2",
+              "--grad-compression")
+    args = train_args(dev, *common, "--ecc-scrub-every", "1", "--ckpt-dir",
+                      str(ckpt_dir), "--checkpoint-every", "2")
+    saved, logs = {}, []
+
+    def host(loop):
+        """The state, parity and step as host tensors (what a save
+        holds)."""
+        snap = {"state": loop.state, "parity": loop.parity}
+        return tree.map_tree(lambda x: x.detach().to("cpu", copy=True),
+                             snap)
+
+    def watch(loop):
+        save, restore = loop.save, loop.restore
+
+        def watched_save():
+            saved[loop.step] = host(loop)
+            save()
+
+        def watched_restore():
+            ok = restore()
+            want = saved[loop.step]
+            got = host(loop)
+            same = all(a.dtype == b.dtype and a.shape == b.shape
+                       and torch.equal(a.reshape(-1).view(torch.uint8),
+                                       b.reshape(-1).view(torch.uint8))
+                       for a, b in zip(tree.leaves(got), tree.leaves(want)))
+            check(tree.paths(got) == tree.paths(want) and same,
+                  f"(c) the state restored at step {loop.step} != saved")
+            log(f"(c) restored step {loop.step}: params, m, v, count, err "
+                f"and parity equal the saved state bit for bit")
+            return ok
+
+        loop.save, loop.restore = watched_save, watched_restore
+        loop.log = lambda msg: (logs.append(msg), log(f"(c) {msg}"))
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    cfg, loop, n_params = train.build(args, cfg=cfg)
+    watch(loop)
+    try:
+        loop.run(fail_at=3)
+        check(False, "(c) the run was not preempted")
+    except RuntimeError as e:
+        log(f"(c) {e}")
+    loop.ckpt.wait()          # the step-2 snapshot's async write
+    del loop
+    gc.collect()              # its watched hooks close over it
+    torch.cuda.empty_cache()
+    # a fresh process: no scheme attached until the restore re-arms it
+    fresh = train_args(dev, *common, "--ecc-scrub-every", "0")
+    cfg, loop, _ = train.build(fresh, cfg=cfg)
+    loop.ckpt = Checkpointer(str(ckpt_dir), keep=2)
+    loop.cfg.checkpoint_every, loop.cfg.scrub_every = 2, 1
+    watch(loop)
+    check(loop.protected is None, "(c) the fresh loop is armed already")
+    check(loop.restore() and loop.step == 2, "(c) restore from step 2")
+    check(loop.scheme is not None and loop.scheme.name == "hsiao"
+          and loop.protected is not None, "(c) the scheme is not re-armed")
+    fired = []
+
+    def plant(params, step):
+        # two flips in one word (so in one 32-word block) after the step-4
+        # checkpoint: Hsiao detects the double and cannot correct it
+        if step == 5 and not fired:
+            fired.append(step)
+            u = params["layers"]["mlp"]["w_up"].view(torch.int32).view(-1)
+            u[12345] ^= (1 << 3) | (1 << 17)
+        return params
+
+    loop.inject_fn = plant
+    out = loop.run()
+    wall = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    what = f"(c) hsiao, {cfg.n_layers} layers ({n_params} params)"
+    log(f"{what}: preempted, restored and resumed in {wall:.1f} s "
+        f"(checkpoint writes and reads included), launches {counts}")
+    train_run_stats(torch, loop, args, card, what, peak)
+    check(fired == [5] and any("uncorrectable" in l for l in logs)
+          and any("resumed from step 4" in l for l in logs)
+          and out["monitor"]["uncorrectable"] == 1,
+          f"(c) the planted double: fired {fired}, monitor {out['monitor']}")
+    check(out["final_step"] == 6 and all(
+        bool(torch.isfinite(x).all()) for x in tree.leaves(
+            loop.state["params"])), f"(c) final {out['final_step']}")
+    resumed = check_losses(loop, what)[-1]
+    words, parity = loop.protected.words, loop.parity
+    n = words.numel()
+    check(n == p10_words(cfg.n_layers), f"(c) arena {n} words")
+    log_train_shape(torch, "encode_hsiao", f"{n} words",
+                    lambda: loop.scheme.encode_arena(words),
+                    4 * n + parity.numel() * 4)
+    log_train_shape(torch, "scrub_hsiao", f"{n} words",
+                    lambda: loop.scheme.scrub_arena(words, parity),
+                    4 * n + parity.numel() * 4)
+    del loop, words, parity
+    gc.collect()
+    torch.cuda.empty_cache()
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    # the same six steps, uninterrupted
+    cfg, plain, _ = train.build(train_args(dev, *common, "--ecc-scrub-every",
+                                           "1"), cfg=cfg)
+    plain.run()
+    whole = check_losses(plain, "(c) uninterrupted")[-1]
+    # the path is deterministic (the same batches, seeds and launches), so
+    # a restore that lost any state shows as a different loss
+    log(f"(c) step-6 loss: resumed {resumed!r}, uninterrupted {whole!r}")
+    check(resumed == whole, f"(c) step-6 loss {resumed!r} != {whole!r}")
+    return counts
+
+
+def check_small_training(torch, dev):
+    """One smoke-width train step under ecc (scrubbed after the step) on
+    the card and on the CPU's plain path from the same params (std 0.02)
+    and batch:
+    loss and grad norm within 1e-5 and 1e-4, the params within 1e-5 of
+    each leaf's largest value but for elements whose grads are within
+    rounding of zero (Adam's first step moves an element by about lr
+    whatever its grad: at most 1e-3 of them, by at most 2.5 lr), and the
+    card's parity equal to the plain encode of the card's params, bit for
+    bit."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import arena, tree
+    from repro_torch.data import SyntheticLM
+    from repro_torch.kernels.diag_parity.ref import encode_parity_ref
+    from repro_torch.models import params as P
+    from repro_torch.models import transformer as TR
+    from repro_torch.models.steps import init_train_state, make_train_step
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.reliability import parse_scheme
+    from repro_torch.runtime import LoopConfig, TrainLoop
+
+    cfg = get_config("phi3-mini-3.8b").smoke().replace(
+        compute_dtype="float32")
+    # weights at std 0.02: the fan-in init of the stacked layers (std
+    # 1/sqrt(2) here) makes the model amplify rounding, so that two
+    # devices' grads would differ by 1e-4 (ROADMAP C, training)
+    gen = torch.Generator().manual_seed(SEED)
+    host = P.materialize(TR.model_specs(cfg), gen)
+    for x in tree.leaves(host):
+        if bool(x.any()):
+            x.normal_(0.0, 0.02, generator=gen)
+    data = SyntheticLM(vocab=cfg.vocab, seq_len=64, batch_per_rank=4)
+    opt = AdamWConfig(total_steps=1, warmup_steps=5)
+    out = []
+    for device in (dev, torch.device("cpu")):
+        words, spec = arena.words_of(host)
+        params = arena.unpack(words.clone().to(device), spec)
+        step = make_train_step(cfg, opt)
+        metrics = {}
+
+        def train_step(state, batch, step=step, metrics=metrics):
+            state, m = step(state, batch)
+            metrics.update(m)
+            return state, m
+
+        loop = TrainLoop(train_step, init_train_state(params),
+                         lambda s, device=device: {"tokens": torch.from_numpy(
+                             data.batch_at(s)).to(device)},
+                         LoopConfig(total_steps=1, checkpoint_every=0,
+                                    scrub_every=1, log_every=1,
+                                    scheme=parse_scheme("ecc")),
+                         log=lambda *_: None)
+        loop.attach_scheme()
+        loop.run()
+        out.append((loop, {k: float(v) for k, v in metrics.items()}))
+    (card, mk), (cpu, mp) = out
+    check(all(int(v) == 0 for v in card.scrub_reports[0][1]),
+          f"small training: scrub {card.scrub_reports[0][1]}")
+    check(abs(mk["loss"] - mp["loss"]) <= 1e-5 * abs(mp["loss"])
+          and abs(mk["grad_norm"] - mp["grad_norm"])
+          <= 1e-4 * mp["grad_norm"], f"small training: {mk} vs {mp}")
+    n_off = n_all = 0
+    worst = 0.0
+    for a, b in zip(tree.leaves(card.state["params"]),
+                    tree.leaves(cpu.state["params"])):
+        a = a.cpu()
+        tol = 1e-5 * float(b.abs().max())
+        n_off += int(((a - b).abs() > tol).sum())
+        n_all += b.numel()
+        worst = max(worst, float((a - b).abs().max()))
+    lr = mp["lr"]
+    check(n_off <= 1e-3 * n_all and worst <= 2.5 * lr,
+          f"small training: {n_off} of {n_all} params off, worst {worst}")
+    parity = encode_parity_ref(card.protected.words.cpu())
+    check(torch.equal(parity, card.parity.cpu()),
+          "small training: the card's parity != the plain encode")
+    log(f"small reference training step (phi3 smoke, fp32, ecc): loss "
+        f"{mk['loss']:.6f} vs {mp['loss']:.6f} on the CPU, grad norm "
+        f"{mk['grad_norm']:.6f} vs {mp['grad_norm']:.6f}, {n_off} of "
+        f"{n_all} params beyond 1e-5 of their leaf's scale (worst "
+        f"{worst:.3g}, lr {lr:.3g}), parity == the plain encode")
+
+
 def check_small_reference(torch, dev):
     from repro_torch.configs import get_config
     from repro_torch.core import tree
@@ -2054,6 +2719,7 @@ def check_small_reference(torch, dev):
     log(f"small reference (phi3 smoke, fp32, ecc+tmr-parallel): kernel path "
         f"== plain path, tokens and counters {sk}; logits max abs err "
         f"{err:.3g}")
+    check_small_training(torch, dev)
 
 
 if __name__ == "__main__":

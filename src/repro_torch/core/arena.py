@@ -28,7 +28,7 @@ from . import tree as T
 
 __all__ = ["BLOCK", "LeafSpec", "ArenaSpec", "arena_spec", "words_for",
            "leaf_to_words", "words_to_leaf", "pack", "unpack", "words_of",
-           "torch_dtype"]
+           "backing", "torch_dtype"]
 
 BLOCK = 32  # words per ECC block == bits per word
 
@@ -143,8 +143,11 @@ def unpack(words: torch.Tensor, spec: ArenaSpec) -> Any:
     return T.unflatten(spec.paths, views)
 
 
-def _backing(tree: Any, copies: int) -> Optional[Tuple[torch.Tensor,
-                                                       ArenaSpec]]:
+def backing(tree: Any, copies: int = 0) -> Optional[Tuple[torch.Tensor,
+                                                          ArenaSpec]]:
+    """The arena behind a tree of arena views, laid out as `arena_spec`
+    places them ((words, spec), no copy), or None when there is none;
+    `copies` as in `words_of`."""
     xs = T.leaves(tree)
     if not xs or not all(isinstance(x, torch.Tensor) for x in xs):
         return None
@@ -184,7 +187,7 @@ def words_of(tree: Any, copies: int = 0) -> Tuple[torch.Tensor, ArenaSpec]:
     not laid out over one arena exactly as `arena_spec` places it is
     packed into a fresh arena instead (a copy, as the reference's `pack`).
     """
-    found = _backing(tree, copies)
+    found = backing(tree, copies)
     if found is not None:
         return found
     if copies:

@@ -51,7 +51,7 @@ from ..models.steps import make_decode_step, make_prefill_step
 from ..obs import NULL_TRACER, LatencyTimeline, Tracer, fetch_telemetry
 from ..reliability.scheme import ArenaEcc, Compose, Scheme, Tmr, Unprotected
 
-__all__ = ["GenerationEngine", "fetch_telemetry"]
+__all__ = ["GenerationEngine", "fetch_telemetry", "make_eval_hook"]
 
 
 def _copy(stacked: Any, i: int) -> Any:
@@ -464,3 +464,21 @@ class GenerationEngine:
                 return prefill(store, batch)[0]
             toks = [prefill(_copy(store, i), batch)[0] for i in range(3)]
             return self._tmr()._vote()(*toks)
+
+
+def make_eval_hook(engine: GenerationEngine, batch: Dict[str, torch.Tensor]):
+    """A `TrainLoop` eval hook: greedy generation from the current params.
+
+    The loop's scheme has already scrubbed (and voted) the store before the
+    hook fires, so the hook runs the engine's single-copy path on the plain
+    params, whatever the engine's scheme; its tokens stay on the device
+    (the loop keeps them in `eval_history`; fetch after training)."""
+    def eval_fn(params: Any, step: int) -> Dict[str, Any]:
+        b = engine._batch(batch)
+        prefill, decode = engine._steps(b["tokens"].shape[1])
+        with torch.no_grad():
+            parts = engine._single(params, b, prefill, decode,
+                                   engine._sizes(None))
+        return {"step": step, "tokens": torch.cat(parts, dim=1)}
+
+    return eval_fn

@@ -1,8 +1,11 @@
 """Attention for the dense family (port of `repro.models.attention`):
 GQA self-attention with RoPE -- full-matrix (`naive_attention`), blocked
-online-softmax (`blocked_attention`, forward only) and the hand-written
-CUDA flash kernel (``attention_impl="pallas"``, the reference's name) --
-plus single-token decode against a KV cache."""
+online-softmax (`blocked_attention`) and the hand-written
+CUDA flash kernel (``attention_impl="pallas"``, the reference's name, forward
+only as the reference's Pallas kernel is) -- plus single-token decode
+against a KV cache.  `blocked_attention` carries the reference's recompute
+backward as a `torch.autograd.Function`, in plain PyTorch as the
+reference's is in `jnp`."""
 from __future__ import annotations
 
 import torch
@@ -50,16 +53,23 @@ def _fit(block: int, S: int) -> int:
     return max(block, 1)
 
 
-def blocked_attention(q, k, v, *, causal=True, window=0, q_offset=0,
-                      q_block=512, kv_block=1024):
-    """Online-softmax blocked attention (forward).  Block pairs with no
-    unmasked entry are skipped, so causal work stays ~triangular."""
+def _skip(q_start: int, k_start: int, qb: int, kb: int, causal: bool,
+          window: int) -> bool:
+    """Does the (q, kv) block pair have no unmasked entry?"""
+    if causal and not k_start < q_start + qb:
+        return True
+    return bool(window) and not k_start + kb > q_start - window + 1
+
+
+def _blocked_fwd(q, k, v, causal, window, q_offset, qb, kb):
+    """Online-softmax forward: out (B,Sq,H,hd) in q's dtype and the fp32
+    log-sum-exp (B,KV,G,Sq) the backward recomputes p from."""
     B, Sq, H, hd = q.shape
     Sk, KV = k.shape[1], k.shape[2]
     G = H // KV
-    qb, kb = _fit(q_block, Sq), _fit(kv_block, Sk)
     scale = 1.0 / hd ** 0.5
     out = torch.empty_like(q)
+    lse = torch.empty((B, KV, G, Sq), device=q.device)
     for q0 in range(0, Sq, qb):
         qi = q[:, q0:q0 + qb].float().reshape(B, qb, KV, G, hd) * scale
         q_start = q_offset + q0
@@ -67,9 +77,7 @@ def blocked_attention(q, k, v, *, causal=True, window=0, q_offset=0,
         l = torch.zeros((B, KV, G, qb), device=q.device)
         acc = torch.zeros((B, KV, G, qb, hd), device=q.device)
         for k0 in range(0, Sk, kb):
-            if causal and not k0 < q_start + qb:
-                continue
-            if window and not k0 + kb > q_start - window + 1:
+            if _skip(q_start, k0, qb, kb, causal, window):
                 continue
             ki, vi = k[:, k0:k0 + kb].float(), v[:, k0:k0 + kb].float()
             s = torch.einsum("bqkgd,bskd->bkgqs", qi, ki)
@@ -82,10 +90,80 @@ def blocked_attention(q, k, v, *, causal=True, window=0, q_offset=0,
             acc = acc * corr[..., None] + torch.einsum("bkgqs,bskd->bkgqd",
                                                        p, vi)
             m = m_new
-        o = acc / torch.clamp(l, min=1e-30)[..., None]      # (B,KV,G,qb,hd)
+        l = torch.clamp(l, min=1e-30)
+        o = acc / l[..., None]                              # (B,KV,G,qb,hd)
         out[:, q0:q0 + qb] = o.permute(0, 3, 1, 2, 4).reshape(
             B, qb, H, hd).to(q.dtype)
-    return out
+        lse[..., q0:q0 + qb] = m + torch.log(l)
+    return out, lse
+
+
+def _blocked_bwd(q, k, v, out, lse, dout, causal, window, q_offset, qb, kb):
+    """Flash-style backward: p recomputed per block pair from (q, k, lse);
+    the (Sq, Sk) probabilities are never stored."""
+    B, Sq, H, hd = q.shape
+    Sk, KV = k.shape[1], k.shape[2]
+    G = H // KV
+    scale = 1.0 / hd ** 0.5
+    # delta[b, kv, g, s] = sum_d dout * out
+    delta = (dout.float() * out.float()).sum(-1)                # (B,Sq,H)
+    delta = delta.reshape(B, Sq, KV, G).permute(0, 2, 3, 1)
+    dq = torch.empty((B, Sq, H, hd), device=q.device)
+    dk = torch.zeros((B, Sk, KV, hd), device=q.device)
+    dv = torch.zeros((B, Sk, KV, hd), device=q.device)
+    for q0 in range(0, Sq, qb):
+        qi = q[:, q0:q0 + qb].float().reshape(B, qb, KV, G, hd) * scale
+        doi = dout[:, q0:q0 + qb].float().reshape(B, qb, KV, G, hd)
+        lse_i = lse[..., q0:q0 + qb, None]
+        delta_i = delta[..., q0:q0 + qb, None]
+        q_start = q_offset + q0
+        dq_b = torch.zeros((B, qb, KV, G, hd), device=q.device)
+        for k0 in range(0, Sk, kb):
+            if _skip(q_start, k0, qb, kb, causal, window):
+                continue
+            ki, vi = k[:, k0:k0 + kb].float(), v[:, k0:k0 + kb].float()
+            s = torch.einsum("bqkgd,bskd->bkgqs", qi, ki)
+            s = torch.where(_mask(q_start, k0, qb, kb, causal, window,
+                                  q.device), s, NEG_INF)
+            p = torch.exp(s - lse_i)                        # (B,KV,G,qb,kb)
+            dv[:, k0:k0 + kb] += torch.einsum("bkgqs,bqkgd->bskd", p, doi)
+            dp = torch.einsum("bqkgd,bskd->bkgqs", doi, vi)
+            ds = p * (dp - delta_i)
+            dq_b += torch.einsum("bkgqs,bskd->bqkgd", ds, ki) * scale
+            dk[:, k0:k0 + kb] += torch.einsum("bkgqs,bqkgd->bskd", ds, qi)
+        dq[:, q0:q0 + qb] = dq_b.reshape(B, qb, H, hd)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+class _BlockedAttention(torch.autograd.Function):
+    """`blocked_attention` with the recompute backward (the reference's
+    `blocked_attention_core` and its custom VJP): the forward saves q, k,
+    v, the output and the log-sum-exp."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, q_offset, qb, kb):
+        out, lse = _blocked_fwd(q, k, v, causal, window, q_offset, qb, kb)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.blocks = (causal, window, q_offset, qb, kb)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = _blocked_bwd(q, k, v, out, lse, dout, *ctx.blocks)
+        return dq, dk, dv, None, None, None, None, None
+
+
+def blocked_attention(q, k, v, *, causal=True, window=0, q_offset=0,
+                      q_block=512, kv_block=1024):
+    """Online-softmax blocked attention with a recompute backward.  Block
+    pairs with no unmasked entry are skipped in both directions, so causal
+    work stays ~triangular."""
+    qb, kb = _fit(q_block, q.shape[1]), _fit(kv_block, k.shape[1])
+    if not torch.is_grad_enabled() or not (
+            q.requires_grad or k.requires_grad or v.requires_grad):
+        return _blocked_fwd(q, k, v, causal, window, q_offset, qb, kb)[0]
+    return _BlockedAttention.apply(q, k, v, causal, window, q_offset, qb, kb)
 
 
 def attention(q, k, v, cfg: ModelConfig, *, causal=True, window=0,

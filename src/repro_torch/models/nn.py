@@ -1,5 +1,6 @@
 """Neural-net pieces of the dense family (port of `repro.models.nn`):
-RMSNorm, RoPE, the SwiGLU MLP and the embedding specs."""
+RMSNorm, RoPE, the SwiGLU MLP, the embedding specs and the cross
+entropy."""
 from __future__ import annotations
 
 from typing import Optional
@@ -10,7 +11,8 @@ import torch.nn.functional as F
 from .config import ModelConfig
 from .params import Spec
 
-__all__ = ["rms_norm", "rope", "mlp_specs", "mlp_apply", "embed_specs"]
+__all__ = ["rms_norm", "rope", "mlp_specs", "mlp_apply", "embed_specs",
+           "softmax_xent"]
 
 
 def rms_norm(x: torch.Tensor, scale: torch.Tensor,
@@ -63,3 +65,16 @@ def embed_specs(cfg: ModelConfig) -> dict:
     if not cfg.tie_embeddings:
         specs["head"] = Spec((cfg.d_model, v), ("model_dim", "vocab"))
     return specs
+
+
+def softmax_xent(logits: torch.Tensor, labels: torch.Tensor,
+                 mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Mean next-token cross entropy over logits (..., V) in fp32; with a
+    mask, the masked mean."""
+    logits = logits.float()
+    lse = torch.logsumexp(logits, dim=-1)
+    ll = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    nll = lse - ll
+    if mask is not None:
+        return (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+    return nll.mean()

@@ -1,5 +1,7 @@
 """Declarative parameter specs, materialized into an arena (port of
-`repro.models.params`: `Spec` and `materialize`, plus `from_numpy`).
+`repro.models.params`: `Spec` and `materialize`, plus `from_numpy` and
+`train_state_from_reference`, which carry the JAX package's parameters and
+training state across as numpy trees).
 
 Parameters are a dict tree with the reference's keys and shapes (stacked
 ``(n_layers, ...)`` layer leaves included) whose leaves are views of one
@@ -17,7 +19,8 @@ import torch
 from ..core import arena
 from ..core import tree as T
 
-__all__ = ["Spec", "layout", "materialize", "from_numpy"]
+__all__ = ["Spec", "layout", "materialize", "from_numpy",
+           "train_state_from_reference"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -76,17 +79,39 @@ def materialize(tree: Any, generator: torch.Generator,
     return params
 
 
+def _tensor(a, device) -> torch.Tensor:
+    a = np.asarray(a)
+    if arena.torch_dtype(a.dtype) == torch.bfloat16:
+        t = torch.from_numpy(a.view(np.int16).copy()).view(torch.bfloat16)
+    else:
+        t = torch.from_numpy(a.copy())
+    return t.to(device)
+
+
 def from_numpy(tree: Any, device="cpu") -> Any:
     """The port's parameters for a tree of numpy arrays (e.g. the JAX
     package's parameters through ``jax.tree.map(np.asarray, params)``),
     copied bit for bit into a fresh arena on `device`."""
-    def leaf(a):
-        a = np.asarray(a)
-        dt = arena.torch_dtype(a.dtype)
-        if dt == torch.bfloat16:   # numpy has no bf16: move the raw bits
-            return torch.from_numpy(a.view(np.int16).copy()).view(
-                torch.bfloat16)
-        return torch.from_numpy(a.copy())
-    words, spec = arena.pack(T.map_tree(leaf, tree))
+    # numpy has no bf16: such leaves move as their raw bits
+    words, spec = arena.pack(T.map_tree(lambda a: _tensor(a, "cpu"), tree))
     return arena.unpack(words.to(device), spec)
+
+
+def train_state_from_reference(state: Any, device="cpu") -> dict:
+    """The port's training state for the reference's ``{params, opt: {m,
+    v, count}, [err]}`` as a tree of numpy arrays (``jax.tree.map(
+    np.asarray, state)``): the params in a fresh arena (`from_numpy`), the
+    moments and the error state as tensors, the count a 0-d int32, all on
+    `device` and bit for bit."""
+    out = {"params": from_numpy(state["params"], device),
+           "opt": {"m": T.map_tree(lambda a: _tensor(a, device),
+                                   state["opt"]["m"]),
+                   "v": T.map_tree(lambda a: _tensor(a, device),
+                                   state["opt"]["v"]),
+                   "count": torch.tensor(int(np.asarray(
+                       state["opt"]["count"])), dtype=torch.int32,
+                       device=device)}}
+    if "err" in state:
+        out["err"] = T.map_tree(lambda a: _tensor(a, device), state["err"])
+    return out
 

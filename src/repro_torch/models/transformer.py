@@ -1,7 +1,11 @@
 """The dense transformer (port of the dense family of
-`repro.models.transformer`): `model_specs`, `cache_specs`, `prefill` and
-`decode_step`.  The reference's `lax.scan` over stacked layers becomes a
-Python loop over per-layer views of the stacked leaves.
+`repro.models.transformer`): `model_specs`, `forward`, `cache_specs`,
+`prefill` and `decode_step`.  The reference's `lax.scan` over stacked
+layers becomes a Python loop over per-layer views of the stacked leaves;
+``params["layers"]`` may also be a list of per-layer trees (the training
+step's per-layer leaves, `steps.make_train_step`).  `forward` remats every
+layer as the reference's `_scan_layers` does
+(`torch.utils.checkpoint`, non-reentrant).
 
 Logits are not produced here; `steps.py` applies the head."""
 from __future__ import annotations
@@ -9,6 +13,7 @@ from __future__ import annotations
 from typing import Any, Dict, Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..core import tree as T
 from .attention import attn_specs, decode_self_attention, self_attention
@@ -16,7 +21,7 @@ from .config import ModelConfig
 from .nn import embed_specs, mlp_apply, mlp_specs, rms_norm
 from .params import Spec
 
-__all__ = ["model_specs", "cache_specs", "prefill", "decode_step",
+__all__ = ["model_specs", "forward", "cache_specs", "prefill", "decode_step",
            "stack_specs"]
 
 
@@ -54,6 +59,8 @@ def cache_specs(cfg: ModelConfig, batch: int, cache_len: int) -> dict:
 
 
 def _layer(stacked: Any, i: int) -> Any:
+    if isinstance(stacked, (list, tuple)):
+        return stacked[i]
     return T.map_tree(lambda w: w[i], stacked)
 
 
@@ -66,6 +73,27 @@ def _embed(params, cfg: ModelConfig, tokens: torch.Tensor) -> torch.Tensor:
 def _mlp_res(cfg: ModelConfig, x, wl):
     return x + mlp_apply(wl["mlp"], cfg, rms_norm(x, wl["mlp"]["ln"],
                                                   cfg.norm_eps))
+
+
+def _dense_body(cfg: ModelConfig, x, wl):
+    a, _ = self_attention(wl["attn"], cfg, x)
+    return _mlp_res(cfg, x + a, wl)
+
+
+def forward(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor]):
+    """Full-sequence forward to the final hidden states: (hidden (B,S,D),
+    aux loss (0-d fp32, zero for the dense family)).  With grad enabled
+    each layer is rematerialized in the backward, so only the layer inputs
+    stay resident."""
+    _dense_only(cfg)
+    x = _embed(params, cfg, batch["tokens"])
+    remat = torch.is_grad_enabled()
+    for i in range(cfg.n_layers):
+        wl = _layer(params["layers"], i)
+        x = (checkpoint(_dense_body, cfg, x, wl, use_reentrant=False)
+             if remat else _dense_body(cfg, x, wl))
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    return rms_norm(x, params["final_ln"], cfg.norm_eps), aux
 
 
 def prefill(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],

@@ -2,7 +2,8 @@
 the tracer and the drift detector).
 
 * `MetricsRegistry` / `SCHEMA` -- named, schema-validated on-device
-  counters; `fetch_telemetry` is the single device->host transfer.
+  counters; `fetch_telemetry` is the single device->host transfer;
+  `ScrubMetrics` is one scrub interval's fetched record.
 * `Tracer` -- span-based tracing: Chrome-trace JSON plus a JSONL metrics
   log, no device syncs.
 * `LatencyTimeline` / `Histogram` -- TTFT/TPOT tails from host timestamps.
@@ -12,12 +13,12 @@ the tracer and the drift detector).
 from .drift import DriftDetector, DriftStatus
 from .latency import Histogram, LatencyTimeline
 from .registry import (DEFAULT_REGISTRY, SCHEMA, MetricSpec, MetricsRegistry,
-                       fetch_telemetry)
+                       ScrubMetrics, fetch_telemetry)
 from .trace import NULL_TRACER, Tracer
 
 __all__ = [
     "DEFAULT_REGISTRY", "SCHEMA", "MetricSpec", "MetricsRegistry",
-    "fetch_telemetry",
+    "fetch_telemetry", "ScrubMetrics",
     "Tracer", "NULL_TRACER",
     "Histogram", "LatencyTimeline",
     "DriftDetector", "DriftStatus",

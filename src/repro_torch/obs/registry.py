@@ -19,7 +19,7 @@ import numpy as np
 import torch
 
 __all__ = ["MetricSpec", "MetricsRegistry", "SCHEMA", "DEFAULT_REGISTRY",
-           "fetch_telemetry"]
+           "fetch_telemetry", "ScrubMetrics"]
 
 KINDS = ("counter", "series", "gauge")
 
@@ -136,6 +136,19 @@ class MetricsRegistry:
                 out[name] = out[name] + val
         return out
 
+    def from_report(self, report: Any,
+                    injected: Optional[torch.Tensor] = None
+                    ) -> Dict[str, torch.Tensor]:
+        """A `core.reliability.ScrubReport`'s device counters under the
+        schema's names; `injected` adds the inject_scrub kernel's fourth
+        counter when there is one."""
+        out = {"ecc_corrected": report.corrected,
+               "ecc_parity_fixed": report.parity_fixed,
+               "ecc_uncorrectable": report.uncorrectable}
+        if injected is not None:
+            out["ecc_injected"] = injected
+        return out
+
     # -- the single host sync -------------------------------------------------
 
     def fetch(self, telemetry: Mapping[str, Any]) -> Dict[str, np.ndarray]:
@@ -171,3 +184,28 @@ def fetch_telemetry(telemetry: Mapping[str, Any]) -> Dict[str, np.ndarray]:
     registry."""
     return DEFAULT_REGISTRY.fetch(telemetry)
 
+
+
+@dataclasses.dataclass(frozen=True)
+class ScrubMetrics:
+    """Host-side record of one scrub interval: what
+    `runtime.HeartbeatMonitor` ingests and the drift detector samples."""
+
+    corrected: int
+    parity_fixed: int = 0
+    uncorrectable: int = 0
+    injected: int = 0
+    vote_disagreements: int = 0
+
+    @classmethod
+    def from_fetched(cls, stats: Mapping[str, Any]) -> "ScrubMetrics":
+        """Build from an already-fetched telemetry dict (schema names);
+        array values (a series) are summed."""
+        def get(name):
+            return int(np.asarray(stats.get(name, 0)).sum())
+        return cls(corrected=get("ecc_corrected"),
+                   parity_fixed=get("ecc_parity_fixed"),
+                   uncorrectable=get("ecc_uncorrectable"),
+                   injected=get("ecc_injected"),
+                   vote_disagreements=get("tmr_final_disagreements")
+                   + get("tmr_step_disagreements"))

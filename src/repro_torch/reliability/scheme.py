@@ -5,6 +5,7 @@ without the mesh and the cost-model hooks).
     prot   = scheme.protect(params)           # Protected store
     prot   = scheme.corrupt_store(prot, fault, generator)
     prot, report = scheme.scrub(prot)         # verify/correct redundancy
+    prot   = scheme.refresh(prot.payload, prot)   # after an optimizer step
     params = scheme.read(prot)                # decode/vote the payload
 
 Every `Protected` owns an arena (`core.arena`): `protect` copies the
@@ -12,7 +13,9 @@ payload into a fresh one -- (n_words,) for the single-copy schemes,
 (3, n_words) for the TMR copies -- and the payload and copies are views
 of it.  Where the reference returns new stores, `corrupt_store` and
 `scrub` update that arena in place and return the same `Protected`, so a
-full-width store is never held twice.  Bits and counters match the
+full-width store is never held twice.  `refresh` after a write to the
+payload's own views re-encodes (or re-copies) that arena in place where
+the reference protects a fresh copy.  Bits and counters match the
 reference's on the same inputs.
 """
 from __future__ import annotations
@@ -106,8 +109,55 @@ class Scheme:
     def protect(self, payload: Any) -> Protected:
         raise NotImplementedError
 
+    def refresh(self, payload: Any,
+                prot: Optional[Protected] = None) -> Protected:
+        """Re-protect after the payload was rewritten (an optimizer step).
+        The bits are the reference's `protect(payload)`.  When `payload`
+        is the views of `prot`'s own arena (the payload a training loop
+        updates in place), the schemes that hold redundancy rebuild it
+        over that arena in place; otherwise this is `protect`, a fresh
+        copy."""
+        return self.protect(payload)
+
+    def _owns(self, payload: Any, prot: Optional[Protected]) -> bool:
+        """Is `payload` laid out over copy 0 of `prot`'s arena?"""
+        if prot is None:
+            return False
+        found = arena.backing(payload)
+        row = prot.words if prot.words.ndim == 1 else prot.words[0]
+        return (found is not None and found[0].data_ptr() == row.data_ptr()
+                and found[1] == prot.spec)
+
     def scrub(self, prot: Protected) -> Tuple[Protected, ScrubReport]:
         raise NotImplementedError
+
+    def vote_share(self, report: ScrubReport):
+        """The copy-vote share of a scrub report: None for schemes that do
+        not vote, else an int32 device counter (fetch it with the rest)."""
+        return None
+
+    def scrub_into(self, prot: Protected, metrics, registry=None
+                   ) -> Tuple[Protected, dict]:
+        """Scrub and fold the report into a metrics-registry accumulator
+        dict (`obs.MetricsRegistry` names, device-side adds), so counters
+        stay on the device between scrubs::
+
+            metrics = DEFAULT_REGISTRY.zeros(["ecc_corrected", ...], dev)
+            prot, metrics = scheme.scrub_into(prot, metrics)
+            stats = fetch_telemetry(metrics)     # one transfer at the end
+        """
+        from ..obs import DEFAULT_REGISTRY
+        registry = registry if registry is not None else DEFAULT_REGISTRY
+        fixed, report = self.scrub(prot)
+        updates = registry.from_report(report)
+        vd = self.vote_share(report)
+        if vd is not None:
+            updates["tmr_final_disagreements"] = vd
+        return fixed, registry.accumulate(metrics, updates)
+
+    #: does the redundancy belong in a checkpoint?  True for compact parity
+    #: tables; False when it is full copies (rebuilt on restore).
+    checkpoint_redundancy: bool = False
 
     def adopt(self, payload: Any, redundancy: Any) -> Protected:
         """Rebuild a Protected from a stored payload and redundancy (a
@@ -200,6 +250,17 @@ class ArenaEcc(Scheme):
         words, spec = arena.pack(payload)
         return Protected(arena.unpack(words, spec), self._encode(words), self,
                          words, spec)
+
+    def refresh(self, payload: Any,
+                prot: Optional[Protected] = None) -> Protected:
+        """A fresh parity table of `prot`'s arena when `payload` is its
+        views (one encode launch, no copy of the words), else `protect`."""
+        if not self._owns(payload, prot):
+            return self.protect(payload)
+        return Protected(payload, self._encode(prot.words), self,
+                         prot.words, prot.spec)
+
+    checkpoint_redundancy = True
 
     def scrub(self, prot: Protected) -> Tuple[Protected, ScrubReport]:
         _, _, counts = self._scrub(prot.words, prot.redundancy)
@@ -367,9 +428,22 @@ class Tmr(Scheme):
                           arena.unpack(words3[2], spec)),
                          self, words3, spec)
 
+    def refresh(self, payload: Any,
+                prot: Optional[Protected] = None) -> Protected:
+        """Copies 1 and 2 := copy 0 of `prot`'s arena, in place, when
+        `payload` is copy 0's views; else `protect`."""
+        if not self._owns(payload, prot):
+            return self.protect(payload)
+        prot.words[1:].copy_(prot.words[0].expand_as(prot.words[1:]))
+        return prot
+
     def read(self, prot: Protected) -> Any:
         w = prot.words
         return arena.unpack(self._vote()(w[0], w[1], w[2]), prot.spec)
+
+    def vote_share(self, report: ScrubReport):
+        # every TMR repair and every conflict is a copy disagreement
+        return report.corrected + report.uncorrectable
 
     def scrub(self, prot: Protected) -> Tuple[Protected, ScrubReport]:
         c1, c2 = prot.redundancy
@@ -448,9 +522,27 @@ class Compose(Scheme):
                            arena.unpack(words3[2], spec)), parity3),
                          self, words3, spec)
 
+    def refresh(self, payload: Any,
+                prot: Optional[Protected] = None) -> Protected:
+        """Copies 1 and 2 := copy 0 and every copy's parity := copy 0's
+        encode (one launch), in place, when `payload` is copy 0's views of
+        `prot`'s arena; else `protect`."""
+        if not self._owns(payload, prot):
+            return self.protect(payload)
+        w = prot.words
+        w[1:].copy_(w[0].expand_as(w[1:]))
+        prot.redundancy[1][:] = self.ecc._encode(w[0])
+        return prot
+
     def read(self, prot: Protected) -> Any:
         w = prot.words
         return arena.unpack(self.tmr._vote()(w[0], w[1], w[2]), prot.spec)
+
+    def vote_share(self, report: ScrubReport):
+        # only the post-ECC three-way conflicts are separable from the
+        # merged report (repaired pairwise disagreements are folded into
+        # `corrected` with the per-copy ECC counts)
+        return report.uncorrectable
 
     def scrub(self, prot: Protected) -> Tuple[Protected, ScrubReport]:
         w, parity3 = prot.words, prot.redundancy[1]

@@ -95,10 +95,14 @@ class AdaptiveScrub:
     """
 
     def __init__(self, cfg: AdaptiveScrubConfig = AdaptiveScrubConfig(),
-                 detector=None):
+                 detector=None, feed_detector: bool = True):
         self.cfg = cfg
-        #: optional obs.DriftDetector; `record` feeds it every scrub
-        self.detector = detector
+        self.detector = detector        # optional obs.DriftDetector
+        #: does `record` ingest counts into the detector?  Set False when
+        #: another consumer (`HeartbeatMonitor.record_scrub`) already feeds
+        #: the same detector instance, or every scrub would count twice in
+        #: its window
+        self.feed_detector = feed_detector
         self.interval = cfg.interval0
         self._next = cfg.interval0
         self._quiet = 0
@@ -110,6 +114,7 @@ class AdaptiveScrub:
     @classmethod
     def from_prior(cls, p_bit: float, n_blocks: int, *,
                    target_events: float = 2.0, detector=None,
+                   feed_detector: bool = True,
                    **cfg_kw) -> "AdaptiveScrub":
         """Seed interval0 from the closed-form fault model: pick the
         interval whose expected events/scrub sits mid-band
@@ -122,11 +127,12 @@ class AdaptiveScrub:
                      min(cfg.max_interval,
                          int(round(target_events / per_step)) or 1))
             cfg = dataclasses.replace(cfg, interval0=i0)
-        return cls(cfg, detector=detector)
+        return cls(cfg, detector=detector, feed_detector=feed_detector)
 
     @classmethod
     def from_trajectory(cls, trajectory, *, target_events: float = 2.0,
-                        detector=None, **cfg_kw) -> "AdaptiveScrub":
+                        detector=None, feed_detector: bool = True,
+                        **cfg_kw) -> "AdaptiveScrub":
         """Seed interval0 from a finished run's observed correction
         stream (`core.analytics.ScrubTrajectory`): events per recorded
         step become the exposure rate the prior interval is sized for."""
@@ -142,7 +148,7 @@ class AdaptiveScrub:
                          min(cfg.max_interval,
                              int(round(target_events / per_step)) or 1))
                 cfg = dataclasses.replace(cfg, interval0=i0)
-        return cls(cfg, detector=detector)
+        return cls(cfg, detector=detector, feed_detector=feed_detector)
 
     # -- the law --------------------------------------------------------------
 
@@ -164,7 +170,7 @@ class AdaptiveScrub:
         uniformity; parity-row heals are maintenance, not data events,
         so they never move the interval."""
         events = float(corrected) + 2.0 * float(uncorrectable)
-        if self.detector is not None:
+        if self.detector is not None and self.feed_detector:
             self.detector.observe(int(corrected), int(uncorrectable))
         if uncorrectable > 0 or events > self.cfg.high_events:
             self.interval = max(self.cfg.min_interval, self.interval // 2)

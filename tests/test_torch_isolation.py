@@ -33,7 +33,7 @@ NO_GPU = textwrap.dedent("""
     import torch
     torch.cuda.is_available = lambda: False     # a machine with no GPU
     from repro_torch.configs import get_config
-    from repro_torch.launch import serve
+    from repro_torch.launch import serve, train
     from repro_torch.launch.batching import (BatchSpec, ContinuousBatcher,
                                              PagedKVPool)
     from repro_torch.launch.engine import GenerationEngine
@@ -47,7 +47,8 @@ NO_GPU = textwrap.dedent("""
                  lambda: PagedKVPool(cfg, spec, copies=False),
                  lambda: serve.main(["--smoke", "--gen", "1"]),
                  lambda: serve.main(["--server", "--smoke", "--gen", "2",
-                                     "--requests", "1"])):
+                                     "--requests", "1"]),
+                 lambda: train.main(["--smoke", "--steps", "1"])):
         try:
             call()
         except RuntimeError as e:
@@ -105,7 +106,12 @@ def test_port_imports_without_jax():
               "repro_torch.faults.campaign",
               "repro_torch.experiments.campaign_mc",
               "repro_torch.experiments.fig4_nn",
-              "repro_torch.experiments.fig5_weights"):
+              "repro_torch.experiments.fig5_weights",
+              "repro_torch.runtime.loop", "repro_torch.runtime.monitor",
+              "repro_torch.optim.adamw", "repro_torch.optim.compression",
+              "repro_torch.data.synthetic", "repro_torch.data.loader",
+              "repro_torch.checkpoint.checkpointer",
+              "repro_torch.launch.train"):
         assert m in out.split(), (m, out)
 
 
