@@ -159,7 +159,29 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      word after the step-4 checkpoint gives RESTART and a restore from
      step 4, the run ends at step 6 with finite params and its step-6 loss
      within 1e-3 of an uninterrupted run's.  Each run prints its step-time
-     median, tok/s and peak device memory beside the card.
+     median, tok/s and peak device memory beside the card;
+ 11. the dense zoo and the MoE family (run after phase 10, its launches
+     counted apart), attention_impl="pallas", random init from seed 0,
+     batch 4, prompt 256, gen 32, weights at p_bit 1e-9, each config cut
+     in depth only, each run's peak reckoned from phase 4's peak-to-copy
+     ratios and printed before it, the measured peak after: first flash
+     against its plain version (1e-2 + 1e-2 |plain|) at the phase's hd=128
+     GQA shapes (B=4 and B=1 at H=32 KV=8, B=4 at H=40 KV=8), timed with
+     SDPA beside; (a) phi3.5-moe-42b-a6.6b at full width (16 experts
+     top-2, expert d_ff 6400), 3 of 32 layers, under `off`, `ecc` and
+     `ecc+tmr-parallel --vote-every 8 --vote-cache`: the gates of phase 4,
+     each path kernel launched, tok/s and the capacity drops of one
+     prefill and one decode step (none at decode); (b) its server at
+     phase 5's shapes under `off` and `ecc` with the pool through
+     `PagedKVPool.inject_scrub` every tick: tokens equal `off`'s,
+     corrections > 0, none uncorrectable; (c) qwen2.5-14b (20 of 48
+     layers), nemotron-4-15b (10 of 32) and deepseek-67b (8 of 95) under
+     `off` and `ecc`: `ecc` tokens equal `off`'s, corrections > 0, none
+     uncorrectable, the scrubbed copy equal to the clean arena; and
+     qwen2.5-14b at full depth under `off`; (d) llama4-maverick's smoke
+     config (interleaved dense/MoE, top-1, the shared expert) in fp32 on
+     the card against the CPU's plain path: tokens equal, logits within
+     1e-4, the aux loss within 1e-6.
 
 The second-to-last line is a JSON object of per-kernel numbers; the last is
 {"ok": true, "device": {...}}.  Times are CUDA-event means on this card
@@ -210,6 +232,7 @@ def bound_ms(n_bytes: float, n_ops: float = 0.0, peak: str = "int32"):
 
 
 def main() -> int:
+    import gc
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -222,26 +245,8 @@ def main() -> int:
     from repro_torch import kernels
 
     dev = torch.device("cuda")
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-
     # 1. the card
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, check=True, timeout=60)
-    card = smi.stdout.strip().splitlines()[0]
-    print(card, flush=True)
-    log(f"torch {torch.__version__} cuda {torch.version.cuda}, "
-        f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
-    clk = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
-                          "--format=csv,noheader,nounits"],
-                         capture_output=True, text=True, check=True,
-                         timeout=60)
-    mhz = float(clk.stdout.strip().splitlines()[0])
-    sms = torch.cuda.get_device_properties(0).multi_processor_count
-    PEAK["int32"] = INT32_PER_CLOCK_PER_SM * sms * mhz * 1e6
-    log(f"{sms} SMs at {mhz:.0f} MHz max: 32-bit logic and shift peak "
-        f"{PEAK['int32'] / 1e12:.2f} Tops/s")
+    card = setup_card(torch)
 
     # 2. build
     t0 = time.perf_counter()
@@ -283,12 +288,16 @@ def main() -> int:
     for name in ("encode_parity", "scrub", "tmr_vote", "encode_hsiao",
                  "scrub_hsiao"):
         check(train.get(name, 0) > 0, f"{name} never launched in training")
-    paths = (launches, server, netlist, campaigns, serve_rest, train)
+    gc.collect()
+    torch.cuda.empty_cache()
+    # 11. the dense zoo and the MoE family
+    zoo = run_zoo_path(torch, card, dev)
+    paths = (launches, server, netlist, campaigns, serve_rest, train, zoo)
     for name, row in rows.items():
         row["launches"] = sum(p.get(name, 0) for p in paths)
         check(row["launches"] > 0, f"{name} never launched on the main path")
     log("launches by path (one-shot ecc+tmr-parallel / server, 4 runs / "
-        "netlist / campaigns / phase 9 / train): " + ", ".join(
+        "netlist / campaigns / phase 9 / train / zoo): " + ", ".join(
             f"{name} " + "/".join(str(p.get(name, 0)) for p in paths)
             for name in rows))
 
@@ -300,6 +309,30 @@ def main() -> int:
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)
     return 0
+
+
+def setup_card(torch) -> str:
+    """Turn TF32 off, print the card's name and power limit, set the
+    32-bit integer peak from its SMs and top clock; returns the name line."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True, timeout=60)
+    card = smi.stdout.strip().splitlines()[0]
+    print(card, flush=True)
+    log(f"torch {torch.__version__} cuda {torch.version.cuda}, "
+        f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
+    clk = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                          "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, check=True,
+                         timeout=60)
+    mhz = float(clk.stdout.strip().splitlines()[0])
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    PEAK["int32"] = INT32_PER_CLOCK_PER_SM * sms * mhz * 1e6
+    log(f"{sms} SMs at {mhz:.0f} MHz max: 32-bit logic and shift peak "
+        f"{PEAK['int32'] / 1e12:.2f} Tops/s")
+    return card
 
 
 # ----------------------------------------------------------------------------
@@ -448,8 +481,10 @@ def check_diag_parity(torch, dev):
     _, npage = server_pool_words()
     page = words[:npage]
     page_ms, page_call_ms = small_shape_ms(torch, lambda: D.encode_parity(page))
+    page_plain_ms = time_ms(torch, lambda: D.encode_parity_ref(page), reps=3)
     log(f"encode_parity (a page refresh, {npage} words): kernel "
-        f"{page_ms:.4f} ms (per call {page_call_ms:.4f}), bound "
+        f"{page_ms:.4f} ms (per call {page_call_ms:.4f}), plain "
+        f"{page_plain_ms:.4f} ms, bound "
         f"{bound_ms(npage * 4 + npage // 32 * 12, 6 * npage)[0]:.4f} ms")
     del page                          # a view: it would keep the arena
 
@@ -650,17 +685,22 @@ def check_hsiao(torch, dev):
     check(torch.equal(H.encode_hsiao(page), H.encode_hsiao_ref(page)),
           "encode_hsiao kernel != plain version (a page refresh)")
     page_ms, page_call_ms = small_shape_ms(torch, lambda: H.encode_hsiao(page))
+    page_plain_ms = time_ms(torch, lambda: H.encode_hsiao_ref(page), reps=3)
     log(f"encode_hsiao (a page refresh, {npage} words): kernel "
-        f"{page_ms:.4f} ms (per call {page_call_ms:.4f}), bound "
+        f"{page_ms:.4f} ms (per call {page_call_ms:.4f}), plain "
+        f"{page_plain_ms:.4f} ms, bound "
         f"{bound_ms(npage * 4 + npage // 32 * 28, 21 * npage)[0]:.4f} ms")
     del page                          # a view: it would keep the arena
     for what, nw in (("one server pool copy", npool),
                      ("a tick's page repair", npage)):
         w_, par_ = words[:nw], H.encode_hsiao(words[:nw])
         ms_, call_ms = small_shape_ms(torch, lambda: H.scrub(w_, par_))
+        plain_ms_ = time_ms(torch, lambda: H.scrub_hsiao_ref(w_, par_),
+                            reps=3)
         bnd = bound_ms(nw * 4 + nw // 32 * 28, HSIAO_SCRUB_OPS_PER_WORD * nw)
         log(f"scrub_hsiao ({what}, {nw} words): kernel {ms_:.4f} ms (per "
-            f"call {call_ms:.4f}), bound {bnd[0]:.4f} ms")
+            f"call {call_ms:.4f}), plain {plain_ms_:.4f} ms, bound "
+            f"{bnd[0]:.4f} ms")
         del w_, par_
 
     counts, scrub_plain_ms = hold_hsiao_scrub(torch, dev, words, parity, g,
@@ -1172,9 +1212,12 @@ def serve_and_check(torch, cfg, params, tokens, clean, spec_s, p_bit, kw,
     log(f"{spec_s}: launches {counts}, peak device memory "
         f"{peak / 1e9:.2f} GB")
     out, stats = res["tokens"], res["stats"]
+    # greedy ids range over the head's padded vocabulary (pad ids have
+    # live logits at random init, as in the reference)
     check(tuple(out.shape) == (4, 32) and out.dtype == torch.int32
-          and int(out.min()) >= 0 and int(out.max()) < cfg.vocab,
-          f"{spec_s}: bad tokens {tuple(out.shape)} {out.dtype}")
+          and int(out.min()) >= 0 and int(out.max()) < cfg.padded_vocab,
+          f"{spec_s}: bad tokens {tuple(out.shape)} {out.dtype} "
+          f"[{int(out.min())}, {int(out.max())}]")
     check(res["agreement"] == 1.0, f"{spec_s}: agreement "
           f"{res['agreement']} with the clean run")
     if spec_s != "off":
@@ -1196,10 +1239,22 @@ def serve_and_check(torch, cfg, params, tokens, clean, spec_s, p_bit, kw,
 # 5. the server path
 # ----------------------------------------------------------------------------
 
-def run_server_path(torch, cfg, params):
-    """The four server runs and the join-live check; returns the launch
-    counts summed over the runs (each counted from 0 around its run) and
-    the `off` run's tokens by request."""
+#: phase 5's server runs: (scheme, weight p_bit, pool exposure a tick,
+#: pool scrub cadence in ticks)
+SERVER_RUNS = [("off", 0.0, None, 0), ("ecc", 1e-9, "inject_scrub", 0),
+               ("hsiao-wb", 1e-9, "corrupt", 4),
+               ("hsiao+tmr-parallel", 1e-9, None, 0)]
+
+
+#: the server pool's exposure a tick (phases 5 and 11)
+POOL_P_BIT = 1e-8
+
+
+def run_server_path(torch, cfg, params, runs=SERVER_RUNS, what=""):
+    """The server runs (phase 5's four unless `runs` says otherwise) and
+    the join-live check; returns the launch counts summed over the runs
+    (each counted from 0 around its run) and the `off` run's tokens by
+    request."""
     from repro_torch import kernels
     from repro_torch.faults import TransientBitFlips
     from repro_torch.launch.batching import (ContinuousBatcher, Request,
@@ -1210,10 +1265,7 @@ def run_server_path(torch, cfg, params):
 
     dev = params["final_ln"].device
     spec = server_spec()
-    pool_fault = TransientBitFlips(1e-8)
-    runs = [("off", 0.0, None, 0), ("ecc", 1e-9, "inject_scrub", 0),
-            ("hsiao-wb", 1e-9, "corrupt", 4),
-            ("hsiao+tmr-parallel", 1e-9, None, 0)]
+    pool_fault = TransientBitFlips(POOL_P_BIT)
     clean, total = None, {}
     for name, p_bit, exposure, scrub_every in runs:
         torch.cuda.empty_cache()
@@ -1240,8 +1292,9 @@ def run_server_path(torch, cfg, params):
         tokens = {r.rid: r.tokens for r in res["results"]}
         exp = torch.stack(pool).sum(0).tolist() if pool else []
         lat = res["latency"]
-        log(f"server {name}: goodput {res['goodput_tok_s']:.2f} tok/s, "
-            f"ttft p50/p99 {lat['ttft_p50_s'] * 1e3:.1f}/"
+        log(f"{what}server {name}: goodput "
+            f"{res['goodput_tok_s']:.2f} tok/s, ttft p50/p99 "
+            f"{lat['ttft_p50_s'] * 1e3:.1f}/"
             f"{lat['ttft_p99_s'] * 1e3:.1f} ms, tpot p50/p99 "
             f"{lat['tpot_p50_s'] * 1e3:.2f}/{lat['tpot_p99_s'] * 1e3:.2f} "
             f"ms, {b.ticks} ticks, scrub ticks {b.scrub_ticks}, counters "
@@ -1275,7 +1328,7 @@ def run_server_path(torch, cfg, params):
         if "tmr" in name:
             check(int(stats["tmr_final_disagreements"]) == 0,
                   f"server {name}: vote disagreements")
-    log(f"server path launches (4 runs): {total}")
+    log(f"{what}server path launches ({len(runs)} runs): {total}")
 
     # a request joining a live hsiao-wb batch == the same request alone
     trace = poisson_trace(5, rate_rps=2.0, spec=spec, vocab=cfg.vocab,
@@ -1299,9 +1352,11 @@ def run_server_path(torch, cfg, params):
     check(np.array_equal(a.tokens, s.tokens)
           and a.vote_disagreements == s.vote_disagreements
           and all(int(pa[k]) == int(ps[k]) for k in pa) and a.ttft_s > 0,
-          "hsiao-wb: a request in a live batch != the same request alone")
-    log(f"join-live == alone (hsiao-wb, full width): request 9's 16 tokens "
-        f"and counters {dict((k, int(v)) for k, v in pa.items())} equal; "
+          f"{what}hsiao-wb: a request in a live batch != the same request "
+          f"alone")
+    log(f"{what}join-live == alone (hsiao-wb, full width): request 9's 16 "
+        f"tokens and counters {dict((k, int(v)) for k, v in pa.items())} "
+        f"equal; "
         f"{ta} ticks live, {ts} alone")
     return total, clean
 
@@ -2683,6 +2738,269 @@ def check_small_training(torch, dev):
         f"{mk['grad_norm']:.6f} vs {mp['grad_norm']:.6f}, {n_off} of "
         f"{n_all} params beyond 1e-5 of their leaf's scale (worst "
         f"{worst:.3g}, lr {lr:.3g}), parity == the plain encode")
+
+
+# ----------------------------------------------------------------------------
+# 11. the dense zoo and the MoE family
+# ----------------------------------------------------------------------------
+
+#: phase 11's configs, cut in depth only: (arch, layers)
+P11_MOE = ("phi3.5-moe-42b-a6.6b", 3)
+P11_ZOO = (("qwen2.5-14b", 20), ("nemotron-4-15b", 10), ("deepseek-67b", 8))
+P11_QWEN_FULL = ("qwen2.5-14b", 48)
+#: the weights' soft-error rate (every held copy) of the protected runs
+P11_P_BIT = 1e-9
+#: phase 4's one-shot peaks over its 15.29 GB copy (16.01, 32.07 and 62.78
+#: GB): the reckoning of each run's peak from its config's copy
+P4_PEAK_RATIO = {"off": 1.05, "ecc": 2.10, "ecc+tmr-parallel": 4.11}
+#: the flash shapes the phase's prefills give the kernel: (what, B, S, H,
+#: KV, hd), bf16, causal
+P11_FLASH = (("phi3.5-moe prefill", 4, 256, 32, 8, 128),
+             ("phi3.5-moe admission", 1, 256, 32, 8, 128),
+             ("qwen2.5-14b prefill", 4, 256, 40, 8, 128),
+             ("nemotron-4-15b prefill", 4, 256, 48, 8, 128),
+             ("deepseek-67b prefill", 4, 256, 64, 8, 128))
+
+
+def p11_config(arch: str, depth: int):
+    from repro_torch.configs import get_config
+    return get_config(arch).replace(n_layers=depth, attention_impl="pallas")
+
+
+def p11_copy_bytes(cfg) -> int:
+    from repro_torch.models import transformer as T
+    from repro_torch.models.params import count_params
+    return 4 * count_params(T.model_specs(cfg))
+
+
+def reckon(cfg, schemes, what=""):
+    """Log a config's fp32 copy and each scheme's peak reckoned from it."""
+    copy = p11_copy_bytes(cfg) / 1e9
+    log(f"phase 11{what}: {cfg.name} at {cfg.n_layers} of its layers: a copy "
+        f"is {copy:.2f} GB; reckoned peaks " + ", ".join(
+            f"{s} {P4_PEAK_RATIO[s] * copy:.1f} GB" for s in schemes))
+
+
+def check_flash_zoo(torch, dev):
+    """Flash against its plain version at the phase's hd=128 GQA shapes,
+    timed with SDPA beside it (not counted as the path's launches)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_ref)
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 11)
+    worst = 0.0
+    for what, B, S, H, KV, hd in P11_FLASH:
+        q, k, v = (torch.randn((B, S, h, hd), device=dev, generator=g)
+                   .to(torch.bfloat16) for h in (H, KV, KV))
+        got = flash_attention(q, k, v, causal=True)
+        want = flash_attention_ref(q, k, v, causal=True)
+        diff = (got.float() - want.float()).abs()
+        check(bool((diff <= 1e-2 + 1e-2 * want.float().abs()).all()),
+              f"flash at {what}: kernel != plain (max abs err "
+              f"{diff.max().item():.3g})")
+        worst = max(worst, diff.max().item())
+        qh, kh, vh = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+        fns = {"kernel": lambda: flash_attention(q, k, v, causal=True),
+               "plain": lambda: flash_attention_ref(q, k, v, causal=True),
+               "SDPA": lambda: F.scaled_dot_product_attention(
+                   qh, kh, vh, is_causal=True, enable_gqa=True)}
+        dev_ms = {name: graph_ms(torch, fn) for name, fn in fns.items()}
+        call_ms = {name: time_ms(torch, fn, reps=20)
+                   for name, fn in fns.items()}
+        pairs = S * (S + 1) // 2
+        bnd = bound_ms(2 * B * S * (2 * H + 2 * KV) * hd,
+                       4 * B * H * hd * pairs, "bf16")
+        log(f"flash_attention at {what}: B={B} S={S} H={H} KV={KV} hd={hd} "
+            f"bf16 causal: " + ", ".join(
+                f"{name} {dev_ms[name]:.4f} ms (per call "
+                f"{call_ms[name]:.4f})" for name in fns)
+            + f"; bound {bnd[0]:.4f} ms ({bnd[1]}); max abs err "
+            f"{diff.max().item():.3g}")
+        del q, k, v, qh, kh, vh, got, want, diff
+    return worst
+
+
+def count_drops(torch, cfg, params, tokens):
+    """Capacity drops of one prefill and one decode step, recorded around
+    the MoE dispatch: [(tokens routed, capacity, drops)] a MoE layer."""
+    from repro_torch.models import moe
+    from repro_torch.models.steps import make_decode_step, make_prefill_step
+
+    real, seen = moe.dispatch, []
+
+    def spy(expert_idx, n_experts, capacity):
+        out = real(expert_idx, n_experts, capacity)
+        seen.append((expert_idx.shape[1], capacity, (~out[3]).sum()))
+        return out
+
+    moe.dispatch = spy
+    try:
+        with torch.no_grad():
+            tok, _, cache = make_prefill_step(cfg, tokens.shape[1] + 1)(
+                params, {"tokens": tokens})
+            make_decode_step(cfg)(params, tok, cache)
+    finally:
+        moe.dispatch = real
+    return [(t, c, int(d)) for t, c, d in seen]
+
+
+def run_zoo_path(torch, card, dev):
+    """(a)-(d) of phase 11; returns the launch counts of its runs, each
+    counted from 0 around its run."""
+    import gc
+    t_path = time.perf_counter()
+    torch.cuda.empty_cache()
+    err = check_flash_zoo(torch, dev)
+    total = {}
+
+    def add(counts):
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+
+    add(run_moe_one_shot(torch, card, dev))
+    gc.collect()
+    torch.cuda.empty_cache()
+    add(run_dense_zoo(torch, card, dev))
+    gc.collect()
+    torch.cuda.empty_cache()
+    check_llama4_smoke(torch, dev)
+    log(f"phase 11: {time.perf_counter() - t_path:.1f} s, launches {total}, "
+        f"flash max abs err {err:.3g} at hd=128")
+    return total
+
+
+def check_launched(counts, names, what):
+    for name in names:
+        check(counts.get(name, 0) > 0, f"{what}: {name} never launched")
+
+
+def run_moe_one_shot(torch, card, dev):
+    """(a) phi3.5-moe at full width, 3 layers, under off, ecc and
+    ecc+tmr-parallel --vote-every 8 --vote-cache at p_bit 1e-9; (b) its
+    server under off and ecc with the pool inject_scrubbed every tick."""
+    from repro_torch.core import arena
+    from repro_torch.launch.serve import make_inputs
+
+    cfg = p11_config(*P11_MOE)
+    schemes = ("off", "ecc", "ecc+tmr-parallel")
+    reckon(cfg, schemes, " (a)")
+    t0 = time.perf_counter()
+    inputs = make_inputs(cfg, batch=4, prompt_len=256, seed=SEED, device=dev)
+    torch.cuda.synchronize()
+    params, tokens = inputs["params"], inputs["tokens"]
+    clean, spec = arena.words_of(params)
+    log(f"phase 11 (a): {cfg.name}: random init in "
+        f"{time.perf_counter() - t0:.1f}s, {spec.n_words} arena words "
+        f"({cfg.moe_experts} experts top-{cfg.moe_topk}, expert d_ff "
+        f"{cfg.moe_dff}, d_model {cfg.d_model}, vocab {cfg.vocab}) on {card}")
+    runs = [("off", 0.0, {}), ("ecc", P11_P_BIT, {}),
+            ("ecc+tmr-parallel", P11_P_BIT,
+             dict(vote_every=8, vote_cache=True))]
+    clean_tokens, total = None, {}
+    for spec_s, p_bit, kw in runs:
+        out, counts = serve_and_check(torch, cfg, params, tokens, clean,
+                                      spec_s, p_bit, kw, clean_tokens)
+        need = ["flash_attention"]
+        if spec_s != "off":
+            need += ["encode_parity", "scrub"]
+        if "tmr" in spec_s:
+            need.append("tmr_vote")
+        check_launched(counts, need, f"phase 11 (a) {spec_s}")
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+        clean_tokens = out if clean_tokens is None else clean_tokens
+    drops = count_drops(torch, cfg, params, tokens)
+    log(f"phase 11 (a): capacity drops a MoE layer (tokens routed, C, "
+        f"dropped top-{cfg.moe_topk} assignments): prefill "
+        f"{drops[:P11_MOE[1]]}, one decode step {drops[P11_MOE[1]:]}")
+    check(all(d == 0 for _, _, d in drops[P11_MOE[1]:]),
+          "phase 11 (a): a decode step dropped tokens")
+    server, _ = run_server_path(
+        torch, cfg, params, runs=[("off", 0.0, None, 0),
+                                  ("ecc", P11_P_BIT, "inject_scrub", 0)],
+        what="phase 11 (b) ")
+    for k, v in server.items():
+        total[k] = total.get(k, 0) + v
+    return total
+
+
+def run_dense_zoo(torch, card, dev):
+    """(c) qwen2.5-14b, nemotron-4-15b and deepseek-67b cut in depth under
+    off and ecc at p_bit 1e-9, then qwen2.5-14b at full depth under off."""
+    from repro_torch.core import arena
+    from repro_torch.launch.serve import make_inputs
+
+    total = {}
+    for (arch, depth), schemes in [(z, ("off", "ecc")) for z in P11_ZOO] \
+            + [(P11_QWEN_FULL, ("off",))]:
+        cfg = p11_config(arch, depth)
+        reckon(cfg, schemes, " (c)")
+        t0 = time.perf_counter()
+        inputs = make_inputs(cfg, batch=4, prompt_len=256, seed=SEED,
+                             device=dev)
+        torch.cuda.synchronize()
+        clean, spec = arena.words_of(inputs["params"])
+        log(f"phase 11 (c): {cfg.name}: random init in "
+            f"{time.perf_counter() - t0:.1f}s, {spec.n_words} arena words")
+        clean_tokens = None
+        for s in schemes:
+            out, counts = serve_and_check(
+                torch, cfg, inputs["params"], inputs["tokens"], clean, s,
+                0.0 if s == "off" else P11_P_BIT, {}, clean_tokens)
+            check_launched(counts, ["flash_attention"] + (
+                ["encode_parity", "scrub"] if s != "off" else []),
+                f"phase 11 (c) {cfg.name} {s}")
+            for k, v in counts.items():
+                total[k] = total.get(k, 0) + v
+            clean_tokens = out if clean_tokens is None else clean_tokens
+        del inputs, clean, clean_tokens, out
+        torch.cuda.empty_cache()
+    return total
+
+
+def check_llama4_smoke(torch, dev):
+    """(d) llama4-maverick's smoke config (interleaved dense/MoE layers,
+    top-1 routing, the shared expert) in fp32: the card's kernel path
+    against the CPU's plain path on the same weights: tokens equal, logits
+    within 1e-4, the aux loss within 1e-6."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import arena
+    from repro_torch.launch.serve import make_inputs
+    from repro_torch.models import transformer as T
+    from repro_torch.models.steps import make_decode_step, make_prefill_step
+
+    base = get_config("llama4-maverick-400b-a17b").smoke().replace(
+        compute_dtype="float32")
+    inputs = make_inputs(base, batch=2, prompt_len=32, seed=SEED,
+                         device="cpu")
+    words, spec = arena.words_of(inputs["params"])
+    outs = []
+    for where, attn in ((dev, "pallas"), (torch.device("cpu"), "naive")):
+        cfg = base.replace(attention_impl=attn)
+        params = arena.unpack(words.to(where), spec)
+        tokens = inputs["tokens"].to(where)
+        with torch.no_grad():
+            _, aux = T.forward(params, cfg, {"tokens": tokens})
+            tok, logits, cache = make_prefill_step(cfg, 40)(
+                params, {"tokens": tokens})
+            toks, lgs = [tok], [logits]
+            for _ in range(8):
+                tok, logits, cache = make_decode_step(cfg)(params, tok, cache)
+                toks.append(tok)
+                lgs.append(logits)
+        outs.append((torch.cat(toks, 1).cpu(), torch.stack(lgs).cpu(),
+                     float(aux)))
+    (tk, lk, ak), (tp, lp, ap) = outs
+    check(torch.equal(tk, tp), "phase 11 (d): llama4 smoke tokens differ "
+          "between the card and the CPU")
+    err = (lk - lp).abs().max().item()
+    check(err <= 1e-4, f"phase 11 (d): llama4 smoke logits differ by "
+          f"{err:.3g}")
+    check(abs(ak - ap) <= 1e-6, f"phase 11 (d): aux {ak} != {ap}")
+    log(f"phase 11 (d): llama4 smoke (moe_every 2, top-1, shared expert), "
+        f"fp32: card == CPU, tokens {tk[0].tolist()}; logits max abs err "
+        f"{err:.3g}; aux {ak:.7f} / {ap:.7f}")
 
 
 def check_small_reference(torch, dev):

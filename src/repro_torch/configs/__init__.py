@@ -9,10 +9,24 @@ from ..models.config import ModelConfig
 
 __all__ = ["ARCHS", "ALIASES", "get_config", "list_archs"]
 
-ARCHS: List[str] = ["phi3_mini_3p8b"]
+ARCHS: List[str] = [
+    "deepseek_67b",
+    "phi3_mini_3p8b",
+    "nemotron_4_15b",
+    "qwen2_5_14b",
+    "llama4_maverick_400b_a17b",
+    "phi3_5_moe_42b_a6p6b",
+]
 
 #: canonical external ids (``--arch <id>``)
-ALIASES: Dict[str, str] = {"phi3-mini-3.8b": "phi3_mini_3p8b"}
+ALIASES: Dict[str, str] = {
+    "deepseek-67b": "deepseek_67b",
+    "phi3-mini-3.8b": "phi3_mini_3p8b",
+    "nemotron-4-15b": "nemotron_4_15b",
+    "qwen2.5-14b": "qwen2_5_14b",
+    "llama4-maverick-400b-a17b": "llama4_maverick_400b_a17b",
+    "phi3.5-moe-42b-a6.6b": "phi3_5_moe_42b_a6p6b",
+}
 
 
 def get_config(name: str) -> ModelConfig:

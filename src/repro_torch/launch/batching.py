@@ -299,9 +299,9 @@ class ContinuousBatcher:
                  adaptive=None,
                  forced_scrub_ticks: Optional[Sequence[int]] = None,
                  registry: MetricsRegistry = DEFAULT_REGISTRY, device=None):
-        if cfg.family != "dense":
+        if cfg.family not in ("dense", "moe"):
             raise ValueError(
-                f"continuous batching supports dense decode caches; "
+                f"continuous batching supports dense/moe decode caches; "
                 f"{cfg.family!r} caches are not paged yet")
         self.cfg, self.spec = cfg, spec
         # the engine supplies prepare() (the same fault draws and scrubs as

@@ -76,7 +76,9 @@ def _unmarked(n: int) -> None:
 class GenerationEngine:
     """Batched greedy generation under a protection scheme.
 
-    cfg        : model config (dense family).
+    cfg        : model config (dense or MoE family; every leaf of the
+                 params tree, MoE's ``dense_layers`` included, is carried
+                 through the store, the copies and the vote alike).
     scheme     : `Unprotected` (None), `DiagParityEcc`, `Tmr`, `Compose`.
     gen        : tokens to generate (prompt excluded).
     cache_len  : decode-cache length (default prompt_len + gen).

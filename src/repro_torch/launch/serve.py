@@ -319,7 +319,9 @@ def serve_server(cfg: ModelConfig, params: Any, scheme: Scheme, *,
 def main(argv: Optional[list] = None) -> None:
     ap = argparse.ArgumentParser(description=__doc__,
                                  formatter_class=argparse.RawTextHelpFormatter)
-    ap.add_argument("--arch", default="phi3-mini-3.8b", choices=list_archs())
+    ap.add_argument("--arch", default="qwen2.5-14b", choices=list_archs(),
+                    help="a ported arch (default: the reference's, "
+                         "qwen2.5-14b)")
     ap.add_argument("--smoke", action="store_true",
                     help="tiny same-family config (CPU-sized)")
     ap.add_argument("--batch", type=int, default=4)

@@ -5,8 +5,8 @@ reliability layer into a `TrainLoop`, on CUDA unless ``--device cpu``.
   PYTHONPATH=src python -m repro_torch.launch.train --device cpu --smoke \\
       --steps 20 --ecc-scrub-every 5 --inject-p-bit 1e-6
 
-The reference's default arch, mamba2-130m, is not ported (only the dense
-family is), so the default here is phi3-mini-3.8b.
+The reference's default arch, mamba2-130m, is not ported (the dense and
+MoE families are), so the default here is phi3-mini-3.8b.
 """
 from __future__ import annotations
 
@@ -18,7 +18,6 @@ import torch
 
 from ..checkpoint import Checkpointer
 from ..configs import get_config, list_archs
-from ..core import tree as T
 from ..data.synthetic import SyntheticLM
 from ..device import resolve_device
 from ..models import params as P
@@ -47,7 +46,7 @@ def build(args, tracer: Tracer = NULL_TRACER,
 
     g = torch.Generator(device=device).manual_seed(args.seed)
     params = P.materialize(TR.model_specs(cfg), g, args.param_dtype, device)
-    n_params = sum(x.numel() for x in T.leaves(params))
+    n_params = P.count_params(TR.model_specs(cfg))
 
     opt_cfg = AdamWConfig(lr=args.lr, total_steps=args.steps,
                           warmup_steps=max(args.steps // 20, 5))
@@ -81,8 +80,8 @@ def parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(
         description=__doc__, formatter_class=argparse.RawTextHelpFormatter)
     ap.add_argument("--arch", default="phi3-mini-3.8b", choices=list_archs(),
-                    help="a ported arch (the reference's default, "
-                         "mamba2-130m, is not ported)")
+                    help="a ported arch, dense or MoE (the reference's "
+                         "default, mamba2-130m, is not ported)")
     ap.add_argument("--smoke", action="store_true",
                     help="reduced same-family config (CPU-runnable)")
     ap.add_argument("--steps", type=int, default=100)

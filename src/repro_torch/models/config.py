@@ -1,6 +1,6 @@
 """Model configuration (port of `repro.models.config`; same fields, so a
-configuration carries across packages unchanged).  Only the dense family
-has a model in the port so far."""
+configuration carries across packages unchanged).  The dense and MoE
+families have a model in the port so far."""
 from __future__ import annotations
 
 import dataclasses
@@ -93,11 +93,15 @@ class ModelConfig:
 
     def smoke(self) -> "ModelConfig":
         """A tiny same-family config for CPU smoke tests (the reference's
-        dense-family sizes)."""
-        if self.family != "dense":
+        sizes for the dense and MoE families)."""
+        if self.family not in ("dense", "moe"):
             raise NotImplementedError(
                 f"the port has no {self.family!r} family yet")
-        return self.replace(
+        kw = dict(
             n_layers=min(self.n_layers, 4), d_model=128, n_heads=4,
             n_kv=min(max(self.n_kv * 4 // max(self.n_heads, 1), 1), 4),
             d_ff=256, vocab=512, q_block=16, kv_block=16)
+        if self.family == "moe":
+            kw.update(moe_experts=4, moe_topk=min(self.moe_topk, 2),
+                      moe_dff=128)
+        return self.replace(**kw)

@@ -1,0 +1,146 @@
+"""Mixture-of-Experts layer (port of `repro.models.moe`): token-choice
+top-k routing with sort-based capacity dispatch.
+
+The reference splits the tokens into G data-parallel groups, G being the
+mesh's batch shard count (`_dp_groups`), so that every sort and scatter is
+local to a group.  Without a mesh its G is 1; the port has no mesh yet, so
+G is fixed at 1 here while the (G, ...) axis is kept, and the grouped form
+comes back with the mesh.
+
+Supports llama4-style (128 experts, top-1, a shared expert, interleaved)
+and phi3.5-moe-style (16 experts, top-2) from the same code path.  The
+expert FFN is two plain batched products, as in the reference (which
+computes them outside any Pallas kernel).
+"""
+from __future__ import annotations
+
+import math
+from typing import Tuple
+
+import torch
+import torch.nn.functional as F
+
+from .config import ModelConfig
+from .nn import gelu, mlp_apply, mlp_specs
+from .params import Spec
+
+__all__ = ["moe_specs", "moe_apply", "route", "dispatch"]
+
+
+def moe_specs(cfg: ModelConfig) -> dict:
+    d, e, f = cfg.d_model, cfg.moe_experts, cfg.moe_dff or cfg.d_ff
+    gated = cfg.act in ("swiglu", "geglu")
+    specs = {
+        "router": Spec((d, e), ("model_dim", None), "scaled"),
+        "w_up": Spec((e, d, 2 * f if gated else f),
+                     ("expert", "model_dim", "ff"), "scaled"),
+        "w_down": Spec((e, f, d), ("expert", "ff", "model_dim"), "scaled"),
+    }
+    if cfg.moe_shared_expert:
+        specs["shared"] = mlp_specs(cfg)
+    return specs
+
+
+def _capacity(cfg: ModelConfig, tokens_per_group: int) -> int:
+    """Slots per expert: capacity_factor x top-k x tokens / experts,
+    rounded up to a multiple of 8, at least 8."""
+    c = int(math.ceil(cfg.capacity_factor * cfg.moe_topk * tokens_per_group
+                      / cfg.moe_experts))
+    return max(8, -(-c // 8) * 8)
+
+
+def route(cfg: ModelConfig, probs: torch.Tensor):
+    """Top-k of the router probabilities (G, Tl, E) in fp32: (gate values
+    renormalized to sum to 1, expert ids), each (G, Tl, K)."""
+    gate_vals, expert_idx = torch.topk(probs, cfg.moe_topk, dim=-1)
+    gate_vals = gate_vals / torch.clamp(gate_vals.sum(-1, keepdim=True),
+                                        min=1e-9)
+    return gate_vals, expert_idx
+
+
+def dispatch(expert_idx: torch.Tensor, n_experts: int, capacity: int):
+    """Sort-based capacity dispatch of token-major expert ids (G, Tl, K):
+    (order, sorted_tok, dest, keep), each (G, Tl*K).  `order` is the
+    stable argsort of the ids (an unstable sort would drop other tokens
+    at capacity), `sorted_tok` the token of each sorted assignment,
+    `dest` its row in the (E*C + 1)-row buffer (row E*C is the pad row
+    that dropped assignments go to) and `keep` whether it fits."""
+    G, Tl, K = expert_idx.shape
+    E, C = n_experts, capacity
+    flat_e = expert_idx.reshape(G, Tl * K)
+    order = torch.argsort(flat_e, dim=1, stable=True)
+    sorted_e = torch.gather(flat_e, 1, order)
+    sorted_tok = order // K
+    # exclusive-cumsum expert counts -> each expert's first sorted slot
+    cnt = F.one_hot(flat_e, E).sum(dim=1)                          # (G,E)
+    starts = torch.cumsum(cnt, dim=1) - cnt
+    pos = (torch.arange(Tl * K, device=flat_e.device)[None, :]
+           - torch.gather(starts, 1, sorted_e))
+    keep = pos < C
+    dest = torch.where(keep, sorted_e * C + pos,
+                       torch.full_like(pos, E * C))
+    return order, sorted_tok, dest, keep
+
+
+def moe_apply(p: dict, cfg: ModelConfig,
+              x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x (B, S, D) -> (output (B, S, D), the Switch load-balance aux loss,
+    a 0-d fp32)."""
+    B, S, D = x.shape
+    E, K = cfg.moe_experts, cfg.moe_topk
+    f = cfg.moe_dff or cfg.d_ff
+    T = B * S
+    dt = x.dtype
+    G = 1                                   # no mesh: one group
+    Tl = T // G
+    C = _capacity(cfg, Tl)
+    xg = x.reshape(G, Tl, D)
+
+    # --- routing (fp32) ----------------------------------------------------
+    logits = xg.float() @ p["router"].float()                      # (G,Tl,E)
+    probs = torch.softmax(logits, dim=-1)
+    gate_vals, expert_idx = route(cfg, probs)                      # (G,Tl,K)
+
+    # load-balance auxiliary loss (Switch-style, over all tokens)
+    me = probs.mean(dim=(0, 1))                                    # (E,)
+    ce = F.one_hot(expert_idx, E).sum(dim=(0, 1, 2)).float() / (T * K)
+    aux = E * torch.sum(me * ce)
+
+    # --- sort-based capacity dispatch ---------------------------------------
+    order, sorted_tok, dest, keep = dispatch(expert_idx, E, C)
+    flat_g = gate_vals.reshape(G, Tl * K)
+    src = torch.gather(xg, 1, sorted_tok[..., None].expand(-1, -1, D)).to(dt)
+    # dropped rows all land on the pad row E*C, which is sliced off
+    buf = torch.stack([
+        torch.zeros((E * C + 1, D), dtype=dt, device=x.device)
+        .index_copy(0, dest[g], src[g]) for g in range(G)])
+    expert_in = buf[:, :E * C].reshape(G, E, C, D)
+
+    # --- expert FFN ----------------------------------------------------------
+    h = torch.einsum("gecd,edf->gecf", expert_in, p["w_up"].to(dt))
+    if cfg.act in ("swiglu", "geglu"):
+        act = F.silu if cfg.act == "swiglu" else gelu
+        h = h[..., :f] * act(h[..., f:])
+    else:
+        # the reference's ungated expert: relu2, else silu
+        h = F.relu(h) ** 2 if cfg.act == "relu2" else F.silu(h)
+    expert_out = torch.einsum("gecf,efd->gecd", h, p["w_down"].to(dt))
+
+    # --- combine, in the compute dtype ---------------------------------------
+    rows = expert_out.reshape(G, E * C, D)
+    safe = torch.where(keep, dest, torch.zeros_like(dest))
+    gathered = torch.gather(rows, 1, safe[..., None].expand(-1, -1, D))
+    gathered = torch.where(keep[..., None], gathered,
+                           torch.zeros_like(gathered)).to(dt)
+    wsorted = torch.gather(flat_g, 1, order)
+    contrib = gathered * wsorted[..., None].to(dt)
+    # a token receives at most top-k <= 2 contributions, added onto zero:
+    # 0 + a + b == 0 + b + a bit for bit, so the order index_add_ takes
+    # (atomics on the card) cannot change a bit
+    y = torch.stack([
+        torch.zeros((Tl, D), dtype=dt, device=x.device)
+        .index_add(0, sorted_tok[g], contrib[g]) for g in range(G)])
+
+    if cfg.moe_shared_expert:
+        y = y + mlp_apply(p["shared"], cfg, xg)
+    return y.reshape(B, S, D), aux

@@ -1,6 +1,9 @@
-"""Neural-net pieces of the dense family (port of `repro.models.nn`):
-RMSNorm, RoPE, the SwiGLU MLP, the embedding specs and the cross
-entropy."""
+"""Neural-net pieces of the dense and MoE families (port of
+`repro.models.nn`): RMSNorm, RoPE, the activations, the MLP (swiglu,
+geglu, relu2, gelu), the embedding specs and the cross entropy.
+
+GELU is the tanh approximation, as `jax.nn.gelu`'s default is
+(``approximate=True``); PyTorch's default is the exact erf form."""
 from __future__ import annotations
 
 from typing import Optional
@@ -11,8 +14,8 @@ import torch.nn.functional as F
 from .config import ModelConfig
 from .params import Spec
 
-__all__ = ["rms_norm", "rope", "mlp_specs", "mlp_apply", "embed_specs",
-           "softmax_xent"]
+__all__ = ["rms_norm", "rope", "act_fn", "gelu", "mlp_specs", "mlp_apply",
+           "embed_specs", "softmax_xent"]
 
 
 def rms_norm(x: torch.Tensor, scale: torch.Tensor,
@@ -40,6 +43,22 @@ def rope(x: torch.Tensor, positions: torch.Tensor,
     return out.to(x.dtype)
 
 
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """`jax.nn.gelu` at its default: the tanh approximation."""
+    return F.gelu(x, approximate="tanh")
+
+
+def act_fn(name: str, x: torch.Tensor) -> torch.Tensor:
+    """The ungated activation of `name`: relu2 (nemotron's squared ReLU),
+    gelu, else silu (the swiglu/geglu gate is applied by the caller)."""
+    if name == "relu2":
+        r = F.relu(x)
+        return r * r
+    if name == "gelu":
+        return gelu(x)
+    return F.silu(x)
+
+
 def mlp_specs(cfg: ModelConfig, d_ff: Optional[int] = None) -> dict:
     d, f = cfg.d_model, d_ff or cfg.d_ff
     gated = cfg.act in ("swiglu", "geglu")
@@ -49,12 +68,14 @@ def mlp_specs(cfg: ModelConfig, d_ff: Optional[int] = None) -> dict:
 
 def mlp_apply(p: dict, cfg: ModelConfig, x: torch.Tensor,
               d_ff: Optional[int] = None) -> torch.Tensor:
-    if cfg.act != "swiglu":
-        raise NotImplementedError(f"activation {cfg.act!r} is not ported")
     f = d_ff or cfg.d_ff
     dt = x.dtype
     h = x @ p["w_up"].to(dt)
-    h = h[..., :f] * F.silu(h[..., f:])
+    if cfg.act in ("swiglu", "geglu"):
+        act = F.silu if cfg.act == "swiglu" else gelu
+        h = h[..., :f] * act(h[..., f:])
+    else:
+        h = act_fn(cfg.act, h)
     return h @ p["w_down"].to(dt)
 
 

@@ -1,7 +1,7 @@
 """Declarative parameter specs, materialized into an arena (port of
-`repro.models.params`: `Spec` and `materialize`, plus `from_numpy` and
-`train_state_from_reference`, which carry the JAX package's parameters and
-training state across as numpy trees).
+`repro.models.params`: `Spec`, `materialize` and `count_params`, plus
+`from_numpy` and `train_state_from_reference`, which carry the JAX
+package's parameters and training state across as numpy trees).
 
 Parameters are a dict tree with the reference's keys and shapes (stacked
 ``(n_layers, ...)`` layer leaves included) whose leaves are views of one
@@ -19,7 +19,7 @@ import torch
 from ..core import arena
 from ..core import tree as T
 
-__all__ = ["Spec", "layout", "materialize", "from_numpy",
+__all__ = ["Spec", "layout", "materialize", "count_params", "from_numpy",
            "train_state_from_reference"]
 
 
@@ -77,6 +77,17 @@ def materialize(tree: Any, generator: torch.Generator,
         else:
             x.normal_(0.0, s.scale, generator=generator)
     return params
+
+
+def count_params(tree: Any) -> int:
+    """Parameters in a Spec tree (nothing materialized)."""
+    tot = 0
+    for s in T.leaves(tree):
+        n = 1
+        for d in s.shape:
+            n *= d
+        tot += n
+    return tot
 
 
 def _tensor(a, device) -> torch.Tensor:

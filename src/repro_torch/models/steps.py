@@ -11,7 +11,8 @@ the stacked params' storage (``w[i].detach().requires_grad_()``) and whose
 ``.grad`` is a view of a stacked grad buffer, so the grads land in place
 in the params' own stacked layout (the reference's, which the int8
 compression tiles) and AdamW then updates the params, `m` and `v` in
-place.
+place.  MoE's interleaved ``dense_layers`` stack (pairs, moe_every - 1,
+...) gets one such leaf per (pair, j).
 """
 from __future__ import annotations
 
@@ -95,12 +96,19 @@ def _grad_leaves(params: Any, grads: Any) -> Any:
         return a
 
     out = {k: T.map_tree(alias, v, grads[k]) for k, v in params.items()
-           if k != "layers"}
+           if k not in ("layers", "dense_layers")}
     if "layers" in params:
         stacked, gstacked = params["layers"], grads["layers"]
         n = T.leaves(stacked)[0].shape[0]
         out["layers"] = [T.map_tree(lambda p, g, i=i: alias(p[i], g[i]),
                                     stacked, gstacked) for i in range(n)]
+    if "dense_layers" in params:
+        stacked, gstacked = params["dense_layers"], grads["dense_layers"]
+        n, m = T.leaves(stacked)[0].shape[:2]
+        out["dense_layers"] = [
+            [T.map_tree(lambda p, g, i=i, j=j: alias(p[i, j], g[i, j]),
+                        stacked, gstacked) for j in range(m)]
+            for i in range(n)]
     return out
 
 
@@ -109,9 +117,15 @@ def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig,
     """train_step(state, batch) -> (state, metrics); `state` =
     {params, opt: {m, v, count}, [err]} is updated in place and returned.
 
-    microbatches > 1 accumulates the grads of K slices of the batch (in
-    the grad buffers, in order, then divides by K), so activation memory
-    scales with B/K.  The grads are held in the params' dtype."""
+    microbatches > 1 accumulates the grads of K slices of the batch, so
+    activation memory scales with B/K, as the reference does with its
+    default fp32 `grad_dtype`: each slice's grads are added in fp32 into
+    fp32 accumulators, in order, and the sum is divided by K; those are
+    the grads AdamW gets.  Each slice's backward lands in grad buffers of
+    the params' dtype (zeroed after each slice); where those are fp32,
+    they are the accumulators themselves (autograd's in-place fp32 add is
+    the reference's), so no second buffer is held.  With K == 1 the grads
+    stay in the params' dtype, as in the reference."""
     loss_fn = make_loss_fn(cfg)
     K = microbatches
 
@@ -127,13 +141,23 @@ def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig,
             n = B // K
             parts = [{k: v[i * n:(i + 1) * n] for k, v in batch.items()}
                      for i in range(K)]
+        in_place = K == 1 or all(g.dtype == torch.float32
+                                 for g in T.leaves(grads))
+        acc = grads if in_place else T.map_tree(
+            lambda g: torch.zeros(g.shape, dtype=torch.float32,
+                                  device=g.device), grads)
         lsum = asum = 0
         for part in parts:
             total, metrics = loss_fn(leaves, part)
             total.backward()
             lsum = lsum + total.detach()
             asum = asum + metrics["aux"].detach()
+            if not in_place:
+                for a, g in zip(T.leaves(acc), T.leaves(grads)):
+                    a.add_(g)       # fp32 + the promoted slice grad
+                    g.zero_()
         del leaves
+        grads = acc
         if K > 1:
             for g in T.leaves(grads):
                 g.div_(K)

@@ -164,6 +164,35 @@ RUNS = [("off", None), ("ecc", "inject_scrub"), ("hsiao", "inject_scrub"),
 
 @pytest.mark.parametrize("name,exposure", RUNS, ids=[r[0] for r in RUNS])
 def test_batcher_matches_jax(setup, name, exposure):
+    _check_both(setup, name, exposure)
+
+
+@pytest.fixture(scope="module")
+def moe_setup():
+    """phi3.5-moe's smoke config at 2 layers (4 experts, top-2), fp32."""
+    kw = dict(n_layers=2, compute_dtype="float32")
+    cfg_j = get_config("phi3.5-moe-42b-a6.6b").smoke().replace(**kw)
+    cfg = get_port_config("phi3.5-moe-42b-a6.6b").smoke().replace(**kw)
+    assert dataclasses.asdict(cfg) == dataclasses.asdict(cfg_j)
+    key = jax.random.PRNGKey(0)
+    jparams = JP.materialize(key, JT.model_specs(cfg_j))
+    params_np = jax.tree.map(np.asarray, jparams)
+    rs = np.random.RandomState(0)
+    prompts = {n: rs.randint(0, cfg.vocab, size=n).astype(np.int32)
+               for n in (4, 8)}
+    return cfg_j, cfg, key, jparams, params_np, prompts
+
+
+@pytest.mark.parametrize("name,exposure", [("off", None),
+                                           ("ecc", "inject_scrub")],
+                         ids=["off", "ecc"])
+def test_moe_batcher_matches_jax(moe_setup, name, exposure):
+    """The MoE family pages the same per-layer K/V as dense: the same
+    checks as `test_batcher_matches_jax`."""
+    _check_both(moe_setup, name, exposure)
+
+
+def _check_both(setup, name, exposure):
     jb, jres, jstats, b, res, stats = _serve_both(setup, name, exposure)
     for r, j in zip(res, jres):
         assert r.rid == j.rid

@@ -292,3 +292,92 @@ def test_loss_decreases_on_learnable_data():
         losses.append(float(m["total"]))
     assert np.isfinite(losses).all()
     assert np.mean(losses[-5:]) < np.mean(losses[:5]) - 0.3
+
+
+#: bf16 params, K = 2 micro-batches, a step large enough to move bf16
+#: params (lr 1e-2 from the first step)
+BF16 = dict(SMOKE, param_dtype="bfloat16")
+BIG_STEP = dict(clip_norm=UNCLIPPED, lr=1e-2, warmup_steps=0)
+
+
+@pytest.fixture(scope="module")
+def bf16_setup():
+    jcfg = jax_config("phi3-mini-3.8b").smoke().replace(**BF16)
+    cfg = get_config("phi3-mini-3.8b").smoke().replace(**BF16)
+    params = jax.tree.map(lambda a: np.asarray(jnp.asarray(a, jnp.bfloat16)),
+                          smoke_params(jcfg))
+    tokens = np.random.default_rng(1).integers(
+        0, cfg.vocab, (4, 32)).astype(np.int32)
+    state = jax.tree.map(np.asarray, j_init_state(_j(params)))
+    new, m = jax.jit(j_train_step(jcfg, JAdamWConfig(**BIG_STEP),
+                                  microbatches=2))(
+        _j(state), {"tokens": jnp.asarray(tokens)})
+    return cfg, state, tokens, jax.tree.map(np.asarray, new), m
+
+
+def _port_step_grads(monkeypatch, cfg, state, tokens, K, **kw):
+    """(state after one port step, metrics, the grads AdamW was given)."""
+    from repro_torch.models import steps as S
+    seen = {}
+    real = S.adamw_update
+
+    def spy(opt_cfg, grads, opt, params):
+        seen["grads"] = T.map_tree(lambda g: g.clone(), grads)
+        return real(opt_cfg, grads, opt, params)
+
+    monkeypatch.setattr(S, "adamw_update", spy)
+    out, m = make_train_step(cfg, AdamWConfig(**BIG_STEP), microbatches=K,
+                             **kw)(train_state_from_reference(state),
+                                   {"tokens": torch.from_numpy(tokens)})
+    return out, m, seen["grads"]
+
+
+def test_bf16_microbatch_grads_accumulate_in_fp32(bf16_setup, monkeypatch):
+    """The reference adds each micro-batch's bf16 grads in fp32 into fp32
+    accumulators, then divides by K; so does the port.  Each slice's
+    grads are rounded to bf16 on both sides, and where the two fp32 values
+    straddle a bf16 rounding boundary they land one bf16 ulp apart: every
+    element is held within 2^-8 of its leaf's largest grad, and at most 1%
+    of a leaf's elements may miss rtol 1e-3 (atol 1e-6 of the leaf's
+    largest).  Summed in bf16 instead, about half of them miss it."""
+    cfg, state, tokens, new, jm = bf16_setup
+    out, m, grads = _port_step_grads(monkeypatch, cfg, state, tokens, K=2)
+    np.testing.assert_allclose(float(m["loss"]), float(jm["loss"]),
+                               rtol=1e-5)
+    want = _step_grads(new)
+    for key in ("grads", "m"):
+        got = grads if key == "grads" else T.map_tree(
+            lambda x: x / np.float32(1 - JAdamWConfig.b1), out["opt"]["m"])
+        for a, b in zip(T.leaves(got), T.leaves(want)):
+            assert a.dtype == torch.float32
+            a = a.numpy()
+            scale = max(np.abs(b).max(), 1e-30)
+            assert np.abs(a - b).max() <= 2 ** -8 * scale, key
+            off = np.abs(a - b) > 1e-3 * np.abs(b) + 1e-6 * scale
+            assert off.mean() <= 1e-2, (key, off.mean())
+
+
+def test_bf16_microbatch_params_match_reference(bf16_setup, monkeypatch):
+    """The updated bf16 params: at lr 1e-2 from the first step, an update
+    is about lr x sign(g), so a near-zero grad of the other sign moves an
+    element 2 lr the other way.  At most 0.2% of a leaf's elements may
+    differ at all, none by more than 2.5 lr."""
+    cfg, state, tokens, new, _ = bf16_setup
+    out, _, _ = _port_step_grads(monkeypatch, cfg, state, tokens, K=2)
+    moved = 0
+    for a, b, p0 in zip(T.leaves(out["params"]), T.leaves(new["params"]),
+                        T.leaves(state["params"])):
+        assert a.dtype == torch.bfloat16
+        a, b = a.float().numpy(), np.asarray(b).astype(np.float32)
+        d = np.abs(a - b)
+        assert (d > 0).mean() <= 2e-3
+        assert d.max() <= 2.5 * BIG_STEP["lr"]
+        moved += int((b != np.asarray(p0).astype(np.float32)).sum())
+    assert moved > 0
+
+
+def test_single_batch_grads_stay_in_the_params_dtype(bf16_setup,
+                                                     monkeypatch):
+    cfg, state, tokens, _, _ = bf16_setup
+    _, _, grads = _port_step_grads(monkeypatch, cfg, state, tokens, K=1)
+    assert {g.dtype for g in T.leaves(grads)} == {torch.bfloat16}
