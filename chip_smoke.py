@@ -181,7 +181,47 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      qwen2.5-14b at full depth under `off`; (d) llama4-maverick's smoke
      config (interleaved dense/MoE, top-1, the shared expert) in fp32 on
      the card against the CPU's plain path: tokens equal, logits within
-     1e-4, the aux loss within 1e-6.
+     1e-4, the aux loss within 1e-6.  First of all (not counted as
+     launches), the block-code and vote kernels at the phase's own
+     shapes, timed beside their bounds: encode_parity and scrub over
+     phi3.5-moe's and deepseek-67b's arenas, the three-copy scrub,
+     tmr_vote over phi3.5-moe's KV cache, the page encode and
+     inject_scrub over its pool;
+ 12. the SSM, hybrid, VLM and enc-dec families (run after phase 11, its
+     launches counted apart), attention_impl="pallas", random init from
+     seed 0 with every cross-attention gate and gate_mlp set to 1.0,
+     weights at p_bit 1e-9, full width, cut in depth only where a reckoned
+     peak passes 80 GB: first flash against its plain version in bf16
+     (2^-7 |plain| + 2^-8 max|plain|, tight enough that one kv tile
+     dropped or counted twice fails) and fp32 (2e-5 + 2e-5 |plain|) at
+     head_dim 256 (B=4 S=256 H=10 KV=1, and B=1 S=3072 past the 2048
+     window), at hd=128 over 1600 image tokens (non-causal, Sk != Sq, k
+     and v views of one projection) and at hd=64 H=16 in the encoder's,
+     decoder's and cross forms, timed with SDPA beside; (a) mamba2-130m
+     (24 layers) one-shot at batch 4, prompt 2048 (8 SSD chunks), gen 32
+     under `off`, `ecc` and `ecc+tmr-parallel --vote-every 8
+     --vote-cache` (the vote walks the nested cache: fp32 states, conv
+     tails, position), the gates of phase 4, then teacher forcing: the
+     generated tokens fed back through the decode steps give `forward`'s
+     logits over prompt + tokens within 1e-3 of the largest (both in
+     fp32), at weights of std 0.02 and at the run's own; (b) mamba2-130m
+     by `launch.train` at its defaults (batch 8 x 256, fp32) under ecc with a
+     scrub every 4 of 12 steps: finite losses, a descent step, corrections
+     inside their intervals; (c) recurrentgemma-2b (26 layers) one-shot
+     at batch 4, prompt 256 under the three schemes, then batch 1, prompt
+     3072 (the windowed flash and the 2048-slot ring) under `off` with
+     teacher forcing (gated at std 0.02; at the run's own weights, where
+     the RG-LRU is ill-conditioned in fp32, printed); (d)
+     llama-3.2-vision-11b with (4, 1600, 4096) image embeddings, `off` at
+     40 layers, `ecc` at 20, `ecc+tmr-parallel` at 10; (e)
+     seamless-m4t-medium (12 + 12 layers) with (4, 256, 1024) frame
+     embeddings under the three schemes; (f) three `launch.train`
+     steps under ecc of recurrentgemma-2b (26 layers), llama-3.2-vision
+     (5 layers: one cross block) and seamless: finite losses, and the
+     grads of every stacked key finite and nonzero.  Every run prints
+     tok/s, TTFT (8-step chunks), its peak and the peak reckoned from
+     phase 4's (serving) or phase 10's (training) peak-to-copy ratios,
+     and each run's flash launches by shape.
 
 The second-to-last line is a JSON object of per-kernel numbers; the last is
 {"ok": true, "device": {...}}.  Times are CUDA-event means on this card
@@ -292,14 +332,19 @@ def main() -> int:
     torch.cuda.empty_cache()
     # 11. the dense zoo and the MoE family
     zoo = run_zoo_path(torch, card, dev)
-    paths = (launches, server, netlist, campaigns, serve_rest, train, zoo)
+    gc.collect()
+    torch.cuda.empty_cache()
+    # 12. the SSM, hybrid, VLM and enc-dec families
+    families = run_family_path(torch, card, dev)
+    paths = (launches, server, netlist, campaigns, serve_rest, train, zoo,
+             families)
     for name, row in rows.items():
         row["launches"] = sum(p.get(name, 0) for p in paths)
         check(row["launches"] > 0, f"{name} never launched on the main path")
     log("launches by path (one-shot ecc+tmr-parallel / server, 4 runs / "
-        "netlist / campaigns / phase 9 / train / zoo): " + ", ".join(
-            f"{name} " + "/".join(str(p.get(name, 0)) for p in paths)
-            for name in rows))
+        "netlist / campaigns / phase 9 / train / zoo / families): "
+        + ", ".join(f"{name} " + "/".join(str(p.get(name, 0)) for p in paths)
+                    for name in rows))
 
     # 6. small-input reference
     check_small_reference(torch, dev)
@@ -427,12 +472,13 @@ def server_spec():
                      gen_cap=32)
 
 
-def server_pool_words():
+def server_pool_words(cfg=None):
     """(words of one server pool copy, words of one tick's page refresh:
-    16 page rows, four slots x two pages x the k and v planes)."""
+    16 page rows, four slots x two pages x the k and v planes) of `cfg`
+    (default phi3-mini)."""
     from repro_torch.configs import get_config
     from repro_torch.launch.batching import PagedKVPool
-    pool = PagedKVPool(get_config("phi3-mini-3.8b"), server_spec(),
+    pool = PagedKVPool(cfg or get_config("phi3-mini-3.8b"), server_spec(),
                        copies=False, device="meta")
     return pool.arena_spec.n_words, 16 * pool.page_words
 
@@ -1195,9 +1241,12 @@ def run_main_path(torch, cfg, inputs):
 
 
 def serve_and_check(torch, cfg, params, tokens, clean, spec_s, p_bit, kw,
-                    clean_tokens):
+                    clean_tokens, modality=None):
     """One serve run with its launch counts and checks; the store it built
-    is freed on return.  Returns (tokens, launch counts)."""
+    is freed on return.  `clean_tokens` (None: only the agreement with
+    `serve`'s own clean run is checked) are the tokens a protected run
+    must give; `modality` the stub modality inputs.  Returns (tokens,
+    launch counts)."""
     from repro_torch import kernels
     from repro_torch.launch.serve import serve
     from repro_torch.reliability import parse_scheme
@@ -1206,15 +1255,20 @@ def serve_and_check(torch, cfg, params, tokens, clean, spec_s, p_bit, kw,
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launch_counts()
     res = serve(cfg, params, tokens, parse_scheme(spec_s), gen=32,
-                p_bit=p_bit, seed=SEED, device=clean.device, **kw)
+                p_bit=p_bit, seed=SEED, device=clean.device,
+                modality=modality, **kw)
     counts = kernels.launch_counts()
     peak = torch.cuda.max_memory_allocated()
-    log(f"{spec_s}: launches {counts}, peak device memory "
-        f"{peak / 1e9:.2f} GB")
+    lat = res["latency"]
+    log(f"{spec_s}: launches {counts}, {res['tok_s']:.1f} tok/s"
+        + (f", ttft {lat['ttft_s'] * 1e3:.1f} ms" if lat else "")
+        + f", peak device memory {peak / 1e9:.2f} GB")
+    check(peak < 80e9, f"{spec_s}: peak {peak / 1e9:.2f} GB")
     out, stats = res["tokens"], res["stats"]
     # greedy ids range over the head's padded vocabulary (pad ids have
     # live logits at random init, as in the reference)
-    check(tuple(out.shape) == (4, 32) and out.dtype == torch.int32
+    check(tuple(out.shape) == (tokens.shape[0], 32)
+          and out.dtype == torch.int32
           and int(out.min()) >= 0 and int(out.max()) < cfg.padded_vocab,
           f"{spec_s}: bad tokens {tuple(out.shape)} {out.dtype} "
           f"[{int(out.min())}, {int(out.max())}]")
@@ -1226,7 +1280,7 @@ def serve_and_check(torch, cfg, params, tokens, clean, spec_s, p_bit, kw,
               f"{spec_s}: uncorrectable blocks")
         check_copies_clean(torch, res["store"], 3 if "tmr" in spec_s else 1,
                            clean, spec_s)
-        check(torch.equal(out, clean_tokens),
+        check(clean_tokens is None or torch.equal(out, clean_tokens),
               f"{spec_s}: tokens differ from the clean run")
     if "tmr" in spec_s:
         check(int(stats["tmr_final_disagreements"]) == 0
@@ -1728,18 +1782,19 @@ def binom99(n: int, p: float, k: int = 1):
     return int(lo), int(hi)
 
 
-def check_scrub_counts(loop, bits, what):
+def check_scrub_counts(loop, bits, what, p_bit=None):
     """Every scrub's corrected count inside its binomial interval (99% over
     the run's scrubs) and the run's total inside its 99% interval; no
     uncorrectable word.  `bits` counts the stored bits of every held data
-    copy, each exposed at P10_P_BIT a scrub interval."""
+    copy, each exposed at `p_bit` (default P10_P_BIT) a scrub interval."""
+    p_bit = P10_P_BIT if p_bit is None else p_bit
     k = len(loop.scrub_reports)
-    lo, hi = binom99(bits, P10_P_BIT, k)
+    lo, hi = binom99(bits, p_bit, k)
     counts = [int(r.corrected) for _, r in loop.scrub_reports]
-    tlo, thi = binom99(k * bits, P10_P_BIT)
+    tlo, thi = binom99(k * bits, p_bit)
     log(f"{what} corrected {counts} at steps "
         f"{[s for s, _ in loop.scrub_reports]} (each in [{lo}, {hi}], 99% "
-        f"over {k} scrubs of {bits} bits at {P10_P_BIT:g}; total "
+        f"over {k} scrubs of {bits} bits at {p_bit:g}; total "
         f"{sum(counts)} in [{tlo}, {thi}])")
     check(all(lo <= c <= hi for c in counts) and tlo <= sum(counts) <= thi,
           f"{what} corrected {counts} outside [{lo}, {hi}] or total "
@@ -2409,7 +2464,7 @@ def train_ecc(torch, card, dev):
 DESCENT_STEPS = (1e-5, 1e-4, 1e-3)
 
 
-def check_descent(torch, cfg, loop, step):
+def check_descent(torch, cfg, loop, step, what="(a)"):
     """At the final params, one backward of step `step`'s batch: a short
     step against the gradient (DESCENT_STEPS[0] along its unit vector)
     must lower that batch's loss; the longer steps are printed.  The
@@ -2435,12 +2490,12 @@ def check_descent(torch, cfg, loop, step):
         prev = eta
         with torch.no_grad():
             shifted.append(float(loss_fn(grads, batch)[0]))
-    log(f"(a) descent on step {step + 1}'s batch at the final params: loss "
+    log(f"{what} descent on step {step + 1}'s batch at the final params: loss "
         f"{base:.6f}, grad norm {norm:.4g}; after steps of "
         f"{', '.join(f'{e:g}' for e in DESCENT_STEPS)} against the unit "
         f"gradient {', '.join(f'{l:.6f}' for l in shifted)}")
-    check(shifted[0] < base, f"(a) a step of {DESCENT_STEPS[0]:g} against "
-          f"the gradient raised the loss: {base} -> {shifted[0]}")
+    check(shifted[0] < base, f"{what} a step of {DESCENT_STEPS[0]:g} "
+          f"against the gradient raised the loss: {base} -> {shifted[0]}")
 
 
 def train_compose(torch, card, dev):
@@ -2773,11 +2828,11 @@ def p11_copy_bytes(cfg) -> int:
     return 4 * count_params(T.model_specs(cfg))
 
 
-def reckon(cfg, schemes, what=""):
+def reckon(cfg, schemes, what="", phase="11"):
     """Log a config's fp32 copy and each scheme's peak reckoned from it."""
     copy = p11_copy_bytes(cfg) / 1e9
-    log(f"phase 11{what}: {cfg.name} at {cfg.n_layers} of its layers: a copy "
-        f"is {copy:.2f} GB; reckoned peaks " + ", ".join(
+    log(f"phase {phase}{what}: {cfg.name} at {cfg.n_layers} of its layers: "
+        f"a copy is {copy:.2f} GB; reckoned peaks " + ", ".join(
             f"{s} {P4_PEAK_RATIO[s] * copy:.1f} GB" for s in schemes))
 
 
@@ -2821,6 +2876,99 @@ def check_flash_zoo(torch, dev):
     return worst
 
 
+def time_zoo_shapes(torch, dev):
+    """Phase 11's block-code and vote launches at its own shapes, timed
+    (CUDA events; the small shapes by CUDA-graph replay) beside their
+    bounds and, where the temporaries fit beside the operands, their plain
+    versions: encode_parity and scrub over the smallest and largest zoo
+    arena (phi3.5-moe at 3 layers, deepseek-67b at 8), scrub over
+    phi3.5-moe's three copies against one table (the ecc+tmr launch),
+    encode_parity over a tick's pages and inject_scrub over a pool copy
+    of phi3.5-moe's server, tmr_vote over its KV cache.  Not counted as
+    the path's launches."""
+    from repro_torch.kernels import diag_parity as D
+    from repro_torch.kernels.inject_scrub import (inject_scrub,
+                                                  inject_scrub_ref)
+    from repro_torch.kernels.tmr_vote import vote, vote_ref
+    from repro_torch.models import transformer as T
+    from repro_torch.models.params import layout
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 13)
+    moe = p11_config(*P11_MOE)
+
+    def arena_words(cfg):
+        return layout(T.model_specs(cfg), cfg.param_dtype).n_words
+
+    for cfg in (moe, p11_config(*P11_ZOO[2])):
+        n = arena_words(cfg)
+        words = random_words(torch, n, g, dev)
+        parity = D.encode_parity(words)
+        enc_ms = time_ms(torch, lambda: D.encode_parity(words), reps=3)
+        scrub_ms = time_ms(torch, lambda: D.scrub(words, parity), reps=3)
+        plain = "not measured (temporaries past the card beside the arena)"
+        if cfg is moe:
+            (pe, enc_plain), (ps, scrub_plain) = (
+                timed_once(torch, lambda: D.encode_parity_ref(words)),
+                timed_once(torch, lambda: D.scrub_ref(words, parity)))
+            check(torch.equal(pe, parity), "zoo arena: encode != plain")
+            plain = f"plain {enc_plain:.1f} / {scrub_plain:.1f} ms"
+            del pe, ps
+        log(f"zoo shapes: {cfg.name} at {cfg.n_layers} layers, {n} words: "
+            f"encode_parity {enc_ms:.3f} ms, scrub {scrub_ms:.3f} ms (clean "
+            f"arena), bounds {bound_ms(n * 4 + n // 32 * 12, 6 * n)[0]:.3f}"
+            f" / {bound_ms(n * 4 + n // 32 * 12, 8 * n)[0]:.3f} ms; {plain}")
+        del words, parity
+        torch.cuda.empty_cache()
+
+    n = arena_words(moe)
+    w3 = torch.empty(3 * n, dtype=torch.int32, device=dev)
+    w3[:n] = random_words(torch, n, g, dev)
+    par = D.encode_parity(w3[:n])
+    w3[n:2 * n] = w3[:n]
+    w3[2 * n:] = w3[:n]
+    ms = time_ms(torch, lambda: D.scrub(w3, par), reps=3)
+    log(f"zoo shapes: scrub over phi3.5-moe's three copies ({3 * n} words, "
+        f"one table, the ecc+tmr launch): {ms:.3f} ms, bound "
+        f"{bound_ms(3 * n * 4 + n // 32 * 12, 8 * 3 * n)[0]:.3f} ms; plain "
+        f"not measured (temporaries past the card beside the copies)")
+    del w3, par
+    torch.cuda.empty_cache()
+
+    kv = tuple(torch.randn((3, 4, 288, moe.n_kv, moe.head_dim), device=dev,
+                           generator=g).to(torch.bfloat16) for _ in range(3))
+    ms, call_ms = small_shape_ms(torch, lambda: vote(*kv))
+    plain_ms = time_ms(torch, lambda: vote_ref(*kv), reps=20)
+    nbytes = kv[0].numel() * 2
+    log(f"zoo shapes: tmr_vote over phi3.5-moe's KV cache "
+        f"{tuple(kv[0].shape)} bf16: {ms:.4f} ms (per call {call_ms:.4f}), "
+        f"plain {plain_ms:.4f} ms, bound "
+        f"{bound_ms(4 * nbytes, 5 * kv[0].numel() / 2)[0]:.4f} ms")
+    del kv
+
+    n_pool, n_page = server_pool_words(moe)
+    pages = random_words(torch, n_page, g, dev)
+    ms, call_ms = small_shape_ms(torch, lambda: D.encode_parity(pages))
+    plain_ms = time_ms(torch, lambda: D.encode_parity_ref(pages), reps=5)
+    log(f"zoo shapes: encode_parity over a tick's pages of phi3.5-moe's "
+        f"pool ({n_page} words): {ms:.4f} ms (per call {call_ms:.4f}), "
+        f"plain {plain_ms:.4f} ms, bound "
+        f"{bound_ms(n_page * 4 + n_page // 32 * 12, 6 * n_page)[0]:.4f} ms")
+    pool = random_words(torch, n_pool, g, dev)
+    ppar = D.encode_parity(pool)
+    mask = torch.zeros_like(pool)       # the timed pass: nothing to repair
+    ms, call_ms = small_shape_ms(torch, lambda: inject_scrub(pool, ppar,
+                                                             mask))
+    plain_ms = time_ms(torch, lambda: inject_scrub_ref(pool, ppar, mask),
+                       reps=5)
+    log(f"zoo shapes: inject_scrub over phi3.5-moe's pool copy ({n_pool} "
+        f"words): {ms:.4f} ms (per call {call_ms:.4f}), plain "
+        f"{plain_ms:.4f} ms, bound "
+        f"{bound_ms(2 * n_pool * 4 + n_pool // 32 * 12, 10 * n_pool)[0]:.4f}"
+        f" ms")
+    del pages, pool, ppar, mask
+    torch.cuda.empty_cache()
+
+
 def count_drops(torch, cfg, params, tokens):
     """Capacity drops of one prefill and one decode step, recorded around
     the MoE dispatch: [(tokens routed, capacity, drops)] a MoE layer."""
@@ -2851,6 +2999,7 @@ def run_zoo_path(torch, card, dev):
     import gc
     t_path = time.perf_counter()
     torch.cuda.empty_cache()
+    time_zoo_shapes(torch, dev)
     err = check_flash_zoo(torch, dev)
     total = {}
 
@@ -3001,6 +3150,482 @@ def check_llama4_smoke(torch, dev):
     log(f"phase 11 (d): llama4 smoke (moe_every 2, top-1, shared expert), "
         f"fp32: card == CPU, tokens {tk[0].tolist()}; logits max abs err "
         f"{err:.3g}; aux {ak:.7f} / {ap:.7f}")
+
+
+# ----------------------------------------------------------------------------
+# 12. the SSM, hybrid, VLM and enc-dec families
+# ----------------------------------------------------------------------------
+
+#: the weights' soft-error rate (every held copy) of the protected runs
+P12_P_BIT = 1e-9
+#: the flash shapes phase 12's prefills give the kernel: (what, B, Sq, Sk,
+#: H, KV, hd, causal, window); cross-attention's k and v are views of one
+#: projected (B, Sk, 2 KV hd) tensor, as `cross_attention` makes them
+P12_FLASH = (
+    ("recurrentgemma-2b local attention", 4, 256, 256, 10, 1, 256, True,
+     2048),
+    ("recurrentgemma-2b past its window", 1, 3072, 3072, 10, 1, 256, True,
+     2048),
+    ("llama-3.2-vision cross-attention", 4, 256, 1600, 32, 8, 128, False,
+     0),
+    ("seamless encoder", 4, 256, 256, 16, 16, 64, False, 0),
+    ("seamless decoder", 4, 256, 256, 16, 16, 64, True, 0),
+    ("seamless cross-attention", 4, 256, 256, 16, 16, 64, False, 0),
+)
+#: llama-3.2-vision's depth under each scheme: full depth (39.1 GB a copy)
+#: only where the reckoned peak stays under 80 GB
+P12_VLM_DEPTH = {"off": 40, "ecc": 20, "ecc+tmr-parallel": 10}
+#: phase 10 (a)'s training peak over its fp32 copy (64.90 / 15.29 GB)
+P10_PEAK_RATIO = 4.24
+#: (f)'s configs, cut in depth only: (arch, layers or None for all)
+P12_TRAIN = (("recurrentgemma-2b", None), ("llama-3.2-vision-11b", 5),
+             ("seamless-m4t-medium", None))
+#: the teacher-forcing gate, both sides in fp32 at weights of std 0.02:
+#: |decode-step logit - forward logit| <= TF_TOL x the largest |forward
+#: logit| (two algorithms, the chunked SSD scan or the doubling RG-LRU
+#: scan against the step recurrence, and the ring cache against windowed
+#: attention, summed in other orders over 24 to 26 layers)
+TF_TOL = 1e-3
+
+
+def p12_config(arch: str, depth=None):
+    from repro_torch.configs import get_config
+    cfg = get_config(arch).replace(attention_impl="pallas")
+    return cfg if depth is None else cfg.replace(n_layers=depth)
+
+
+def flash_pairs(Sq, Sk, causal, window) -> int:
+    """(query, key) pairs the mask keeps (query i at position i)."""
+    total = 0
+    for i in range(Sq):
+        hi = min(Sk, i + 1) if causal else Sk
+        lo = max(0, i - window + 1) if window else 0
+        total += max(0, hi - lo)
+    return total
+
+
+def flash_bf16_tolerance(want):
+    """Per-element bound on |bf16 kernel - plain| at phase 12's shapes: an
+    ulp of the output (2^-7 |plain|) plus P's rounding, which scales with
+    the largest output (2^-8 max|plain|); one kv tile dropped or counted
+    twice breaks it (tests/test_torch_flash_attention.py)."""
+    mag = want.float().abs()
+    return 2 ** -7 * mag + 2 ** -8 * mag.max()
+
+
+def check_flash_families(torch, dev):
+    """Flash against its plain version at phase 12's shapes, in bf16
+    (`flash_bf16_tolerance`) and fp32 (2e-5 + 2e-5 |plain|: the same math
+    summed in another order), the bf16 kernel timed with SDPA beside it
+    (not counted as the path's launches)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_ref)
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 12)
+    for what, B, Sq, Sk, H, KV, hd, causal, window in P12_FLASH:
+        errs = {}
+        for dtype in (torch.bfloat16, torch.float32):
+            q = torch.randn((B, Sq, H, hd), device=dev, generator=g)
+            kv = torch.randn((B, Sk, 2 * KV * hd), device=dev, generator=g)
+            q, kv = q.to(dtype), kv.to(dtype)
+            k = kv[..., :KV * hd].reshape(B, Sk, KV, hd)
+            v = kv[..., KV * hd:].reshape(B, Sk, KV, hd)
+            if "cross" not in what:
+                k, v = k.contiguous(), v.contiguous()
+            kw = dict(causal=causal, window=window)
+            got = flash_attention(q, k, v, **kw)
+            want = flash_attention_ref(q, k, v, **kw)
+            diff = (got.float() - want.float()).abs()
+            tol = (flash_bf16_tolerance(want) if dtype == torch.bfloat16
+                   else 2e-5 + 2e-5 * want.float().abs())
+            ok = bool((diff <= tol).all())
+            errs[dtype] = (diff.max().item(), (diff / tol).max().item(),
+                           want.float().abs().max().item())
+            check(ok, f"flash at {what} ({dtype}): kernel != plain (max abs "
+                  f"err {errs[dtype][0]:.3g}, {errs[dtype][1]:.3g} of its "
+                  f"tolerance)")
+            del got, want, diff, tol
+            if dtype == torch.float32:
+                continue
+            qh, kh, vh = (x.transpose(1, 2) for x in (q, k, v))
+            mask = None
+            if window:
+                i = torch.arange(Sq, device=dev)[:, None]
+                j = torch.arange(Sk, device=dev)[None, :]
+                mask = (j <= i) & (j > i - window)
+            fns = {"kernel": lambda: flash_attention(q, k, v, **kw),
+                   "plain": lambda: flash_attention_ref(q, k, v, **kw),
+                   "SDPA": lambda: F.scaled_dot_product_attention(
+                       qh, kh, vh, attn_mask=mask,
+                       is_causal=causal and mask is None,
+                       enable_gqa=KV != H)}
+            dev_ms = {name: graph_ms(torch, fn, reps=10 if Sq > 1024
+                                     else 50) for name, fn in fns.items()}
+            call_ms = {name: time_ms(torch, fn, reps=10)
+                       for name, fn in fns.items()}
+            pairs = flash_pairs(Sq, Sk, causal, window)
+            bnd = bound_ms(2 * (2 * B * Sq * H * hd + 2 * B * Sk * KV * hd),
+                           4 * B * H * hd * pairs, "bf16")
+            log(f"flash_attention at {what}: B={B} Sq={Sq} Sk={Sk} H={H} "
+                f"KV={KV} hd={hd} {'causal' if causal else 'full'}"
+                f"{f' window={window}' if window else ''} bf16: " + ", ".join(
+                    f"{name} {dev_ms[name]:.4f} ms (per call "
+                    f"{call_ms[name]:.4f})" for name in fns)
+                + f"; bound {bnd[0]:.4f} ms ({bnd[1]}, {pairs} pairs)")
+            del q, k, v, kv, qh, kh, vh, mask
+        log(f"flash_attention at {what}: max abs err " + ", ".join(
+            f"{name} {errs[dt][0]:.3g} ({errs[dt][1]:.3g} of its tolerance, "
+            f"max |plain| {errs[dt][2]:.3g})" for name, dt in
+            (("bf16", torch.bfloat16), ("fp32", torch.float32))))
+    torch.cuda.empty_cache()
+
+
+def open_gates(torch, params) -> int:
+    """Set every cross-attention ``gate`` and the VLM's ``gate_mlp`` to 1.0
+    in place (they initialise to zero, and tanh(0) would zero the whole
+    cross path); returns the leaves set."""
+    from repro_torch.core import tree
+    n = 0
+    for path, x in zip(tree.paths(params), tree.leaves(params)):
+        if path[-1] in ("gate", "gate_mlp"):
+            x.fill_(1.0)
+            n += 1
+    return n
+
+
+def p12_inputs(torch, cfg, batch, prompt_len, dev, what):
+    """make_inputs (params, tokens, the modality input) with every gate
+    open; returns the inputs and the clean arena words."""
+    from repro_torch.core import arena
+    from repro_torch.launch.serve import make_inputs
+    t0 = time.perf_counter()
+    inputs = make_inputs(cfg, batch=batch, prompt_len=prompt_len, seed=SEED,
+                         device=dev)
+    gates = open_gates(torch, inputs["params"])
+    torch.cuda.synchronize()
+    clean, spec = arena.words_of(inputs["params"])
+    n = spec.n_words
+    log(f"phase 12 {what}: {cfg.name} at {cfg.n_layers} layers: random init "
+        f"in {time.perf_counter() - t0:.1f}s, {n} arena words "
+        f"({n * 4 / 1e9:.2f} GB; an encode's or one copy's scrub's byte "
+        f"bound {bound_ms(n * 4 + n // 32 * 12)[0]:.3f} ms), {gates} gate "
+        f"leaves at 1.0, modality "
+        f"{[tuple(v.shape) for v in inputs['modality'].values()]}")
+    return inputs, clean
+
+
+def p12_serve(torch, cfg, inputs, clean, runs, what):
+    """serve_and_check over `runs` [(scheme, kw)] at batch x prompt of
+    `inputs`, protected schemes at P12_P_BIT, TTFT from 8-step chunks;
+    returns (the first run's tokens, the summed launch counts)."""
+    from repro_torch import kernels
+    total, clean_tokens = {}, None
+    for spec_s, kw in runs:
+        p_bit = 0.0 if spec_s == "off" else P12_P_BIT
+        out, counts = serve_and_check(
+            torch, cfg, inputs["params"], inputs["tokens"], clean, spec_s,
+            p_bit, dict(kw, chunk=8), clean_tokens,
+            modality=inputs["modality"])
+        shapes = {k[1]: v for k, v in kernels.launch_shapes().items()
+                  if k[0] == "flash_attention"}
+        if shapes:
+            log(f"phase 12 {what} {spec_s}: flash launches by shape {shapes}")
+        if "tmr" in spec_s:
+            nbytes, leaves = cache_size(cfg, inputs)
+            log(f"phase 12 {what} {spec_s}: a cache vote reads three copies "
+                f"and writes one of {nbytes / 1e6:.2f} MB over {leaves} "
+                f"leaves: byte bound {bound_ms(4 * nbytes)[0]:.4f} ms")
+        need = ["flash_attention"] if cfg.family != "ssm" else []
+        if spec_s != "off":
+            need += ["encode_parity", "scrub"]
+        if "tmr" in spec_s:
+            need.append("tmr_vote")
+        check_launched(counts, need, f"phase 12 {what} {spec_s}")
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+        clean_tokens = out if clean_tokens is None else clean_tokens
+    return clean_tokens, total
+
+
+def conditioned_params(torch, cfg, dev):
+    """Weights at std 0.02 (the specs' zeros and ones kept, every gate at
+    1.0), the CPU tests' draw.  At the reference's fan-in init a third of
+    the RG-LRU's a_t round to within an ulp of 1, where sqrt(1 - a_t^2)
+    keeps no correct digit in fp32, and 26 layers amplify that: two
+    algorithms' logits cannot be held to each other there, nor can the
+    reference's compiled and op-by-op runs (ROADMAP C)."""
+    from repro_torch.core import tree
+    from repro_torch.models import params as P
+    from repro_torch.models import transformer as T
+    specs = T.model_specs(cfg)
+    g = torch.Generator(device=dev).manual_seed(SEED + 22)
+    params = P.materialize(specs, g, cfg.param_dtype, dev)
+    for s, x in zip(tree.leaves(specs), tree.leaves(params)):
+        if s.init not in ("zeros", "ones"):
+            x.normal_(0.0, 0.02, generator=g)
+    open_gates(torch, params)
+    return params
+
+
+def teacher_forcing_error(torch, cfg, params, batch, tokens):
+    """(max |decode logit - forward logit|, max |forward logit|, share of
+    equal greedy ids) with `tokens` fed back through `decode_step` from
+    the prompt's prefill, against `forward` over prompt + tokens."""
+    from repro_torch.models import transformer as T
+    from repro_torch.models.steps import (head_weights, make_decode_step,
+                                          make_prefill_step)
+    S, G = batch["tokens"].shape[1], tokens.shape[1]
+    with torch.no_grad():
+        _, lg, cache = make_prefill_step(cfg, S + G)(params, batch)
+        steps, dec = [lg], make_decode_step(cfg)
+        for i in range(G - 1):
+            _, lg, cache = dec(params, tokens[:, i:i + 1], cache)
+            steps.append(lg)
+        del cache
+        got = torch.cat(steps, 1)
+        ext = dict(batch, tokens=torch.cat([batch["tokens"],
+                                            tokens[:, :-1]], 1))
+        h, _ = T.forward(params, cfg, ext)
+        want = (h[:, S - 1:] @ head_weights(params, cfg)).float()
+        del h
+    return ((got - want).abs().max().item(), want.abs().max().item(),
+            (got.argmax(-1) == want.argmax(-1)).float().mean().item())
+
+
+def cache_size(cfg, inputs):
+    """(bytes, leaves) of the decode cache of a 32-token generation from
+    `inputs` (`cache_specs`, unpinned leaves in the compute dtype)."""
+    from repro_torch.core import tree
+    from repro_torch.models import transformer as T
+    B, S = inputs["tokens"].shape
+    mem = [v.shape[1] for v in inputs["modality"].values()]
+    leaves = tree.leaves(T.cache_specs(cfg, B, S + 32, mem[0] if mem else 0))
+    return sum(math.prod(s.shape) * s.resolved_dtype(
+        cfg.compute_dtype).itemsize for s in leaves), len(leaves)
+
+
+def check_teacher_forcing(torch, cfg, inputs, tokens, what):
+    """The run's generated tokens fed back through the decode steps give
+    the logits `forward` gives over prompt + tokens, both in fp32, within
+    TF_TOL of the largest: gated at weights of std 0.02
+    (`conditioned_params`), and at the run's own weights (the reference's
+    fan-in init) too unless the model has RG-LRU layers, whose figure
+    there is printed, not gated (see `conditioned_params`)."""
+    c32 = cfg.replace(compute_dtype="float32")
+    batch = {"tokens": inputs["tokens"], **inputs["modality"]}
+    S, G = inputs["tokens"].shape[1], tokens.shape[1]
+    t0 = time.perf_counter()
+    params = conditioned_params(torch, c32, inputs["tokens"].device)
+    err, scale, same = teacher_forcing_error(torch, c32, params, batch,
+                                             tokens)
+    del params
+    r_err, r_scale, r_same = teacher_forcing_error(
+        torch, c32, inputs["params"], batch, tokens)
+    torch.cuda.synchronize()
+    own_gated = "r_layers" not in inputs["params"]
+    log(f"phase 12 {what}: teacher forcing over {S} + {G} tokens in fp32 "
+        f"at weights of std 0.02: decode logits vs forward max abs err "
+        f"{err:.3g} of max |logit| {scale:.4g} (gate {TF_TOL:g} x), greedy "
+        f"ids equal at {same:.4f} of positions; at the run's own weights "
+        f"({'gated' if own_gated else 'not gated'}) {r_err:.3g} of "
+        f"{r_scale:.4g}, ids equal at {r_same:.4f}; "
+        f"{time.perf_counter() - t0:.1f} s")
+    check(err <= TF_TOL * scale and math.isfinite(scale),
+          f"phase 12 {what}: teacher-forcing logits differ by {err:.3g} "
+          f"(max |logit| {scale:.4g})")
+    check(not own_gated or (r_err <= TF_TOL * r_scale
+                            and math.isfinite(r_scale)),
+          f"phase 12 {what}: teacher-forcing logits at the run's weights "
+          f"differ by {r_err:.3g} (max |logit| {r_scale:.4g})")
+
+
+def run_family_path(torch, card, dev):
+    """(a)-(f) of phase 12, after flash at its shapes; returns the launch
+    counts of its runs, each counted from 0 around its run."""
+    import gc
+    t_path = time.perf_counter()
+    torch.cuda.empty_cache()
+    check_flash_families(torch, dev)
+    total = {}
+
+    def add(counts):
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    add(run_mamba_serve(torch, card, dev))
+    add(run_mamba_train(torch, card, dev))
+    add(run_hybrid_serve(torch, card, dev))
+    add(run_vlm_serve(torch, card, dev))
+    add(run_encdec_serve(torch, card, dev))
+    add(run_family_train(torch, card, dev))
+    log(f"phase 12: {time.perf_counter() - t_path:.1f} s, launches {total}")
+    return total
+
+
+P12_SCHEMES = [("off", {}), ("ecc", {}),
+               ("ecc+tmr-parallel", dict(vote_every=8, vote_cache=True))]
+
+
+def run_mamba_serve(torch, card, dev):
+    """(a) mamba2-130m, 24 of 24 layers, batch 4, prompt 2048 (8 SSD
+    chunks), gen 32, under the three schemes; then teacher forcing."""
+    cfg = p12_config("mamba2-130m")
+    reckon(cfg, [s for s, _ in P12_SCHEMES], " (a)", phase="12")
+    inputs, clean = p12_inputs(torch, cfg, 4, 2048, dev, "(a)")
+    tokens, counts = p12_serve(torch, cfg, inputs, clean, P12_SCHEMES, "(a)")
+    check_teacher_forcing(torch, cfg, inputs, tokens, "(a)")
+    return counts
+
+
+def run_mamba_train(torch, card, dev):
+    """(b) mamba2-130m by `launch.train` at its defaults (batch 8 x 256,
+    fp32), ecc, a scrub every 4 steps at P12_P_BIT, 12 steps."""
+    from repro_torch import kernels
+    from repro_torch.launch import train
+
+    steps = 12
+    args = train_args(dev, "--arch", "mamba2-130m", "--steps", str(steps),
+                      "--ecc-scrub-every", "4", "--inject-p-bit",
+                      str(P12_P_BIT), "--scheme", "ecc")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    cfg, loop, n_params = train.build(args)
+    bits = leaf_bits(loop.state["params"])
+    t0 = time.perf_counter()
+    loop.run()
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    what = f"phase 12 (b) train {cfg.name} ecc ({n_params} params)"
+    log(f"{what}: {steps} steps in {time.perf_counter() - t0:.1f} s, "
+        f"launches {counts}; peak reckoned "
+        f"{P10_PEAK_RATIO * p11_copy_bytes(cfg) / 1e9:.2f} GB")
+    train_run_stats(torch, loop, args, card, what, peak)
+    losses = check_losses(loop, what)
+    log(f"{what}: losses {[round(l, 4) for l in losses]}")
+    check_scrub_counts(loop, bits, what, P12_P_BIT)
+    check(counts.get("encode_parity") == steps + 1
+          and counts.get("scrub") == 3, f"{what}: launches {counts}")
+    check_descent(torch, cfg, loop, steps - 1, what=what)
+    return counts
+
+
+def run_hybrid_serve(torch, card, dev):
+    """(c) recurrentgemma-2b, 26 of 26 layers: batch 4, prompt 256, gen 32
+    under the three schemes; then batch 1, prompt 3072 (past the 2048
+    window: the windowed flash and the ring cache), gen 32, `off`, and
+    teacher forcing."""
+    cfg = p12_config("recurrentgemma-2b")
+    reckon(cfg, [s for s, _ in P12_SCHEMES], " (c)", phase="12")
+    inputs, clean = p12_inputs(torch, cfg, 4, 256, dev, "(c)")
+    _, counts = p12_serve(torch, cfg, inputs, clean, P12_SCHEMES, "(c)")
+    del inputs, clean
+    torch.cuda.empty_cache()
+    inputs, clean = p12_inputs(torch, cfg, 1, 3072, dev, "(c) long")
+    tokens, long_counts = p12_serve(torch, cfg, inputs, clean,
+                                    [("off", {})], "(c) long")
+    check_teacher_forcing(torch, cfg, inputs, tokens, "(c) long")
+    for k, v in long_counts.items():
+        counts[k] = counts.get(k, 0) + v
+    return counts
+
+
+def run_vlm_serve(torch, card, dev):
+    """(d) llama-3.2-vision-11b, 1600 image tokens of width 4096, batch 4,
+    prompt 256, gen 32: `off` at 40 layers, `ecc` at 20,
+    `ecc+tmr-parallel` at 10 (the depths whose reckoned peaks fit)."""
+    total = {}
+    for spec_s, kw in P12_SCHEMES:
+        cfg = p12_config("llama-3.2-vision-11b", P12_VLM_DEPTH[spec_s])
+        reckon(cfg, [spec_s], " (d)", phase="12")
+        inputs, clean = p12_inputs(torch, cfg, 4, 256, dev, "(d)")
+        # one run a depth: a protected run's tokens are held to `serve`'s
+        # clean generation of the same config (agreement 1.0)
+        _, counts = p12_serve(torch, cfg, inputs, clean, [(spec_s, kw)],
+                              "(d)")
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+        del inputs, clean
+        torch.cuda.empty_cache()
+    return total
+
+
+def run_encdec_serve(torch, card, dev):
+    """(e) seamless-m4t-medium, 12 + 12 layers, batch 4, 256 encoder
+    frames of width 1024, prompt 256, gen 32, under the three schemes."""
+    cfg = p12_config("seamless-m4t-medium")
+    reckon(cfg, [s for s, _ in P12_SCHEMES], " (e)", phase="12")
+    inputs, clean = p12_inputs(torch, cfg, 4, 256, dev, "(e)")
+    _, counts = p12_serve(torch, cfg, inputs, clean, P12_SCHEMES, "(e)")
+    return counts
+
+
+def check_stack_grads(torch, cfg, loop, what):
+    """One backward of step 1's batch at the loop's params through the
+    train step's per-layer leaves: every leaf of every stacked key
+    finite and nonzero."""
+    from repro_torch.core import tree
+    from repro_torch.models.steps import _grad_leaves, make_loss_fn
+    from repro_torch.models.transformer import STACKED
+    params = loop.state["params"]
+    grads = tree.map_tree(torch.zeros_like, params)
+    total, _ = make_loss_fn(cfg)(_grad_leaves(params, grads),
+                                 loop.batch_at(0))
+    total.backward()
+    stacks = [k for k in STACKED if k in grads]
+    bad = [(k,) + p for k in stacks
+           for p, g in zip(tree.paths(grads[k]), tree.leaves(grads[k]))
+           if not (bool(torch.isfinite(g).all()) and bool(g.abs().sum() > 0))]
+    n = sum(len(tree.leaves(grads[k])) for k in stacks)
+    log(f"{what}: grads of {n} leaves over {stacks} finite and nonzero "
+        f"(loss {float(total.detach()):.4f})")
+    check(not bad, f"{what}: zero or non-finite grads at {bad[:5]}")
+    del grads
+
+
+def run_family_train(torch, card, dev):
+    """(f) three steps of each other family by `launch.train` (batch 8 x
+    256, fp32), ecc with a scrub at step 3."""
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train
+
+    total = {}
+    for arch, depth in P12_TRAIN:
+        cfg = get_config(arch)
+        cfg = cfg if depth is None else cfg.replace(n_layers=depth)
+        args = train_args(dev, "--arch", arch, "--steps", "3",
+                          "--ecc-scrub-every", "3", "--inject-p-bit",
+                          str(P12_P_BIT), "--scheme", "ecc")
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launch_counts()
+        cfg, loop, n_params = train.build(args, cfg=cfg)
+        t0 = time.perf_counter()
+        loop.run()
+        torch.cuda.synchronize()
+        counts = kernels.launch_counts()
+        peak = torch.cuda.max_memory_allocated()
+        what = f"phase 12 (f) train {cfg.name} at {cfg.n_layers} layers"
+        log(f"{what}: 3 steps in {time.perf_counter() - t0:.1f} s, launches "
+            f"{counts}; a copy {p11_copy_bytes(cfg) / 1e9:.2f} GB, peak "
+            f"reckoned {P10_PEAK_RATIO * p11_copy_bytes(cfg) / 1e9:.2f} GB")
+        train_run_stats(torch, loop, args, card, what, peak)
+        log(f"{what}: losses "
+            f"{[round(l, 4) for l in check_losses(loop, what)]}")
+        check_launched(counts, ["encode_parity", "scrub"], what)
+        check_stack_grads(torch, cfg, loop, what)
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+        del loop
+        import gc
+        gc.collect()
+        torch.cuda.empty_cache()
+    return total
 
 
 def check_small_reference(torch, dev):

@@ -1,4 +1,4 @@
-"""Architecture registry of the port (the archs ported so far); each
+"""Architecture registry of the port (the reference's ten archs); each
 module defines CONFIG, the same published shape as the reference's."""
 from __future__ import annotations
 
@@ -16,6 +16,10 @@ ARCHS: List[str] = [
     "qwen2_5_14b",
     "llama4_maverick_400b_a17b",
     "phi3_5_moe_42b_a6p6b",
+    "mamba2_130m",
+    "llama_3_2_vision_11b",
+    "recurrentgemma_2b",
+    "seamless_m4t_medium",
 ]
 
 #: canonical external ids (``--arch <id>``)
@@ -26,14 +30,17 @@ ALIASES: Dict[str, str] = {
     "qwen2.5-14b": "qwen2_5_14b",
     "llama4-maverick-400b-a17b": "llama4_maverick_400b_a17b",
     "phi3.5-moe-42b-a6.6b": "phi3_5_moe_42b_a6p6b",
+    "mamba2-130m": "mamba2_130m",
+    "llama-3.2-vision-11b": "llama_3_2_vision_11b",
+    "recurrentgemma-2b": "recurrentgemma_2b",
+    "seamless-m4t-medium": "seamless_m4t_medium",
 }
 
 
 def get_config(name: str) -> ModelConfig:
     mod = ALIASES.get(name, name).replace("-", "_").replace(".", "_")
     if mod not in ARCHS:
-        raise KeyError(f"unknown or unported arch {name!r} "
-                       f"(ported: {list_archs()})")
+        raise KeyError(f"unknown arch {name!r} (one of {list_archs()})")
     return importlib.import_module(f".{mod}", __package__).CONFIG
 
 

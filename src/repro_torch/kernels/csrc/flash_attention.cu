@@ -19,11 +19,13 @@
 // memory; P is rounded to bf16 in registers, where the S accumulator's
 // layout is already the A-fragment layout, and O += P V is `wgmma`
 // m64nDk16 with P from registers and V from shared memory (D = head_dim
-// padded to 32, 64, 96 or 128).  The row max and sum of the online softmax
-// stay fp32 in registers (two rows a thread, four threads a row).  Q is
-// staged once; K/V tiles of 64 keys go through a two-stage ring, loaded
-// with 16-byte cp.async (the strided rows do not fit one TMA box without a
-// descriptor per call), so tile i+1 is in flight while tile i is computed.
+// padded to 32, 64, 96 or 128; at 256, two n128 halves, and Q plus the
+// two K/V stages take 160 KB of shared memory).  The row max and sum of
+// the online softmax stay fp32 in registers (two rows a thread, four
+// threads a row).  Q is staged once; K/V tiles of 64 keys go through a
+// two-stage ring, loaded with 16-byte cp.async (the strided rows do not
+// fit one TMA box without a descriptor per call), so tile i+1 is in flight
+// while tile i is computed.
 // Operands sit in shared memory in the wgmma core-matrix layout without
 // swizzle: 8 rows x 16 bytes per 128-byte core matrix, one cp.async chunk a
 // core-matrix row.  Only tiles that cross the causal diagonal, the window
@@ -31,8 +33,9 @@
 // can see are skipped.  head_dim a multiple of 8 and 16-byte aligned rows
 // (the wrapper checks).
 //
-// float32 (flash_fwd_kernel, tests only): CUDA-core FMAs, a CTA of 8 warps
-// holds 16 query rows in shared memory as fp32, one lane per key of a
+// float32 (flash_fwd_kernel, tests and the chip checks): CUDA-core FMAs, a
+// CTA of 8 warps holds 16 query rows in dynamic shared memory as fp32
+// (head_dim padded to 128 or 256: 40 or 80 KB), one lane per key of a
 // 32-key tile, the P.V product by shuffles.
 //
 // Bound: causal prefill at B=4, H=32, S=256, hd=96 does 4*B*H*hd*S(S+1)/2
@@ -44,12 +47,11 @@
 
 namespace {
 
-constexpr int HD_MAX = 128;
+constexpr int HD_MAX = 256;
 constexpr int BQ = 16;
 constexpr int BK = 32;
 constexpr int NWARPS = 8;
 constexpr int RPW = BQ / NWARPS;   // query rows per warp
-constexpr int DPL = HD_MAX / 32;   // output dims per lane
 constexpr float NEG_INF = -1e30f;
 
 struct Strides {
@@ -71,15 +73,19 @@ __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);
 }
 
-template <typename T>
+template <typename T, int HDM>
 __global__ void __launch_bounds__(NWARPS * 32)
     flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      const T* __restrict__ v, T* __restrict__ o, int H,
                      int KV, int Sq, int Sk, int hd, Strides st, float scale,
                      int causal, int window) {
-  __shared__ float qs[BQ][HD_MAX];
-  __shared__ float ks[BK][HD_MAX + 1];
-  __shared__ float vs[BK][HD_MAX];
+  // q rows (BQ x HDM), k rows (BK x HDM + 1: the padded row keeps a
+  // lane's column reads off one bank), v rows (BK x HDM), all fp32
+  extern __shared__ __align__(16) float fp32_smem[];
+  float* qs = fp32_smem;
+  float* ks = qs + BQ * HDM;
+  float* vs = ks + BK * (HDM + 1);
+  constexpr int DPL = HDM / 32;  // output dims per lane
 
   const int b = blockIdx.y / H;
   const int h = blockIdx.y % H;
@@ -88,12 +94,12 @@ __global__ void __launch_bounds__(NWARPS * 32)
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
 
-  for (int idx = threadIdx.x; idx < BQ * HD_MAX; idx += blockDim.x) {
-    const int r = idx / HD_MAX, d = idx % HD_MAX, qi = q0 + r;
+  for (int idx = threadIdx.x; idx < BQ * HDM; idx += blockDim.x) {
+    const int r = idx / HDM, d = idx % HDM, qi = q0 + r;
     float val = 0.f;
     if (qi < Sq && d < hd)
       val = to_f(q[b * st.qb + qi * st.qs + h * st.qh + d]) * scale;
-    qs[r][d] = val;
+    qs[r * HDM + d] = val;
   }
 
   float m[RPW], l[RPW], acc[RPW][DPL];
@@ -114,15 +120,15 @@ __global__ void __launch_bounds__(NWARPS * 32)
 
   for (int k0 = k_lo; k0 < k_hi; k0 += BK) {
     __syncthreads();  // previous tile fully consumed (and q tile written)
-    for (int idx = threadIdx.x; idx < BK * HD_MAX; idx += blockDim.x) {
-      const int j = idx / HD_MAX, d = idx % HD_MAX, kj = k0 + j;
+    for (int idx = threadIdx.x; idx < BK * HDM; idx += blockDim.x) {
+      const int j = idx / HDM, d = idx % HDM, kj = k0 + j;
       float kv = 0.f, vv = 0.f;
       if (kj < Sk && d < hd) {
         kv = to_f(k[b * st.kb + kj * st.ks + kvh * st.kh + d]);
         vv = to_f(v[b * st.vb + kj * st.vs + kvh * st.vh + d]);
       }
-      ks[j][d] = kv;
-      vs[j][d] = vv;
+      ks[j * (HDM + 1) + d] = kv;
+      vs[j * HDM + d] = vv;
     }
     __syncthreads();
 #pragma unroll
@@ -132,7 +138,8 @@ __global__ void __launch_bounds__(NWARPS * 32)
       if (qi >= Sq) continue;  // warp-uniform
       const int kj = k0 + lane;
       float s = 0.f;
-      for (int d = 0; d < hd; ++d) s = fmaf(qs[row][d], ks[lane][d], s);
+      for (int d = 0; d < hd; ++d)
+        s = fmaf(qs[row * HDM + d], ks[lane * (HDM + 1) + d], s);
       bool keep = true;
       if (causal) keep &= qi >= kj;
       if (window) keep &= kj > qi - window;
@@ -149,7 +156,7 @@ __global__ void __launch_bounds__(NWARPS * 32)
         const float pj = __shfl_sync(0xffffffffu, p, j);
 #pragma unroll
         for (int e = 0; e < DPL; ++e)
-          acc[r][e] = fmaf(pj, vs[j][lane + 32 * e], acc[r][e]);
+          acc[r][e] = fmaf(pj, vs[j * HDM + lane + 32 * e], acc[r][e]);
       }
       m[r] = m_new;
     }
@@ -167,6 +174,22 @@ __global__ void __launch_bounds__(NWARPS * 32)
         o[b * st.ob + qi * st.os + h * st.oh + d] = from_f<T>(acc[r][e] * inv);
     }
   }
+}
+
+template <int HDM>
+int launch_fp32(const float* q, const float* k, const float* v, float* o,
+                int B, int H, int KV, int Sq, int Sk, int hd,
+                const Strides& st, float scale, int causal, int window,
+                cudaStream_t s) {
+  auto kernel = flash_fwd_kernel<float, HDM>;
+  const int smem = (BQ * HDM + BK * (HDM + 1) + BK * HDM) * 4;
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return (int)e;
+  const dim3 grid((Sq + BQ - 1) / BQ, B * H);
+  kernel<<<grid, NWARPS * 32, smem, s>>>(q, k, v, o, H, KV, Sq, Sk, hd, st,
+                                         scale, causal, window);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -343,14 +366,25 @@ __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
 }
 
+// O += P V over head_dim HDP, V's 16 keys of this k-step at tile v (MN-
+// major).  At 256, two n128 halves: the second half's B starts 16 column
+// groups on, and its accumulators are o's upper 64 (the D layout keeps
+// columns 8j.. in registers 4j..).
 template <int HDP>
 __device__ __forceinline__ void wgmma_pv(float (&d)[HDP / 2],
                                          const uint32_t (&a)[4],
-                                         uint64_t desc_b) {
-  if constexpr (HDP == 32) wgmma_rs_n32(d, a, desc_b);
-  if constexpr (HDP == 64) wgmma_rs_n64(d, a, desc_b);
-  if constexpr (HDP == 96) wgmma_rs_n96(d, a, desc_b);
-  if constexpr (HDP == 128) wgmma_rs_n128(d, a, desc_b);
+                                         const __nv_bfloat16* v) {
+  const uint64_t desc = make_desc(v, ROW_GROUP_BYTES, col_group_bytes(BK));
+  if constexpr (HDP == 32) wgmma_rs_n32(d, a, desc);
+  if constexpr (HDP == 64) wgmma_rs_n64(d, a, desc);
+  if constexpr (HDP == 96) wgmma_rs_n96(d, a, desc);
+  if constexpr (HDP == 128) wgmma_rs_n128(d, a, desc);
+  if constexpr (HDP == 256) {
+    wgmma_rs_n128(*reinterpret_cast<float(*)[64]>(d), a, desc);
+    wgmma_rs_n128(*reinterpret_cast<float(*)[64]>(d + 64), a,
+                  make_desc(v + 16 * BK * 8, ROW_GROUP_BYTES,
+                            col_group_bytes(BK)));
+  }
 }
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
@@ -524,8 +558,7 @@ __global__ void __launch_bounds__(THREADS)
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < BK / 16; ++kk)
-      wgmma_pv<HDP>(o_acc, a[kk], make_desc(tV + kk * 128, ROW_GROUP_BYTES,
-                                            col_group_bytes(BK)));
+      wgmma_pv<HDP>(o_acc, a[kk], tV + kk * 128);
     wgmma_commit();
     wgmma_wait_all();
     fence_regs(o_acc);
@@ -590,12 +623,15 @@ extern "C" int flash_attention_fwd(const void* q, const void* k,
              strides[8], strides[9], strides[10], strides[11]};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) {
-    const dim3 grid((Sq + BQ - 1) / BQ, B * H);
-    flash_fwd_kernel<float><<<grid, NWARPS * 32, 0, s>>>(
-        static_cast<const float*>(q), static_cast<const float*>(k),
-        static_cast<const float*>(v), static_cast<float*>(o), H, KV, Sq, Sk,
-        hd, st, scale, causal, window);
-    return (int)cudaGetLastError();
+    const float* qf = static_cast<const float*>(q);
+    const float* kf = static_cast<const float*>(k);
+    const float* vf = static_cast<const float*>(v);
+    float* of = static_cast<float*>(o);
+    if (hd <= 128)
+      return launch_fp32<128>(qf, kf, vf, of, B, H, KV, Sq, Sk, hd, st,
+                              scale, causal, window, s);
+    return launch_fp32<256>(qf, kf, vf, of, B, H, KV, Sq, Sk, hd, st, scale,
+                            causal, window, s);
   }
   bool aligned = hd % 8 == 0;
   for (int i = 0; i < 12; ++i) aligned &= strides[i] % 8 == 0;
@@ -612,6 +648,9 @@ extern "C" int flash_attention_fwd(const void* q, const void* k,
   if (hd <= 96)
     return wg::launch_wgmma<96>(q, k, v, o, B, H, KV, Sq, Sk, hd, st, scale,
                                 causal, window, s);
-  return wg::launch_wgmma<128>(q, k, v, o, B, H, KV, Sq, Sk, hd, st, scale,
+  if (hd <= 128)
+    return wg::launch_wgmma<128>(q, k, v, o, B, H, KV, Sq, Sk, hd, st,
+                                 scale, causal, window, s);
+  return wg::launch_wgmma<256>(q, k, v, o, B, H, KV, Sq, Sk, hd, st, scale,
                                causal, window, s);
 }

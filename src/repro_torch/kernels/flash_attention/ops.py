@@ -14,7 +14,7 @@ from .ref import flash_attention_ref
 
 __all__ = ["flash_attention"]
 
-HEAD_DIM_MAX = 128
+HEAD_DIM_MAX = 256
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -65,5 +65,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                          "pointers 16-byte aligned")
     out = torch.empty((B, Sq, H, hd), dtype=q.dtype, device=q.device)
     kernel.forward(q, k, v, out, causal, window)
-    _build.count_launch("flash_attention")
+    _build.count_launch("flash_attention",
+                        f"B={B} Sq={Sq} Sk={k.shape[1]} H={H} KV={KV} hd={hd} "
+                        f"{'causal' if causal else 'full'} window={window} "
+                        f"{str(q.dtype)[6:]}")
     return out

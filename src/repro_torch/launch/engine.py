@@ -12,12 +12,12 @@
   which would not fit one card at phi3-mini width).
 * **generation** -- the reference's `lax.scan` over decode steps is a
   Python loop here.  'parallel'/'semi' TMR loop over the three copies
-  inside each step and vote the token ids (and, with `vote_cache`, the KV
-  caches) every `vote_every` steps on the reference's schedule
-  ``(step + 1) % vote_every == 0``; 'serial' runs three single-copy
-  generations and votes the sequences part by part (elementwise, so the
-  final-sequence vote).  What is held against the reference
-  is tokens and counters, not the launch shape.
+  inside each step and vote the token ids (and, with `vote_cache`, every
+  leaf of the decode caches) every `vote_every` steps on the reference's
+  schedule ``(step + 1) % vote_every == 0``; 'serial' runs three
+  single-copy generations and votes the sequences part by part
+  (elementwise, so the final-sequence vote).  What is held against the
+  reference is tokens and counters, not the launch shape.
 * **chunked generation** -- `generate_chunked` runs the decode steps in
   chunks of the reference's `_chunk_sizes` schedule and marks a
   `LatencyTimeline` after each chunk lands (a `torch.cuda.synchronize()`
@@ -76,15 +76,16 @@ def _unmarked(n: int) -> None:
 class GenerationEngine:
     """Batched greedy generation under a protection scheme.
 
-    cfg        : model config (dense or MoE family; every leaf of the
-                 params tree, MoE's ``dense_layers`` included, is carried
-                 through the store, the copies and the vote alike).
+    cfg        : model config, any family (every leaf of the params tree
+                 is carried through the store, the copies and the vote
+                 alike).
     scheme     : `Unprotected` (None), `DiagParityEcc`, `Tmr`, `Compose`.
     gen        : tokens to generate (prompt excluded).
     cache_len  : decode-cache length (default prompt_len + gen).
     vote_every : parallel/semi TMR or Compose: vote the per-copy token ids
                  every k decode steps (0 = vote only the final sequences).
-    vote_cache : also vote the KV caches at those vote points.
+    vote_cache : also vote every leaf of the decode caches at those vote
+                 points (K/V, recurrent states, conv tails, positions).
     execution  : 'scan' (the in-loop vote schedule) or 'loop' (three
                  sequential generations, one final vote -- the reference).
     device     : where it runs; CUDA unless 'cpu' is asked for.
@@ -295,8 +296,10 @@ class GenerationEngine:
             if self.vote_every and (step + 1) % self.vote_every == 0:
                 tok3 = [vote(*tok3)] * 3
                 if self.vote_cache:
-                    for name in sorted(cache3[0]):
-                        a, b, c = (cc[name] for cc in cache3)
+                    # every leaf of the cache tree (K/V, the SSM and RG-LRU
+                    # states and conv tails, the position), as the
+                    # reference's tree map
+                    for a, b, c in zip(*(T.leaves(cc) for cc in cache3)):
                         vote(a, b, c, out=a)   # in place into copy 0,
                         b.copy_(a)             # then to the other copies
                         c.copy_(a)

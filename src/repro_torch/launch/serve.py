@@ -25,9 +25,12 @@ the scheme, and the ``mmpu_*`` gauges in the telemetry; ``--mmpu-events
 PATH`` dumps the event stream as JSONL; ``--mmpu-device`` picks the
 `configs.mmpu_paper` device spec.
 
-Server mode (``--server``) serves an open-loop Poisson trace through the
-continuous-batching scheduler (`launch.batching`: paged ECC-protected KV
-pool, chunk-boundary admission):
+The vlm and encdec families also get their stub modality input (image
+patch or frame embeddings, `make_inputs`).  Server mode (``--server``;
+the dense and MoE families, whose caches are paged, as in the reference)
+serves an open-loop Poisson trace through the continuous-batching
+scheduler (`launch.batching`: paged ECC-protected KV pool, chunk-boundary
+admission):
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch phi3-mini-3.8b \\
       --server --rate 2 --requests 8 --slots 4 --prompt-len 256 --gen 32 \\
@@ -105,14 +108,24 @@ def _write_records(tracer: Tracer, record: Dict[str, Any], kind: str,
 
 def make_inputs(cfg: ModelConfig, batch: int, prompt_len: int, seed: int,
                 device) -> Dict[str, Any]:
-    """Random-init parameters (into an arena) and prompt tokens, drawn in
-    that order from one generator seeded with `seed` on `device`."""
+    """Random-init parameters (into an arena), prompt tokens and the stub
+    modality inputs, drawn in that order from one generator seeded with
+    `seed` on `device`: ``modality`` holds vis_emb (batch, vis_tokens,
+    vis_dim) for the vlm family, enc_emb (batch, prompt_len, d_model) for
+    encdec (standard normal, fp32), and nothing for the others."""
     device = resolve_device(device)
     g = torch.Generator(device=device).manual_seed(seed)
     params = P.materialize(T.model_specs(cfg), g, cfg.param_dtype, device)
     tokens = torch.randint(0, cfg.vocab, (batch, prompt_len), generator=g,
                            device=device, dtype=torch.int64).to(torch.int32)
-    return {"params": params, "tokens": tokens}
+    modality = {}
+    if cfg.family == "vlm":
+        modality["vis_emb"] = torch.randn(
+            (batch, cfg.vis_tokens, cfg.vis_dim), generator=g, device=device)
+    if cfg.family == "encdec":
+        modality["enc_emb"] = torch.randn(
+            (batch, prompt_len, cfg.d_model), generator=g, device=device)
+    return {"params": params, "tokens": tokens, "modality": modality}
 
 
 def serve(cfg: ModelConfig, params: Any, tokens: torch.Tensor,
@@ -121,15 +134,19 @@ def serve(cfg: ModelConfig, params: Any, tokens: torch.Tensor,
           fault: str = "bitflip", seed: int = 0, engine: str = "scan",
           chunk: int = 0, cost_spec=None, mmpu_events: Optional[str] = None,
           trace_path: Optional[str] = None,
-          metrics_path: Optional[str] = None, device=None) -> Dict[str, Any]:
+          metrics_path: Optional[str] = None, device=None,
+          modality: Optional[Dict[str, torch.Tensor]] = None
+          ) -> Dict[str, Any]:
     """Prepare the scheme's store under `fault` at rate `p_bit`, run one
     untimed warmup generation and one timed one (chunked when `chunk`),
     fetch the telemetry once, and compare with a clean run.  Prints the
     reference's ``[serve]`` lines and returns the results: tokens, stats,
     agreement, tok/s, prepare seconds, the latency summary (chunked runs),
-    the mMPU projection (with `cost_spec`), the store and the engine."""
+    the mMPU projection (with `cost_spec`), the store and the engine.
+    `modality` holds the stub modality inputs beside the tokens (vis_emb,
+    enc_emb; `make_inputs`)."""
     device = resolve_device(device)
-    batch = {"tokens": tokens}
+    batch = {"tokens": tokens, **(modality or {})}
     tracer = Tracer(enabled=bool(trace_path or metrics_path))
     eng = GenerationEngine(cfg, scheme, gen=gen, vote_every=vote_every,
                            vote_cache=vote_cache, execution=engine,
@@ -446,7 +463,8 @@ def main(argv: Optional[list] = None) -> None:
           p_bit=args.inject_p_bit, fault=args.fault, seed=args.seed,
           engine=args.engine, chunk=args.chunk, cost_spec=cost_spec,
           mmpu_events=args.mmpu_events, trace_path=args.trace,
-          metrics_path=args.metrics, device=device)
+          metrics_path=args.metrics, device=device,
+          modality=inputs["modality"])
 
 
 if __name__ == "__main__":

@@ -5,8 +5,12 @@ reliability layer into a `TrainLoop`, on CUDA unless ``--device cpu``.
   PYTHONPATH=src python -m repro_torch.launch.train --device cpu --smoke \\
       --steps 20 --ecc-scrub-every 5 --inject-p-bit 1e-6
 
-The reference's default arch, mamba2-130m, is not ported (the dense and
-MoE families are), so the default here is phi3-mini-3.8b.
+Every arch of the registry trains; the default is the reference's,
+mamba2-130m.  The vlm and encdec families get their stub modality input
+(vis_emb (batch, vis_tokens, vis_dim), enc_emb (batch, seq, d_model),
+standard normal) drawn anew each step from a generator seeded with
+``derive_seed(seed, step)``, the counterpart of the reference's
+``fold_in(key, step)``.
 """
 from __future__ import annotations
 
@@ -18,6 +22,7 @@ import torch
 
 from ..checkpoint import Checkpointer
 from ..configs import get_config, list_archs
+from ..core.seeds import derive_seed
 from ..data.synthetic import SyntheticLM
 from ..device import resolve_device
 from ..models import params as P
@@ -60,7 +65,16 @@ def build(args, tracer: Tracer = NULL_TRACER,
                        batch_per_rank=args.batch, seed=args.seed)
 
     def batch_at(step):
-        return {"tokens": torch.from_numpy(data.batch_at(step)).to(device)}
+        b = {"tokens": torch.from_numpy(data.batch_at(step)).to(device)}
+        shape = {"vlm": ("vis_emb", (args.batch, cfg.vis_tokens,
+                                     cfg.vis_dim)),
+                 "encdec": ("enc_emb", (args.batch, args.seq, cfg.d_model)),
+                 }.get(cfg.family)
+        if shape is not None:
+            g = torch.Generator(device=device).manual_seed(
+                derive_seed(args.seed, step))
+            b[shape[0]] = torch.randn(shape[1], generator=g, device=device)
+        return b
 
     ckpt = Checkpointer(args.ckpt_dir, keep=2) if args.ckpt_dir else None
     loop_cfg = LoopConfig(total_steps=args.steps,
@@ -79,9 +93,9 @@ def build(args, tracer: Tracer = NULL_TRACER,
 def parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(
         description=__doc__, formatter_class=argparse.RawTextHelpFormatter)
-    ap.add_argument("--arch", default="phi3-mini-3.8b", choices=list_archs(),
-                    help="a ported arch, dense or MoE (the reference's "
-                         "default, mamba2-130m, is not ported)")
+    ap.add_argument("--arch", default="mamba2-130m", choices=list_archs(),
+                    help="any arch of the registry (default: the "
+                         "reference's, mamba2-130m)")
     ap.add_argument("--smoke", action="store_true",
                     help="reduced same-family config (CPU-runnable)")
     ap.add_argument("--steps", type=int, default=100)

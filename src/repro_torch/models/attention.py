@@ -1,5 +1,6 @@
-"""Attention for the dense family (port of `repro.models.attention`):
-GQA self-attention with RoPE -- full-matrix (`naive_attention`), blocked
+"""Attention (port of `repro.models.attention`): GQA self-attention with
+RoPE and gated cross-attention to a memory (image patches, encoder
+states) -- full-matrix (`naive_attention`), blocked
 online-softmax (`blocked_attention`) and the hand-written
 CUDA flash kernel (``attention_impl="pallas"``, the reference's name, forward
 only as the reference's Pallas kernel is) -- plus single-token decode
@@ -8,6 +9,8 @@ backward as a `torch.autograd.Function`, in plain PyTorch as the
 reference's is in `jnp`."""
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 from .config import ModelConfig
@@ -15,8 +18,8 @@ from .nn import rms_norm, rope
 from .params import Spec
 
 __all__ = ["attn_specs", "attention", "self_attention",
-           "decode_self_attention", "blocked_attention", "naive_attention",
-           "NEG_INF"]
+           "decode_self_attention", "cross_attn_specs", "cross_attention",
+           "blocked_attention", "naive_attention", "NEG_INF"]
 
 NEG_INF = -1e30
 
@@ -271,3 +274,33 @@ def decode_self_attention(p, cfg: ModelConfig, x, cache_k, cache_v, pos, *,
     o = torch.einsum("bkgqs,bskd->bqkgd", probs, vc.float())
     o = o.reshape(B, 1, H * hd).to(x.dtype)
     return o @ p["wo"].to(x.dtype), cache_k, cache_v
+
+
+def cross_attn_specs(cfg: ModelConfig, mem_dim: Optional[int] = None) -> dict:
+    d, H, KV, hd = cfg.d_model, cfg.n_heads, cfg.n_kv, cfg.head_dim
+    md = mem_dim or cfg.d_model
+    return {
+        "ln": Spec((d,), ("model_dim",), "zeros"),
+        "wq": Spec((d, H * hd), ("model_dim", "heads"), "scaled"),
+        "wkv": Spec((md, 2 * KV * hd), ("model_dim", "kv_heads"), "scaled"),
+        "wo": Spec((H * hd, d), ("heads", "model_dim"), "scaled"),
+        "gate": Spec((), (), "zeros"),
+    }
+
+
+def cross_attention(p, cfg: ModelConfig, x, memory):
+    """Cross-attention of x (B,S,D) to a (B,M,mem_dim) memory (vision
+    patches, encoder states), without RoPE or a mask, gated by
+    tanh(gate) as Llama-3.2 vision's cross-attention layers are."""
+    h = rms_norm(x, p["ln"], cfg.norm_eps)
+    B, S, _ = h.shape
+    M = memory.shape[1]
+    H, KV, hd = cfg.n_heads, cfg.n_kv, cfg.head_dim
+    dt = x.dtype
+    q = (h @ p["wq"].to(dt)).reshape(B, S, H, hd)
+    kv = memory.to(dt) @ p["wkv"].to(dt)
+    k = kv[..., :KV * hd].reshape(B, M, KV, hd)
+    v = kv[..., KV * hd:].reshape(B, M, KV, hd)
+    o = attention(q, k, v, cfg, causal=False)
+    out = o.reshape(B, S, -1) @ p["wo"].to(dt)
+    return torch.tanh(p["gate"].float()).to(dt) * out

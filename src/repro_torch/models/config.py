@@ -1,6 +1,7 @@
 """Model configuration (port of `repro.models.config`; same fields, so a
-configuration carries across packages unchanged).  The dense and MoE
-families have a model in the port so far."""
+configuration carries across packages unchanged).  Every family of the
+reference has a model in the port: dense, moe, ssm, hybrid, vlm and
+encdec."""
 from __future__ import annotations
 
 import dataclasses
@@ -81,6 +82,14 @@ class ModelConfig:
         return self.d_model // self.n_heads
 
     @property
+    def d_inner(self) -> int:         # SSM inner width
+        return self.ssm_expand * self.d_model
+
+    @property
+    def ssm_heads(self) -> int:
+        return self.d_inner // self.ssm_headdim
+
+    @property
     def cdtype(self) -> torch.dtype:
         return getattr(torch, self.compute_dtype)
 
@@ -93,10 +102,7 @@ class ModelConfig:
 
     def smoke(self) -> "ModelConfig":
         """A tiny same-family config for CPU smoke tests (the reference's
-        sizes for the dense and MoE families)."""
-        if self.family not in ("dense", "moe"):
-            raise NotImplementedError(
-                f"the port has no {self.family!r} family yet")
+        sizes)."""
         kw = dict(
             n_layers=min(self.n_layers, 4), d_model=128, n_heads=4,
             n_kv=min(max(self.n_kv * 4 // max(self.n_heads, 1), 1), 4),
@@ -104,4 +110,16 @@ class ModelConfig:
         if self.family == "moe":
             kw.update(moe_experts=4, moe_topk=min(self.moe_topk, 2),
                       moe_dff=128)
+        if self.family == "ssm":
+            kw.update(ssm_state=16, ssm_headdim=32, ssm_chunk=16, d_model=64,
+                      n_heads=1, n_kv=1, d_ff=0)
+        if self.family == "hybrid":
+            kw.update(layer_pattern=self.layer_pattern, local_window=32,
+                      lru_width=128, n_layers=5, n_kv=1, ssm_chunk=16)
+        if self.family == "vlm":
+            kw.update(cross_attn_every=self.cross_attn_every, vis_tokens=16,
+                      vis_dim=128,
+                      n_layers=min(self.n_layers, self.cross_attn_every * 2))
+        if self.family == "encdec":
+            kw.update(enc_layers=2, n_layers=2)
         return self.replace(**kw)

@@ -1,6 +1,6 @@
-"""Neural-net pieces of the dense and MoE families (port of
-`repro.models.nn`): RMSNorm, RoPE, the activations, the MLP (swiglu,
-geglu, relu2, gelu), the embedding specs and the cross entropy.
+"""Neural-net pieces (port of `repro.models.nn`): RMSNorm, LayerNorm, RoPE,
+the activations, the MLP (swiglu, geglu, relu2, gelu), the embedding specs
+and the cross entropy.
 
 GELU is the tanh approximation, as `jax.nn.gelu`'s default is
 (``approximate=True``); PyTorch's default is the exact erf form."""
@@ -14,8 +14,8 @@ import torch.nn.functional as F
 from .config import ModelConfig
 from .params import Spec
 
-__all__ = ["rms_norm", "rope", "act_fn", "gelu", "mlp_specs", "mlp_apply",
-           "embed_specs", "softmax_xent"]
+__all__ = ["rms_norm", "layer_norm", "rope", "act_fn", "gelu", "mlp_specs",
+           "mlp_apply", "embed_specs", "softmax_xent"]
 
 
 def rms_norm(x: torch.Tensor, scale: torch.Tensor,
@@ -26,6 +26,19 @@ def rms_norm(x: torch.Tensor, scale: torch.Tensor,
     ms = x.square().float().mean(-1, keepdim=True)
     inv = torch.rsqrt(ms + eps)
     return x * inv.to(dt) * (1.0 + scale).to(dt)
+
+
+def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+               eps: float = 1e-5) -> torch.Tensor:
+    """(x - mean) * rsqrt(var + eps) * scale + bias over the last axis, in
+    fp32, returned in x's dtype (exported by the reference, used by no
+    model there)."""
+    dt = x.dtype
+    x = x.float()
+    mu = x.mean(-1, keepdim=True)
+    var = (x - mu).square().mean(-1, keepdim=True)
+    x = (x - mu) * torch.rsqrt(var + eps)
+    return (x * scale.float() + bias.float()).to(dt)
 
 
 def rope(x: torch.Tensor, positions: torch.Tensor,

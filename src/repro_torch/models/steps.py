@@ -25,7 +25,7 @@ from ..core import tree as T
 from ..optim import (AdamWConfig, adamw_update, compress_decompress,
                      init_error_state, init_opt_state)
 from .config import ModelConfig
-from .transformer import decode_step, forward, prefill
+from .transformer import STACKED, decode_step, forward, prefill
 
 __all__ = ["head_weights", "chunked_xent", "make_loss_fn", "make_train_step",
            "init_train_state", "make_prefill_step", "make_decode_step"]
@@ -71,7 +71,9 @@ def chunked_xent(hidden: torch.Tensor, head: torch.Tensor,
 
 
 def make_loss_fn(cfg: ModelConfig):
-    """loss_fn(params, batch) -> (total, {loss, aux})."""
+    """loss_fn(params, batch) -> (total, {loss, aux}).  batch: tokens
+    (B, S), the stub modality input `forward` reads (vis_emb for the vlm
+    family, enc_emb for encdec), optionally a mask."""
     def loss_fn(params, batch):
         hidden, aux = forward(params, cfg, batch)
         labels = batch["tokens"][:, 1:]
@@ -88,28 +90,25 @@ def make_loss_fn(cfg: ModelConfig):
 def _grad_leaves(params: Any, grads: Any) -> Any:
     """The model's view of `params` for one backward: leaves that alias
     the params' storage and require grad, with ``.grad`` set to views of
-    `grads`, so autograd accumulates into `grads` in place.  Stacked layer
-    leaves become a list of per-layer trees."""
+    `grads`, so autograd accumulates into `grads` in place.  Every stacked
+    layer key (`transformer.STACKED`) becomes a list of per-layer trees,
+    a list of lists for the two-level stacks (MoE's ``dense_layers``, the
+    VLM's ``self_layers``)."""
     def alias(p, g):
         a = p.detach().requires_grad_()
         a.grad = g
         return a
 
-    out = {k: T.map_tree(alias, v, grads[k]) for k, v in params.items()
-           if k not in ("layers", "dense_layers")}
-    if "layers" in params:
-        stacked, gstacked = params["layers"], grads["layers"]
+    def split(stacked, gstacked, depth):
+        if depth == 0:
+            return T.map_tree(alias, stacked, gstacked)
         n = T.leaves(stacked)[0].shape[0]
-        out["layers"] = [T.map_tree(lambda p, g, i=i: alias(p[i], g[i]),
-                                    stacked, gstacked) for i in range(n)]
-    if "dense_layers" in params:
-        stacked, gstacked = params["dense_layers"], grads["dense_layers"]
-        n, m = T.leaves(stacked)[0].shape[:2]
-        out["dense_layers"] = [
-            [T.map_tree(lambda p, g, i=i, j=j: alias(p[i, j], g[i, j]),
-                        stacked, gstacked) for j in range(m)]
-            for i in range(n)]
-    return out
+        return [split(T.map_tree(lambda w, i=i: w[i], stacked),
+                      T.map_tree(lambda w, i=i: w[i], gstacked), depth - 1)
+                for i in range(n)]
+
+    return {k: split(v, grads[k], STACKED.get(k, 0))
+            for k, v in params.items()}
 
 
 def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig,

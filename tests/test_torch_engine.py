@@ -5,7 +5,10 @@ the engine's ``fold_in(key, 100 + copy)`` convention) under every serving
 scheme.  The prepared store, greedy tokens and every telemetry counter
 must be identical; prefill logits agree within 1e-4 -- both sides compute
 in float32 (`compute_dtype="float32"`) and differ only in the summation
-order of their matmul and softmax kernels."""
+order of their matmul and softmax kernels.  On the mamba2-130m and
+recurrentgemma-2b smoke configs (weights at std 0.02), `--vote-cache`
+votes every leaf of their nested caches, with tokens and vote counters
+equal to the reference's."""
 import dataclasses
 
 import jax
@@ -179,3 +182,107 @@ def test_cache_specs_match_jax():
     assert sorted(got) == sorted(want)
     for k in got:
         assert got[k].shape == want[k].shape and got[k].init == want[k].init
+
+
+#: the recurrent families, whose decode caches nest: {pos, ssm: {conv,
+#: state}} and {pos, k, v, rg: {conv, h}}; a 36-token prompt is past the
+#: hybrid smoke config's window of 32 (so its ring is the reference's) and
+#: not a multiple of the SSD chunk of 16
+FAMILY_ARCHS = {"ssm": "mamba2-130m", "hybrid": "recurrentgemma-2b"}
+FAMILY_PROMPT = 36
+
+
+def _family_params(cfg, seed=0, std=0.02):
+    """numpy weights (zeros and ones as the specs say, else normal(0,
+    std)): the reference's fan-in init of the stacked leaves would make
+    the untrained copies' tokens hang on rounding."""
+    rng = np.random.default_rng(seed)
+    return jax.tree.map(
+        lambda s: np.full(s.shape, {"zeros": 0.0, "ones": 1.0}.get(
+            s.init, 0.0), np.float32) if s.init in ("zeros", "ones")
+        else (std * rng.standard_normal(s.shape)).astype(np.float32),
+        JT.model_specs(cfg), is_leaf=lambda x: isinstance(x, JP.Spec))
+
+
+#: (family, scheme, p_bit): without ECC, rates at which one copy's tokens
+#: leave the others' (at 4e-6 the hybrid smoke model's copies all turn
+#: to NaN logits, token 0, and agree again)
+FAMILY_RUNS = [("ssm", "ecc+tmr-parallel", 1e-6),
+               ("ssm", "tmr-parallel", 3e-5),
+               ("hybrid", "ecc+tmr-parallel", 1e-6),
+               ("hybrid", "tmr-parallel", 2e-6)]
+
+
+@pytest.mark.parametrize("family,spec,p_bit", FAMILY_RUNS,
+                         ids=[f"{f}-{s}" for f, s, _ in FAMILY_RUNS])
+def test_engine_votes_nested_caches_as_jax(family, spec, p_bit):
+    """Every leaf of the nested caches (the fp32 SSM state and RG-LRU h,
+    the conv tails, the hybrid's K/V ring, the position) is voted every 2
+    steps: tokens and every vote counter equal the reference's, which
+    votes by a tree map over the cache."""
+    cfg_j = get_config(FAMILY_ARCHS[family]).smoke().replace(
+        compute_dtype="float32")
+    cfg = get_port_config(FAMILY_ARCHS[family]).smoke().replace(
+        compute_dtype="float32")
+    assert dataclasses.asdict(cfg) == dataclasses.asdict(cfg_j)
+    key = jax.random.PRNGKey(0)
+    params_np = _family_params(cfg_j)
+    jparams = jax.tree.map(jnp.asarray, params_np)
+    tokens = np.random.RandomState(1).randint(
+        0, cfg.vocab, size=(B, FAMILY_PROMPT)).astype(np.int32)
+    fault = JFlips(p_bit)
+    kw = dict(vote_every=2, vote_cache=True)
+
+    jeng = JEngine(cfg_j, j_parse(spec), gen=GEN, **kw)
+    jstore, jprep = jeng.prepare(jparams, key=key, fault=fault)
+    jtok, jtel = jeng.generate(jstore, {"tokens": jnp.asarray(tokens)})
+    jstats = j_fetch({**jprep, **jtel})
+
+    eng = GenerationEngine(cfg, parse_scheme(spec), gen=GEN, device="cpu",
+                           **kw)
+    masks = JaxMasks(_engine_masks(fault, key, jparams, 3))
+    store, prep = eng.prepare(from_numpy(params_np), fault=masks)
+    assert not masks.masks
+    tok, tel = eng.generate(store, {"tokens": torch.from_numpy(tokens)})
+    stats = fetch_telemetry({**prep, **tel})
+
+    np.testing.assert_array_equal(tok.numpy(), np.asarray(jtok))
+    assert sorted(stats) == sorted(jstats)
+    for k in stats:
+        np.testing.assert_array_equal(stats[k], np.asarray(jstats[k]),
+                                      err_msg=k)
+    if spec == "tmr-parallel":
+        # the copies differ, so the votes had something to repair
+        assert int(stats["tmr_step_disagreements"].sum()) > 0
+
+
+@pytest.mark.parametrize("family", list(FAMILY_ARCHS))
+def test_cache_vote_reaches_every_leaf(family, monkeypatch):
+    """With a vote every step, each of the three copies' cache leaves is
+    handed to the voter once per step: positions, K/V and the nested
+    recurrent states alike."""
+    cfg = get_port_config(FAMILY_ARCHS[family]).smoke().replace(
+        compute_dtype="float32")
+    eng = GenerationEngine(cfg, parse_scheme("tmr-parallel"), gen=3,
+                           vote_every=1, vote_cache=True, device="cpu")
+    seen = []
+    real = eng._tmr()._vote()
+
+    def spy(a, b, c, out=None):
+        seen.append(tuple(a.shape))
+        return real(a, b, c, out=out)
+
+    monkeypatch.setattr(type(eng._tmr()), "_vote", lambda self: spy)
+    store, _ = eng.prepare(from_numpy(_family_params(
+        get_config(FAMILY_ARCHS[family]).smoke())))
+    tokens = torch.from_numpy(np.random.RandomState(2).randint(
+        0, cfg.vocab, size=(B, FAMILY_PROMPT)).astype(np.int32))
+    eng.generate(store, {"tokens": tokens})
+    # prefill's cache of copy 0 gives the leaves' shapes
+    _, _, cache = make_prefill_step(cfg, FAMILY_PROMPT + 3)(
+        T.map_tree(lambda x: x[0], store), {"tokens": tokens})
+    leaves = [tuple(x.shape) for x in T.leaves(cache)]
+    assert len(leaves) == (3 if family == "ssm" else 5)
+    # per step: the token vote, then one vote per cache leaf; last, the
+    # final sequences' vote
+    assert seen == ([(B, 1)] + leaves) * 2 + [(B, 3)]

@@ -1,10 +1,12 @@
 """The port's model zoo (`repro_torch.configs`, `repro_torch.models`)
 against the JAX package's:
 
-* for each of the six ported archs, `model_specs(CONFIG)` equals the
-  reference's Spec tree (key paths, shapes, axes, init, scale, dtype) and
-  `count_params` its count (Spec trees only, nothing materialized), and
-  `CONFIG` equals the reference's field for field;
+* the registry is the reference's ten archs; for each, `model_specs(
+  CONFIG)` equals the reference's Spec tree (key paths, shapes, axes,
+  init, scale, dtype) and `count_params` its count, at full and smoke
+  size (Spec trees only, nothing materialized), and `CONFIG` equals the
+  reference's field for field; the continuous batcher refuses the ssm,
+  hybrid, vlm and encdec families with the reference's message;
 * `act_fn` and `mlp_apply` for relu2, gelu, geglu and swiglu within 1e-6
   in fp32; GELU is the tanh form (`jax.nn.gelu`'s default), and the erf
   form misses that tolerance;
@@ -21,7 +23,10 @@ import pytest
 import torch
 import torch.nn.functional as F
 
+from repro.configs import ARCHS as JAX_ARCHS
 from repro.configs import get_config as jax_config
+from repro.configs import list_archs as jax_list_archs
+from repro.launch.batching import ContinuousBatcher as JContinuousBatcher
 from repro.models import nn as JN
 from repro.models import params as JP
 from repro.models import transformer as JT
@@ -29,6 +34,7 @@ from repro.models.steps import make_decode_step as j_decode_step
 from repro.models.steps import make_prefill_step as j_prefill_step
 from repro_torch.configs import ARCHS, get_config, list_archs
 from repro_torch.core import tree as T
+from repro_torch.launch.batching import ContinuousBatcher
 from repro_torch.models import nn as PN
 from repro_torch.models import params as PP
 from repro_torch.models import transformer as PT
@@ -37,6 +43,8 @@ from repro_torch.models.steps import make_decode_step, make_prefill_step
 
 DENSE = ["phi3-mini-3.8b", "qwen2.5-14b", "nemotron-4-15b", "deepseek-67b"]
 MOE = ["phi3.5-moe-42b-a6.6b", "llama4-maverick-400b-a17b"]
+OTHER = ["mamba2-130m", "recurrentgemma-2b", "llama-3.2-vision-11b",
+         "seamless-m4t-medium"]
 HIDDEN_TOL = 1e-4
 DECODE_STEPS = 8
 
@@ -60,14 +68,17 @@ def numpy_params(jcfg, seed=0, std=0.02):
 
 
 def test_registry_holds_the_six_ported_archs():
-    assert sorted(list_archs()) == sorted(DENSE + MOE)
-    assert len(ARCHS) == 6
-    for name in ("mamba2-130m", "recurrentgemma-2b", "seamless-m4t-medium"):
-        with pytest.raises(KeyError, match="unported"):
-            get_config(name)
+    """The six dense and MoE archs, and since the SSM, hybrid, VLM and
+    enc-dec families were ported the reference's other four: its whole
+    registry, in its order."""
+    assert set(DENSE + MOE) <= set(list_archs())
+    assert list_archs() == jax_list_archs()
+    assert ARCHS == JAX_ARCHS and len(ARCHS) == 10
+    with pytest.raises(KeyError, match="unknown arch"):
+        get_config("mamba3-1b")
 
 
-@pytest.mark.parametrize("arch", DENSE + MOE)
+@pytest.mark.parametrize("arch", DENSE + MOE + OTHER)
 def test_specs_and_count_match_reference(arch):
     cfg, jcfg = get_config(arch), jax_config(arch)
     assert dataclasses.asdict(cfg) == dataclasses.asdict(jcfg)
@@ -86,14 +97,21 @@ def test_specs_and_count_match_reference(arch):
         JT.model_specs(jcfg.smoke()))
 
 
-def test_other_families_still_raise():
-    cfg = get_config("phi3-mini-3.8b")
-    for family in ("ssm", "hybrid", "vlm", "encdec"):
-        other = cfg.replace(family=family)
-        with pytest.raises(NotImplementedError, match=family):
-            PT.model_specs(other)
-        with pytest.raises(NotImplementedError, match=family):
-            other.smoke()
+@pytest.mark.parametrize("arch", OTHER)
+def test_batcher_refuses_unpaged_families(arch):
+    """The ssm, hybrid, vlm and encdec families have a model (`model_specs`
+    and `smoke()` take them), and the continuous batcher refuses them with
+    the reference's message: their caches are not paged, there either."""
+    cfg, jcfg = get_config(arch).smoke(), jax_config(arch).smoke()
+    assert dataclasses.asdict(cfg) == dataclasses.asdict(jcfg)
+    assert PP.count_params(PT.model_specs(cfg)) == JP.count_params(
+        JT.model_specs(jcfg))
+    with pytest.raises(ValueError) as want:
+        JContinuousBatcher(jcfg)
+    with pytest.raises(ValueError) as got:
+        ContinuousBatcher(cfg, device="cpu")
+    assert str(got.value) == str(want.value)
+    assert f"{cfg.family!r} caches are not paged yet" in str(got.value)
 
 
 ACTS = ["relu2", "gelu", "geglu", "swiglu"]

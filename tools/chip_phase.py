@@ -1,0 +1,47 @@
+"""Run one later phase of `chip_smoke.py` alone on one NVIDIA GPU: the
+whole script's card setup and kernel build, then that phase's runner,
+whose gates raise on a failure.  A quicker check than the whole script
+after a change to one phase's code:
+
+    python3 tools/chip_phase.py 10    # training (run_train_path)
+    python3 tools/chip_phase.py 11    # the dense zoo and MoE (run_zoo_path)
+    python3 tools/chip_phase.py 12    # the SSM, hybrid, VLM and enc-dec
+                                      # families (run_family_path)
+
+from the repo root.
+"""
+from __future__ import annotations
+
+import argparse
+import sys
+import time
+from pathlib import Path
+
+sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+
+import chip_smoke as C  # noqa: E402  (puts src/ on the path)
+
+#: phase number -> its runner, each called as runner(torch, card, device)
+PHASES = {10: C.run_train_path, 11: C.run_zoo_path, 12: C.run_family_path}
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("phase", type=int, choices=sorted(PHASES))
+    args = ap.parse_args(argv)
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_phase: no CUDA device", file=sys.stderr)
+        return 1
+    from repro_torch import kernels
+    t0 = time.perf_counter()
+    card = C.setup_card(torch)
+    C.log(f"kernels built in {kernels.build():.1f}s")
+    C.log(f"phase {args.phase} alone: launches "
+          f"{PHASES[args.phase](torch, card, torch.device('cuda'))}")
+    C.log(f"phase {args.phase} alone: {time.perf_counter() - t0:.1f} s")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
