@@ -336,13 +336,17 @@ def main() -> int:
     torch.cuda.empty_cache()
     # 12. the SSM, hybrid, VLM and enc-dec families
     families = run_family_path(torch, card, dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    # 13. the serving mesh (its ranks' launches summed into its count)
+    mesh, _ = run_mesh_path(torch, card, dev)
     paths = (launches, server, netlist, campaigns, serve_rest, train, zoo,
-             families)
+             families, mesh)
     for name, row in rows.items():
         row["launches"] = sum(p.get(name, 0) for p in paths)
         check(row["launches"] > 0, f"{name} never launched on the main path")
     log("launches by path (one-shot ecc+tmr-parallel / server, 4 runs / "
-        "netlist / campaigns / phase 9 / train / zoo / families): "
+        "netlist / campaigns / phase 9 / train / zoo / families / mesh): "
         + ", ".join(f"{name} " + "/".join(str(p.get(name, 0)) for p in paths)
                     for name in rows))
 
@@ -3663,6 +3667,686 @@ def check_small_reference(torch, dev):
         f"== plain path, tokens and counters {sk}; logits max abs err "
         f"{err:.3g}")
     check_small_training(torch, dev)
+
+
+# ----------------------------------------------------------------------------
+# 13. the serving mesh
+# ----------------------------------------------------------------------------
+
+#: the mesh phase's model, weight fault rate and decode steps
+P13_ARCH = "phi3-mini-3.8b"
+P13_P_BIT = 1e-9
+P13_GEN = 8
+#: (b)'s folded-TMR runs on a 3x1 mesh: (scheme, layers of 32)
+P13_FOLD = (("tmr-parallel", 32), ("ecc+tmr-parallel", 16))
+#: (c)'s depth, decode steps and one-shot meshes (data, model)
+P13_DEPTH = 4
+P13_GEN_C = 4
+P13_MESHES = ((2, 2), (1, 1))
+#: (c)'s bound on |meshed - unmeshed| first-step logits, as a share of
+#: the unmeshed run's largest |logit|: the 2x2 ranks' two-row batch slices
+#: could take other cuBLAS algorithms than the whole batch (bf16 products,
+#: fp32 sums), so near-ties could flip a token.  On an H100 both the 2x2
+#: and the 1x1 worlds have given logits equal to the bit (PERF.md, phase
+#: 13); the 1x1 rank, whose slice is the whole batch, is held to that
+P13_LOGIT_REL = 1e-3
+#: the planted flips of (a): single flips in distinct blocks, two flips in
+#: two words of one block, two flips in one word
+P13_PLANTS = (4096, 64, 64)
+#: 2^28-word chunks of (a)'s seeded arena
+P13_CHUNK = 1 << 28
+#: the one-shot batch and prompt (phase 4's)
+P13_BATCH, P13_PROMPT = 4, 256
+#: pass --smoke to the folded serve runs (a CPU rehearsal; never on the card)
+P13_SMOKE = False
+#: the bytes of a CUDA context, in each rank's reckoning
+CUDA_CONTEXT_BYTES = 0.5e9
+
+
+def p13_config(depth=None):
+    from repro_torch.configs import get_config
+    cfg = get_config(P13_ARCH)
+    return cfg if depth is None else cfg.replace(n_layers=depth)
+
+
+def rank_ms(torch, dev, fn):
+    """(result, ms) of one call: CUDA events on the card, the host clock on
+    the CPU (a rehearsal)."""
+    if dev.type != "cuda":
+        t0 = time.perf_counter()
+        out = fn()
+        return out, (time.perf_counter() - t0) * 1e3
+    return timed_once(torch, fn)
+
+
+def seeded_word_chunks(torch, lo: int, hi: int, seed: int, dev,
+                       chunk: int = None):
+    """(start, end, words) of words [lo, hi) of a random arena whose
+    `chunk`-word piece c is drawn from a generator of its own (seed
+    1000003 * seed + c), so a rank regenerates its range without the rest
+    of the arena (`random_word_chunks` draws the whole arena in order from
+    one generator)."""
+    chunk = chunk or P13_CHUNK
+    for c in range(lo // chunk, (hi - 1) // chunk + 1 if hi > lo else 0):
+        g = torch.Generator(device=dev).manual_seed(1000003 * seed + c)
+        piece = torch.randint(-2**31, 2**31, (chunk,), dtype=torch.int64,
+                              device=dev, generator=g)
+        a, b = max(lo, c * chunk), min(hi, (c + 1) * chunk)
+        yield a, b, piece[a - c * chunk:b - c * chunk].to(torch.int32)
+
+
+def fill_words(torch, buf, lo: int, seed: int, chunk: int = None):
+    """buf := words [lo, lo + len(buf)) of the seeded arena, in place."""
+    for a, b, w in seeded_word_chunks(torch, lo, lo + buf.numel(), seed,
+                                      buf.device, chunk):
+        buf[a - lo:b - lo] = w
+
+
+def p13_plants(n_blocks: int, counts=None):
+    """The planted flips of (a) as (word index, XOR mask) numpy arrays,
+    one entry a word: single flips in distinct blocks, then two words of
+    one block, then two bits of one word, in blocks drawn apart."""
+    counts = counts or P13_PLANTS
+    rs = np.random.RandomState(SEED + 13)
+    blocks = np.unique(rs.randint(0, n_blocks, size=2 * sum(counts)))
+    blocks = blocks[rs.permutation(blocks.size)][:sum(counts)]
+    check(blocks.size == sum(counts), "too few distinct planted blocks")
+    masks = {}
+
+    def flip(word, bit):
+        masks[int(word)] = masks.get(int(word), 0) ^ (1 << int(bit))
+
+    s, d, _ = counts
+    for i, b in enumerate(blocks):
+        w = b * 32 + rs.randint(32)
+        if i < s:
+            flip(w, rs.randint(32))
+        elif i < s + d:
+            flip(w, rs.randint(32))
+            flip(b * 32 + (w - b * 32 + 1 + rs.randint(31)) % 32,
+                 rs.randint(32))
+        else:
+            bit = rs.randint(32)
+            flip(w, bit)
+            flip(w, (bit + 1 + rs.randint(31)) % 32)
+    idx = np.array(sorted(masks), np.int64)
+    return idx, np.array([masks[i] for i in idx], np.int64)
+
+
+def plant(torch, buf, lo: int, plants):
+    """XOR the planted flips that fall in words [lo, lo + len(buf)) into
+    `buf`, in place."""
+    idx, mask = plants
+    keep = (idx >= lo) & (idx < lo + buf.numel())
+    if keep.any():
+        i = torch.as_tensor(idx[keep] - lo, device=buf.device)
+        m = torch.as_tensor(mask[keep], device=buf.device)
+        buf[i] ^= ((m + 2**31) % 2**32 - 2**31).to(torch.int32)
+
+
+def digest(words, parity, step: int = 1 << 26) -> tuple:
+    """Sums of the words and of their squares and of the parity words and
+    of theirs (modulo 2^64, in 2^26-word int64 pieces so no copy of a
+    range is made): equal ranges give equal digests."""
+    out = []
+    for t in (words.view(-1), parity.view(-1)):
+        s1 = s2 = 0
+        for i in range(0, t.numel(), step):
+            c = t[i:i + step].long()
+            s1 += int(c.sum())
+            s2 += int((c * c).sum())
+        out += [s1 % 2**64, s2 % 2**64]
+    return tuple(out)
+
+
+def p13_codes():
+    from repro_torch.kernels.diag_parity import encode_parity, scrub
+    from repro_torch.kernels.hsiao_secded import encode_hsiao
+    from repro_torch.kernels.hsiao_secded import scrub as scrub_h
+    return {"diag": (encode_parity, scrub), "hsiao": (encode_hsiao, scrub_h)}
+
+
+def p13_warm(torch, dev):
+    """One launch of each block-code kernel on one block, so no timed
+    launch pays for loading its module."""
+    from repro_torch.kernels.inject_scrub import inject_scrub
+    w = torch.zeros(32, dtype=torch.int32, device=dev)
+    for encode, scrub in p13_codes().values():
+        scrub(w, encode(w))
+    inject_scrub(w, p13_codes()["diag"][0](w), w.clone())
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+
+
+def p13_scrub_whole(torch, dev, n_words: int, shards: int, plants, chunk):
+    """(a) in one process: each code's single-launch scrub of the whole
+    seeded arena with the planted flips; its counts, its launch time and
+    each of `shards` block ranges' digest of fixed words and parity."""
+    from repro_torch.kernels.sharded import block_range
+    nb = n_words // 32
+    p13_warm(torch, dev)
+    words = torch.empty(n_words, dtype=torch.int32, device=dev)
+    out = {}
+    for code, (encode, scrub) in p13_codes().items():
+        fill_words(torch, words, 0, SEED, chunk)
+        parity = encode(words)
+        plant(torch, words, 0, plants)
+        (_, par, counts), ms = rank_ms(torch, dev,
+                                       lambda: scrub(words, parity))
+        ranges = [block_range(nb, shards, k) for k in range(shards)]
+        out[code] = {"counts": counts.tolist(), "ms": ms,
+                     "digests": [digest(words[lo * 32:hi * 32], par[lo:hi])
+                                 for lo, hi in ranges]}
+        del parity, par
+    del words
+    return out
+
+
+def p13_scrub_rank(dev, n_words: int, plants, pool, chunk: int):
+    """(a) on one rank of a 2x2 world: each code's scrub of this rank's
+    block range alone -- regenerated, encoded, planted -- by
+    `kernels.sharded.scrub_range` (the kernel on the range, the counts
+    summed over the world), the ranks launching one after another so each
+    launch is timed alone; then `inject_scrub_sharded` over the whole pool
+    copy on every rank, and this rank's range of it timed alone."""
+    import torch
+    from repro_torch import kernels
+    from repro_torch.kernels.inject_scrub import (inject_scrub,
+                                                  inject_scrub_sharded)
+    from repro_torch.kernels.diag_parity import encode_parity
+    from repro_torch.kernels.sharded import block_range, scrub_axes, \
+        scrub_range
+    from repro_torch.launch.mesh import make_test_mesh
+    mesh = make_test_mesh(2, 2, device=dev)
+    p13_warm(torch, dev)
+    kernels.reset_launch_counts()
+    axes = scrub_axes(mesh)
+    k, n = mesh.index_in(axes), mesh.group_size(axes)
+    nb = n_words // 32
+    lo, hi = block_range(nb, n, k)
+    buf = torch.empty((hi - lo) * 32, dtype=torch.int32, device=dev)
+    out = {"range": (lo, hi)}
+
+    def in_turn(fn):
+        """fn() on this rank while the others wait: launches timed alone."""
+        res = None
+        tick = torch.zeros(1, dtype=torch.int32, device=dev)
+        for turn in range(n):
+            mesh.all_reduce(tick, axes)      # a barrier over the world
+            if turn == k:
+                res = fn()
+                if dev.type == "cuda":
+                    torch.cuda.synchronize()
+        mesh.all_reduce(tick, axes)
+        return res
+
+    for code, (encode, scrub) in p13_codes().items():
+        fill_words(torch, buf, lo * 32, SEED, chunk)
+        parity = encode(buf)
+        plant(torch, buf, lo * 32, plants)
+        ms = {}
+
+        def timed_scrub(b, p, scrub=scrub, ms=ms):
+            res, ms["t"] = in_turn(lambda: rank_ms(torch, dev,
+                                                   lambda: scrub(b, p)))
+            return res
+
+        _, par, counts = scrub_range(timed_scrub, mesh, axes, buf, parity)
+        out[code] = {"counts": counts.tolist(), "ms": ms["t"],
+                     "digest": digest(buf, par)}
+        del parity, par
+    del buf
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    # the pool copy, whole on every rank (0.48 GB at phi3-mini's pool)
+    n_pool, pool_plants = pool
+    words = torch.empty(n_pool, dtype=torch.int32, device=dev)
+    fill_words(torch, words, 0, SEED + 1, chunk)
+    parity = encode_parity(words)
+    mask = torch.zeros_like(words)
+    plant(torch, mask, 0, pool_plants)
+    lo, hi = block_range(n_pool // 32, n, k)
+    part = [t[lo * 32:hi * 32].clone() for t in (words, mask)] \
+        + [parity[lo:hi].clone()]
+    fixed, par, counts = inject_scrub_sharded(words, parity, mask, mesh=mesh)
+    out["inject"] = {"counts": counts.tolist(),
+                     "digest": digest(fixed, par), "range": (lo, hi)}
+    _, ms = in_turn(lambda: rank_ms(torch, dev, lambda: inject_scrub(
+        part[0], part[2], part[1])))
+    out["inject"]["ms"] = ms
+    out["launches"] = kernels.launch_counts()
+    out["peak"] = torch.cuda.max_memory_allocated() \
+        if dev.type == "cuda" else 0
+    return out
+
+
+def p13_pool_whole(torch, dev, n_pool: int, pool_plants, chunk: int):
+    """(a)'s pool copy in one process: the single-launch inject_scrub."""
+    from repro_torch.kernels.diag_parity import encode_parity
+    from repro_torch.kernels.inject_scrub import inject_scrub
+    words = torch.empty(n_pool, dtype=torch.int32, device=dev)
+    fill_words(torch, words, 0, SEED + 1, chunk)
+    parity = encode_parity(words)
+    mask = torch.zeros_like(words)
+    plant(torch, mask, 0, pool_plants)
+    p13_warm(torch, dev)
+    (fixed, par, counts), ms = rank_ms(
+        torch, dev, lambda: inject_scrub(words, parity, mask))
+    return {"counts": counts.tolist(), "digest": digest(fixed, par),
+            "ms": ms}
+
+
+def check_sharded_scrubs(torch, dev):
+    """(a): the diagonal-parity and Hsiao scrubs over phi3-mini's whole
+    arena and inject_scrub over one pool copy, single launch in this
+    process against a 2x2 world of gloo ranks on this card."""
+    from repro_torch.kernels.sharded import block_range
+    from repro_torch.launch.mesh import spawn
+    from repro_torch.models import params as P
+    from repro_torch.models import transformer as T
+    cfg = p13_config()
+    n_words = P.layout(T.model_specs(cfg), cfg.param_dtype).n_words
+    nb = n_words // 32
+    plants = p13_plants(nb)
+    n_pool = server_pool_words(cfg)[0]
+    pool_nb = n_pool // 32 - (1 if (n_pool // 32) % 4 == 0 else 0)
+    pool = (pool_nb * 32, p13_plants(pool_nb, (256, 8, 8)))
+    log(f"phase 13 (a): {n_words} arena words ({nb} blocks, "
+        f"{plants[0].size} planted words), pool copy {pool_nb} blocks "
+        f"(not a multiple of 4); reckoned peaks: one process "
+        f"{4 * n_words * (1 + 7 / 32) / 1e9 + 2.1:.1f} GB (the arena, "
+        f"the Hsiao table, a 2^28-word int64 chunk), the 2x2 world "
+        f"{4 * (n_words / 4 * (1 + 7 / 32) + 3 * n_pool) / 1e9 + 4 * 2.1:.1f}"
+        f" GB + 4 contexts")
+    torch.cuda.empty_cache()
+    whole = p13_scrub_whole(torch, dev, n_words, 4, plants, P13_CHUNK)
+    whole["inject"] = p13_pool_whole(torch, dev, *pool, P13_CHUNK)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ranks = spawn(p13_scrub_rank, 4, args=(n_words, plants, pool, P13_CHUNK),
+                  device=dev.type)
+    log(f"phase 13 (a): 2x2 world in {time.perf_counter() - t0:.1f} s")
+    rows, launches = {}, {}
+    for code, (name, ops_word) in (("diag", ("scrub", 0)),
+                                   ("hsiao", ("scrub_hsiao",
+                                              HSIAO_SCRUB_OPS_PER_WORD)),
+                                   ("inject", ("inject_scrub", 0))):
+        w = whole[code]
+        for r in ranks:
+            got = r[code]
+            check(got["counts"] == w["counts"],
+                  f"(a) {code}: rank counts {got['counts']} != single "
+                  f"launch {w['counts']}")
+        if code == "inject":
+            check(all(r[code]["digest"] == w["digest"] for r in ranks),
+                  "(a) inject_scrub_sharded: the whole pool differs")
+        else:
+            for k, r in enumerate(ranks):
+                check(r[code]["digest"] == w["digests"][k],
+                      f"(a) {code}: rank {k}'s range differs")
+        check(w["counts"][0] > 0, f"(a) {code}: no corrections")
+        f = 7 if code == "hsiao" else 3
+        for k, r in enumerate(ranks):
+            lo, hi = r["inject"]["range"] if code == "inject" else r["range"]
+            words = (hi - lo) * 32
+            bytes_ = 4 * words * (2 if code == "inject" else 1) \
+                + 4 * (hi - lo) * f
+            bound = bound_ms(bytes_, words * ops_word)
+            log(f"phase 13 (a) {code} rank {k}: blocks [{lo}, {hi}) "
+                f"{r[code]['ms']:.3f} ms, bound {bound[0]:.3f} ms "
+                f"({bound[1]})")
+        rows[name] = {"whole_ms": w["ms"], "rank_ms": [r[code]["ms"]
+                                                      for r in ranks]}
+        log(f"phase 13 (a) {code}: counts {w['counts']} equal on every "
+            f"rank; single launch {w['ms']:.3f} ms")
+    for r in ranks:
+        for key, v in r["launches"].items():
+            launches[key] = launches.get(key, 0) + v
+    log(f"phase 13 (a): rank peaks "
+        f"{[round(r['peak'] / 1e9, 2) for r in ranks]} GB, launches "
+        f"{launches}")
+    return launches, rows
+
+
+def p13_logits(torch, eng, store, batch):
+    """The first generated position's logits (copy 0 under TMR) through
+    the engine's own batch split and view, gathered whole."""
+    b, rows = eng._split(eng._batch(batch), store)
+    prefill, _ = eng._steps(b["tokens"].shape[1])
+    with torch.no_grad(), eng._ambient(store, rows):
+        params = eng._params(store, 0 if eng.copy_axis else None)
+        _, logits, _ = prefill(params, b)
+    return eng._join(store, rows, logits.float(), {})[0]
+
+
+def p13_knobs() -> dict:
+    """What the rank functions take from this module's settings (a
+    spawned rank imports the module afresh)."""
+    return {"p_bit": P13_P_BIT, "pool_p_bit": POOL_P_BIT,
+            "batch": P13_BATCH, "prompt": P13_PROMPT, "spec": server_spec()}
+
+
+def p13_one_shot(dev, shape, cfg, runs, gen: int, strict: bool, knobs):
+    """(c) and (d) on one rank of a `shape` world (or alone, shape None):
+    per scheme the serve entry point on the mesh (`serve.serve`, as
+    ``serve --mesh`` runs it), its first-step logits, and the transfer
+    guard around one more generate + fetch."""
+    import torch
+    from repro_torch import kernels
+    from repro_torch.launch.mesh import collectives_issued, make_test_mesh
+    from repro_torch.launch.serve import make_inputs, serve
+    from repro_torch.obs import count_host_transfers, fetch_telemetry
+    from repro_torch.reliability import parse_scheme
+    mesh = make_test_mesh(*shape, device=dev) if shape else None
+    out = {}
+    for name in runs:
+        p_bit = knobs["p_bit"] if name != "off" else 0.0
+        inputs = make_inputs(cfg, knobs["batch"], knobs["prompt"], SEED, dev)
+        batch = {"tokens": inputs["tokens"]}
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launch_counts()
+        res = serve(cfg, inputs["params"], inputs["tokens"],
+                    parse_scheme(name), gen=gen, p_bit=p_bit, seed=SEED,
+                    device=dev, mesh=mesh)
+        launches = kernels.launch_counts()
+        eng, store = res["engine"], res["store"]
+        logits = p13_logits(torch, eng, store, batch)
+        # (d) one more generate from serve's store (warmed up by serve)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        c0 = collectives_issued()
+        with count_host_transfers(strict=strict) as timed:
+            toks, tel = eng.generate(store, batch)
+            if dev.type == "cuda":
+                torch.cuda.synchronize()
+        collectives = collectives_issued() - c0
+        with count_host_transfers(strict=strict) as fetched:
+            fetch_telemetry(tel)
+        check(torch.equal(toks, res["tokens"]),
+              f"(d) {name}: the guarded run's tokens differ")
+        out[name] = {
+            "tokens": res["tokens"].cpu().numpy(),
+            "stats": {k: np.asarray(v) for k, v in res["stats"].items()},
+            "logits": logits.cpu().numpy(), "tok_s": res["tok_s"],
+            "syncs": (timed.syncs, fetched.syncs, timed.sites),
+            "collectives": collectives,
+            "launches": launches,
+            "peak": torch.cuda.max_memory_allocated()
+            if dev.type == "cuda" else 0,
+            "mesh": "single" if mesh is None else
+            res["engine"].exec_mesh.describe()}
+        del res, eng, store, inputs
+    return out
+
+
+def p13_server(dev, shape, cfg, n_requests: int, knobs):
+    """(c)'s server on one rank of a `shape` world (or alone): phase 5's
+    trace under ecc with the pool inject_scrubbed every tick, unpaced (the
+    ticks, so the pool's counters, follow the trace alone), then a request
+    joining a live ecc batch against the same request alone."""
+    import torch
+    from repro_torch import kernels
+    from repro_torch.faults import TransientBitFlips
+    from repro_torch.launch.batching import (ContinuousBatcher, Request,
+                                             poisson_trace)
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.launch.serve import make_inputs, serve_server
+    from repro_torch.obs import fetch_telemetry
+    from repro_torch.reliability import parse_scheme
+    mesh = make_test_mesh(*shape, device=dev) if shape else None
+    spec = knobs["spec"]
+    inputs = make_inputs(cfg, 1, 1, SEED, dev)
+    g = torch.Generator(device=dev).manual_seed(SEED + 7)
+    pool_fault = TransientBitFlips(knobs["pool_p_bit"])
+
+    def expose(b):
+        b.pool.inject_scrub(g, pool_fault)
+
+    kernels.reset_launch_counts()
+    res = serve_server(cfg, inputs["params"], parse_scheme("ecc"), spec=spec,
+                       requests=n_requests, rate=2.0, p_bit=knobs["p_bit"],
+                       seed=SEED, on_tick=expose, realtime=False, device=dev,
+                       mesh=mesh)
+    out = {"tokens": {r.rid: r.tokens for r in res["results"]},
+           "stats": {k: np.asarray(v) for k, v in res["stats"].items()},
+           "ticks": res["batcher"].ticks,
+           "goodput": res["goodput_tok_s"],
+           "launches": kernels.launch_counts()}
+    del res
+    trace = poisson_trace(5, rate_rps=2.0, spec=spec, vocab=cfg.vocab,
+                          seed=SEED)
+    live = [Request(i, trace[i].prompt, n)
+            for i, n in enumerate((32, 8, 8, 32))]
+    live.append(Request(9, trace[4].prompt, 16, arrival_s=0.1))
+    joined = []
+    for reqs in (live, [Request(9, trace[4].prompt, 16)]):
+        b = ContinuousBatcher(cfg, parse_scheme("ecc"), spec, device=dev,
+                              mesh=mesh)
+        gen = torch.Generator(device=dev).manual_seed(SEED + 100)
+        prep = b.prepare(inputs["params"], generator=gen,
+                         fault=TransientBitFlips(knobs["p_bit"]))
+        r9 = {r.rid: r for r in b.run(reqs)}[9]
+        stats = fetch_telemetry({**prep, **b.telemetry()})
+        stats.pop("tokens_emitted")
+        joined.append((r9.tokens, {k: int(v) for k, v in stats.items()}))
+        del b, prep
+    out["join"] = joined
+    out["peak"] = torch.cuda.max_memory_allocated() \
+        if dev.type == "cuda" else 0
+    return out
+
+
+def add_launches(total, counts):
+    for k, v in counts.items():
+        total[k] = total.get(k, 0) + v
+
+
+def check_same_run(a, b, what, tokens=True):
+    """Integer counters exact (and tokens, unless told otherwise)."""
+    check(set(a["stats"]) == set(b["stats"]),
+          f"{what}: counters {sorted(a['stats'])} != {sorted(b['stats'])}")
+    for k in a["stats"]:
+        check(np.array_equal(a["stats"][k], b["stats"][k]),
+              f"{what}: {k} {a['stats'][k]} != {b['stats'][k]}")
+    if tokens:
+        check(np.array_equal(a["tokens"], b["tokens"]),
+              f"{what}: tokens differ")
+
+
+def run_folded_tmr(torch, card, dev):
+    """(b) ``serve --mesh 3x1`` at phi3-mini's width: each scheme of
+    P13_FOLD without a mesh in this process, then on three gloo ranks of
+    this card, one TMR copy each; returns the three ranks' launches
+    (each rank gated on its own vote and, under ECC, its encode and
+    scrub)."""
+    from repro_torch.launch import serve as S
+    total = {}
+    for name, depth in P13_FOLD:
+        cfg = p13_config(depth)
+        copy = p11_copy_bytes(cfg) / 1e9
+        argv = ["--arch", P13_ARCH, "--layers", str(depth), "--batch",
+                str(P13_BATCH), "--prompt-len", str(P13_PROMPT), "--gen",
+                str(P13_GEN), "--scheme", name, "--inject-p-bit",
+                str(P13_P_BIT), "--seed", str(SEED), "--device", dev.type]
+        if P13_SMOKE:
+            argv.append("--smoke")
+        ecc = name.startswith("ecc")
+        log(f"phase 13 (b) {name} at {depth} of 32 layers: a copy is "
+            f"{copy:.2f} GB; reckoned peaks: alone {(4.11 if ecc else 4.0) * copy:.1f}"
+            f" GB (params + three copies{' + parity' if ecc else ''}); 3x1 "
+            f"mesh {3 * (4 / 3 + (3 / 32 if ecc else 0)) * copy:.1f} GB "
+            f"(each rank: its copy in the params' arena + a third of the "
+            f"clean run's store{' + its parity' if ecc else ''}) + 3 "
+            f"contexts")
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        # the comparison run: its launches are not the mesh's
+        alone = S.main(argv)
+        alone_peak = torch.cuda.max_memory_allocated()
+        torch.cuda.empty_cache()
+        ranks = S.main(argv + ["--mesh", "3x1"])
+        check(len(ranks) == 3, "(b): three ranks")
+        want = ("tmr_vote",) + (("encode_parity", "scrub") if ecc else ())
+        for k, r in enumerate(ranks):
+            check_same_run(r, alone, f"(b) {name} rank {k}")
+            # each copy group votes its own copy's tokens with the others'
+            check_launched(r["launches"], want, f"(b) {name} rank {k}")
+            add_launches(total, r["launches"])
+        if ecc:
+            check(alone["stats"]["ecc_corrected"] > 0,
+                  f"(b) {name}: no corrections")
+        log(f"phase 13 (b) {name}: 3x1 folded tokens and counters "
+            f"{alone['stats']} equal alone's on every rank (agreement with "
+            f"the clean run {alone['agreement']:.3f}); tok/s 3x1 "
+            f"{ranks[0]['tok_s']:.1f} (copies at once) vs alone "
+            f"{alone['tok_s']:.1f} (copies one after another), peak alone "
+            f"{alone_peak / 1e9:.2f} GB; rank launches "
+            f"{[r['launches'] for r in ranks]}")
+    return total
+
+
+def run_mesh_one_shot(torch, card, dev):
+    """(c) and (d): the one-shot serve at P13_DEPTH layers of phi3-mini's
+    width under off and ecc, with the flash kernel (phase 4's setting),
+    alone and on each of P13_MESHES; the server under ecc alone and on a
+    2x1 world.  Returns the meshed ranks' launches (the runs alone are
+    the comparison, not the mesh)."""
+    from repro_torch.launch.mesh import backend_for, spawn
+    t_c = time.perf_counter()
+    cfg = p13_config(P13_DEPTH).replace(attention_impl="pallas")
+    copy = p11_copy_bytes(cfg) / 1e9
+    runs = ("off", "ecc")
+    total = {}
+    log(f"phase 13 (c) at {P13_DEPTH} layers: a copy is {copy:.2f} GB; "
+        f"reckoned peaks alone off {1.05 * copy:.1f} / ecc "
+        f"{2.10 * copy:.1f} GB; on a mesh of n ranks each rank holds the "
+        f"params, a working copy and 1/n of a copy: about "
+        f"{2.2 * copy:.1f} GB a rank + its context")
+    torch.cuda.empty_cache()
+    knobs = p13_knobs()
+    alone = p13_one_shot(dev, None, cfg, runs, P13_GEN_C, True, knobs)
+    meshed = {}
+    for shape in P13_MESHES:
+        n = shape[0] * shape[1]
+        strict = backend_for(dev, n) == "nccl"
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        ranks = spawn(p13_one_shot, n, args=(shape, cfg, runs, P13_GEN_C,
+                                             strict, knobs), device=dev.type)
+        meshed[shape] = ranks
+        log(f"phase 13 (c) {shape[0]}x{shape[1]}: {n} ranks "
+            f"({backend_for(dev, n)}) in {time.perf_counter() - t0:.1f} s, "
+            f"rank peaks {[round(r['off']['peak'] / 1e9, 2) for r in ranks]}"
+            f" / {[round(r['ecc']['peak'] / 1e9, 2) for r in ranks]} GB")
+        for r in ranks:
+            for name in runs:
+                add_launches(total, r[name]["launches"])
+    for name in runs:
+        a = alone[name]
+        top2 = np.sort(a["logits"], axis=-1)[..., -2:]
+        gap = (top2[..., 1] - top2[..., 0]).reshape(-1)
+        tol = P13_LOGIT_REL * float(np.abs(a["logits"]).max())
+        for shape, ranks in meshed.items():
+            for k, r in enumerate(ranks):
+                got = r[name]
+                what = f"(c) {name} {shape[0]}x{shape[1]} rank {k}"
+                check_same_run(got, a, what, tokens=False)
+                err = float(np.abs(got["logits"] - a["logits"]).max())
+                bound = 0.0 if shape == (1, 1) else tol
+                check(err <= bound, f"{what}: logits differ by {err:.3g} > "
+                      f"{bound:.3g}")
+                same = (got["tokens"] == a["tokens"]).all(axis=1)
+                clear = gap > 2 * tol
+                check(same[clear].all(), f"{what}: tokens differ in rows "
+                      f"whose top-two gap {gap} is clear of the tolerance")
+                if shape[1] == 1:
+                    check(np.array_equal(got["tokens"], a["tokens"]),
+                          f"{what}: tokens differ at model=1")
+                if k == 0:
+                    log(f"{what}: logits max abs err {err:.3g} (bound "
+                        f"{bound:.3g}), tokens equal "
+                        f"in {int(same.sum())}/{same.size} rows (top-two "
+                        f"gaps {np.round(gap, 3).tolist()}), counters "
+                        f"{ {q: int(v.sum()) for q, v in got['stats'].items()} }"
+                        f", {got['tok_s']:.1f} tok/s ({a['tok_s']:.1f} "
+                        f"alone), mesh {got['mesh']}")
+    # (d) the guard: no host read in the timed region, one for the fetch
+    issued = {}
+    for shape, ranks in [(None, [alone])] + list(meshed.items()):
+        for k, r in enumerate(ranks):
+            for name in runs:
+                timed, fetched, sites = r[name]["syncs"]
+                check(timed == 0 and fetched == 1,
+                      f"(d) {shape} rank {k} {name}: {timed} host reads in "
+                      f"the timed region {sites}, {fetched} for the fetch")
+        if shape is not None:
+            issued[shape] = {
+                name: [r[name]["collectives"] for r in ranks]
+                for name in runs}
+    nccl = [f"{d}x{m}" for d, m in issued if backend_for(dev, d * m) == "nccl"]
+    log(f"phase 13 (d): 0 host reads (Tensor.item/tolist/cpu/numpy) in "
+        f"every timed region and 1 for each fetch.  Strict (sync debug mode "
+        f"'error') ran alone and on the nccl worlds {nccl} (a card a rank; "
+        f"a 1x1 world issues no collective); the gloo worlds (ranks sharing "
+        f"a card) counted the reads only, and their all-reduces of CUDA "
+        f"tensors stage through host memory, which syncs the stream.  "
+        f"Collectives in the timed region by world and rank: "
+        f"{ {f'{d}x{m}': v for (d, m), v in issued.items()} }")
+    log(f"phase 13 (c) one-shot and (d): {time.perf_counter() - t_c:.1f} s")
+    # the server
+    n_req = 8
+    torch.cuda.empty_cache()
+    s_alone = p13_server(dev, None, cfg, n_req, knobs)
+    torch.cuda.empty_cache()
+    s_ranks = spawn(p13_server, 2, args=((2, 1), cfg, n_req, knobs),
+                    device=dev.type)
+    for k, r in enumerate(s_ranks):
+        add_launches(total, r["launches"])
+        what = f"(c) server ecc 2x1 rank {k}"
+        check(r["tokens"].keys() == s_alone["tokens"].keys()
+              and all(np.array_equal(r["tokens"][q], s_alone["tokens"][q])
+                      for q in r["tokens"]), f"{what}: tokens differ")
+        check_same_run(r, s_alone, what, tokens=False)
+        (jt, js), (at, as_) = r["join"]
+        check(np.array_equal(jt, at) and js == as_,
+              f"{what}: a request joining a live batch != alone")
+        check(np.array_equal(jt, s_alone["join"][1][0]),
+              f"{what}: join-live tokens != the unmeshed server's")
+    check(int(s_alone["stats"]["ecc_corrected"]) > 0,
+          "(c) server: no corrections")
+    log(f"phase 13 (c) server ecc 2x1: {n_req} requests' tokens and "
+        f"counters { {q: int(v.sum()) for q, v in s_alone['stats'].items()} }"
+        f" equal alone's ({s_alone['ticks']} ticks); join-live == alone; "
+        f"goodput {s_ranks[0]['goodput']:.2f} vs {s_alone['goodput']:.2f} "
+        f"tok/s alone (unpaced); rank peaks "
+        f"{[round(r['peak'] / 1e9, 2) for r in s_ranks]} GB")
+    return total
+
+
+def run_mesh_path(torch, card, dev):
+    """Phase 13: (a) the sharded scrubs, (b) folded TMR, (c) the 2x2 and
+    1x1 meshes with (d) the guard; returns the launch counts of the
+    meshed ranks of (a)-(d) (each rank counted from 0 around its run; the
+    single-process runs they are compared with are left out) and (a)'s
+    per-rank rows."""
+    t_path = time.perf_counter()
+    total = {}
+    launches_a, rows = check_sharded_scrubs(torch, dev)
+    add_launches(total, launches_a)
+    log(f"phase 13 (a): {time.perf_counter() - t_path:.1f} s")
+    t0 = time.perf_counter()
+    add_launches(total, run_folded_tmr(torch, card, dev))
+    log(f"phase 13 (b): {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    add_launches(total, run_mesh_one_shot(torch, card, dev))
+    log(f"phase 13 (c)-(d): {time.perf_counter() - t0:.1f} s")
+    check_launched(total, ("encode_parity", "scrub", "encode_hsiao",
+                           "scrub_hsiao", "inject_scrub", "tmr_vote",
+                           "flash_attention"), "phase 13")
+    log(f"phase 13: {time.perf_counter() - t_path:.1f} s, launches {total}")
+    return total, rows
 
 
 if __name__ == "__main__":

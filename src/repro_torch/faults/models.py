@@ -202,6 +202,20 @@ class FaultModel:
             self.corrupt_leaf_(x, generator, dt)
         return params
 
+    def skip_leaf(self, x: torch.Tensor, generator: torch.Generator,
+                  dt: float = 1.0) -> None:
+        """Draw from `generator` exactly what `corrupt_leaf_(x)` draws,
+        leaving `x` as it is (here: corrupt a copy)."""
+        self.corrupt_leaf_(x.clone(), generator, dt)
+
+    def skip(self, params: Any, generator: torch.Generator,
+             dt: float = 1.0) -> None:
+        """Draw what `corrupt(params)` draws and apply none of it: a mesh
+        rank that does not hold a copy still advances the run's generator
+        past that copy's faults, so no draw depends on the rank."""
+        for x in T.leaves(params):
+            self.skip_leaf(x, generator, dt)
+
 
 class _IidFlips(FaultModel):
     """Each stored bit flips independently with the per-interval
@@ -226,6 +240,12 @@ class _IidFlips(FaultModel):
 
     def corrupt_leaf_(self, x, generator, dt: float = 1.0) -> None:
         flip_random_bits_(_bits_view(x), self._rate(dt), generator)
+
+    def skip_leaf(self, x, generator, dt: float = 1.0) -> None:
+        # the positions flip_random_bits_ would draw, none applied
+        bits = _bits_view(x)
+        _distinct_positions(bits.numel() * bits.element_size() * 8,
+                            self._rate(dt), generator)
 
     def gate_lane_masks(self, generator, n_gates: int, trials: int,
                         dt: float = 1.0):
@@ -372,6 +392,10 @@ class StuckAtFaults(FaultModel):
     def corrupt_leaf_(self, x, generator, dt: float = 1.0) -> None:
         self._stick_flat_(_bits_view(x), generator)
 
+    def skip_leaf(self, x, generator, dt: float = 1.0) -> None:
+        bits = _bits_view(x)
+        self._defects(bits.numel() * bits.element_size() * 8, generator)
+
     def gate_lane_masks(self, generator, n_gates: int, trials: int,
                         dt: float = 1.0):
         tw = -(-trials // PACK)
@@ -417,6 +441,13 @@ class CompositeFault(FaultModel):
     def corrupt_leaf_(self, x, generator, dt: float = 1.0) -> None:
         for m in self.models:
             m.corrupt_leaf_(x, generator, dt)
+
+    def skip_leaf(self, x, generator, dt: float = 1.0) -> None:
+        # a member after a stuck-at member sees the stuck bits, but no
+        # member's draws depend on the data: skipping each in turn draws
+        # what corrupting in turn draws
+        for m in self.models:
+            m.skip_leaf(x, generator, dt)
 
     @staticmethod
     def compose_lane_masks(pairs, n_gates: int, tw: int, device=None):

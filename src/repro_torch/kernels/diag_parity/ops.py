@@ -13,7 +13,7 @@ kernel or raises.  No host-side padding: the kernel masks the ragged edge.
 """
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Callable, Optional, Sequence, Tuple
 
 import torch
 
@@ -21,7 +21,7 @@ from .. import _build
 from . import kernel
 from .ref import encode_parity_ref, scrub_ref
 
-__all__ = ["encode_parity", "scrub"]
+__all__ = ["encode_parity", "scrub", "scrub_sharded"]
 
 BLOCK = 32
 
@@ -106,3 +106,22 @@ def scrub(buf: torch.Tensor, parity: torch.Tensor,
     kernel.scrub(buf, parity, target, not in_place, slopes, counts)
     _build.count_launch("scrub")
     return buf, target, counts
+
+
+def scrub_sharded(buf: torch.Tensor, parity: torch.Tensor,
+                  slopes: Tuple[int, ...] = (1, 2, -1), *, mesh=None,
+                  axes: Sequence[str] = ("copy", "data", "model"),
+                  local_scrub: Optional[Callable] = None):
+    """`scrub` with the arena block axis cut into one range per rank of
+    `mesh`'s scrub axes (`kernels.sharded`) and the (3,) counts summed over
+    them.  Bit-exact against `scrub`: the op is block-local, so per-range
+    launches compose exactly.  `buf` and `parity` are the whole arena on
+    every rank and come back repaired whole (each rank's range joined by
+    an exact int32 all-reduce).  With mesh=None (or a one-rank mesh) this
+    IS `scrub`.  `local_scrub` overrides the per-range op (the backend
+    registry passes the `torch` or the `kernel` implementation)."""
+    if local_scrub is None:
+        def local_scrub(b, p):
+            return scrub(b, p, slopes=tuple(slopes))
+    from ..sharded import shard_scrub
+    return shard_scrub(local_scrub, mesh, axes, buf, parity)

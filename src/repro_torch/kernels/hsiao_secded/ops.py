@@ -14,7 +14,7 @@ kernel or raises.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Callable, Optional, Sequence
 
 import torch
 
@@ -24,7 +24,7 @@ from . import kernel
 from .code import N_CHECKS
 from .ref import encode_hsiao_ref, scrub_hsiao_ref
 
-__all__ = ["encode_hsiao", "scrub"]
+__all__ = ["encode_hsiao", "scrub", "scrub_sharded"]
 
 
 def encode_hsiao(buf: torch.Tensor) -> torch.Tensor:
@@ -75,3 +75,17 @@ def scrub(buf: torch.Tensor, parity: torch.Tensor,
     kernel.scrub(buf, parity, target, not in_place, counts)
     _build.count_launch("scrub_hsiao", f"words {buf.numel()}")
     return buf, target, counts
+
+
+def scrub_sharded(buf: torch.Tensor, parity: torch.Tensor, *, mesh=None,
+                  axes: Sequence[str] = ("copy", "data", "model"),
+                  local_scrub: Optional[Callable] = None):
+    """`scrub` with the arena block axis cut into one range per rank and
+    the (3,) counts summed (`kernels.sharded`); the op is word-local, so
+    per-range launches compose exactly.  Whole arena in and out, as
+    `diag_parity.scrub_sharded`.  With mesh=None this IS `scrub`."""
+    if local_scrub is None:
+        def local_scrub(b, p):
+            return scrub(b, p)
+    from ..sharded import shard_scrub
+    return shard_scrub(local_scrub, mesh, axes, buf, parity)

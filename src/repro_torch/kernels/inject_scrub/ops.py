@@ -9,7 +9,7 @@ takes the plain version; a CUDA tensor launches the kernel or raises.
 """
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Callable, Optional, Sequence, Tuple
 
 import torch
 
@@ -18,7 +18,7 @@ from ..diag_parity.ops import BLOCK, _check_aligned, _check_buf, _check_table
 from . import kernel
 from .ref import inject_scrub_ref
 
-__all__ = ["inject_scrub"]
+__all__ = ["inject_scrub", "inject_scrub_sharded"]
 
 
 def inject_scrub(buf: torch.Tensor, parity: torch.Tensor,
@@ -61,3 +61,20 @@ def inject_scrub(buf: torch.Tensor, parity: torch.Tensor,
                         counts)
     _build.count_launch("inject_scrub")
     return buf, target, counts
+
+
+def inject_scrub_sharded(buf: torch.Tensor, parity: torch.Tensor,
+                         mask: torch.Tensor,
+                         slopes: Tuple[int, ...] = (1, 2, -1), *, mesh=None,
+                         axes: Sequence[str] = ("copy", "data", "model"),
+                         local_op: Optional[Callable] = None):
+    """`inject_scrub` with the arena block axis cut into one range per rank
+    and the (4,) counts summed (`kernels.sharded`).  The mask is cut with
+    the buffer, so each rank corrupts and repairs only the blocks it owns;
+    bit-exact against `inject_scrub`.  With mesh=None this IS
+    `inject_scrub`."""
+    if local_op is None:
+        def local_op(b, p, m):
+            return inject_scrub(b, p, m, slopes=tuple(slopes))
+    from ..sharded import shard_scrub
+    return shard_scrub(local_op, mesh, axes, buf, parity, mask)

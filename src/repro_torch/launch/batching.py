@@ -1,5 +1,4 @@
-"""Continuous-batching reliable serving (port of `repro.launch.batching`,
-without the mesh).
+"""Continuous-batching reliable serving (port of `repro.launch.batching`).
 
 * **paged KV pool** (`PagedKVPool`) -- the KV state of every in-flight
   request lives in fixed-size pages of one int32 word arena: the k plane
@@ -40,6 +39,14 @@ without the mesh).
   `runtime.AdaptiveScrub`) each pool scrub's counters are fetched, one
   small copy a scrub, for the controller to set the next interval.
 
+* **mesh** -- with ``mesh=`` (a `launch.mesh.Mesh`; this process is one
+  of its ranks) the engine's `prepare` places the weight store by the
+  logical-axis rules, each rank holding its slice of every leaf, and the
+  decode reads each leaf gathered whole when a layer runs.  The scheduler,
+  the pool and the slots are the same on every rank (every rank runs the
+  same ticks on the same slots), so the copy axis stays unfolded here and
+  the pool's scrubs and counters need no reduction.
+
 Bit-exactness: every decode op is batch-row-local (masked attention reads
 only the row's own pages; page indirection copies values), so a request
 admitted into a live batch produces exactly the tokens and vote
@@ -55,6 +62,7 @@ disagreements it produces served alone through the scheduler.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import time
 from collections import deque
@@ -69,8 +77,9 @@ from ..device import resolve_device
 from ..models.config import ModelConfig
 from ..models.steps import make_decode_step, make_prefill_step
 from ..obs import DEFAULT_REGISTRY, LatencyTimeline, MetricsRegistry
+from ..pshard import use_mesh_and_rules
 from ..reliability.scheme import ArenaEcc, Compose, Scheme
-from .engine import GenerationEngine, _copy, _sync
+from .engine import GenerationEngine, _sync
 
 __all__ = ["BatchSpec", "Request", "RequestResult", "PagedKVPool",
            "ContinuousBatcher", "poisson_trace", "sequential_slot_steps"]
@@ -298,17 +307,20 @@ class ContinuousBatcher:
                  spec: BatchSpec = BatchSpec(), *, scrub_every: int = 0,
                  adaptive=None,
                  forced_scrub_ticks: Optional[Sequence[int]] = None,
-                 registry: MetricsRegistry = DEFAULT_REGISTRY, device=None):
+                 registry: MetricsRegistry = DEFAULT_REGISTRY, device=None,
+                 mesh=None, rules=None):
         if cfg.family not in ("dense", "moe"):
             raise ValueError(
                 f"continuous batching supports dense/moe decode caches; "
                 f"{cfg.family!r} caches are not paged yet")
         self.cfg, self.spec = cfg, spec
         # the engine supplies prepare() (the same fault draws and scrubs as
-        # whole-batch serving), the device and the scheme plumbing
+        # whole-batch serving), the device, the mesh placement and the
+        # scheme plumbing; every rank holds every copy (no fold)
         self.engine = GenerationEngine(cfg, scheme, gen=spec.gen_cap,
                                        cache_len=spec.cache_tokens,
-                                       device=device)
+                                       device=device, mesh=mesh, rules=rules,
+                                       fold=False)
         self.device = self.engine.device
         self.scheme = self.engine.scheme
         self._copy = self.engine.copy_axis
@@ -461,8 +473,15 @@ class ContinuousBatcher:
                     for i in range(3)]
         return [(None, self._params[0], pool.k, pool.v)]
 
+    def _ambient(self):
+        """The mesh and rules the decode runs under (every rank holds every
+        slot: the batch is not split)."""
+        if self.engine.mesh is None:
+            return contextlib.nullcontext()
+        return use_mesh_and_rules(self.engine.mesh, self.engine.rules)
+
     def _admit_launch(self, tokens, table_row, slot: int, plen: int):
-        with torch.no_grad():
+        with torch.no_grad(), self._ambient():
             for i, params, k, v in self._copies():
                 t0, _, cache = self._prefill(params, {"tokens": tokens})
                 self._place(k, table_row, cache["k"])
@@ -478,7 +497,7 @@ class ContinuousBatcher:
 
     def _tick_launch(self, table, off) -> torch.Tensor:
         spec = self.spec
-        with torch.no_grad():
+        with torch.no_grad(), self._ambient():
             if self._wb:
                 # correct-on-read: the tick reads every table page through
                 # the gather, so repair all of them first
@@ -507,8 +526,10 @@ class ContinuousBatcher:
         it."""
         self.store, prep = self.engine.prepare(params, generator=generator,
                                                fault=fault, dt=dt)
-        self._params = [_copy(self.store, i) for i in range(3)] \
-            if self._copy else [self.store]
+        # views the decode reads (gathered leaf by leaf on a mesh)
+        self._params = [self.engine._params(self.store, i)
+                        for i in range(3)] if self._copy \
+            else [self.engine._params(self.store)]
         self._prep = dict(prep)
         return prep
 

@@ -1,5 +1,5 @@
 """Generation engine: prefill + greedy decode under a protection scheme
-(port of `repro.launch.engine.GenerationEngine`, without the mesh).
+(port of `repro.launch.engine.GenerationEngine`).
 
 * **store** -- `prepare` builds the serving store from clean parameters.
   One exposure of the fault model hits every held data copy, then the
@@ -31,6 +31,18 @@
   `costmodel.DeviceSpec`) the telemetry also carries the `mmpu_*` gauges of
   `mmpu_projection`, an mMPU event stream compiled on the host once per
   batch size.
+* **mesh** -- constructed with ``mesh=`` (a `launch.mesh.Mesh`; this
+  process is one of its ranks), `prepare` places the store by the
+  logical-axis rules, each rank holding only its slice of every leaf, and
+  runs every arena scrub on the rank's block range with summed counters
+  (`launch.placement`).  The batch is split over the batch axes; the
+  model reads each leaf gathered whole when a layer runs (FSDP).  The
+  parallel and semi disciplines fold the copy axis onto data-replica
+  groups when ``data % 3 == 0`` (`launch.mesh.fold_copy_axis`): each copy
+  group runs its own copy's forward, and the per-step token ids (and, with
+  `vote_cache`, the caches) are gathered over the copy axis into the
+  `tmr_vote` kernel.  Tokens and counters equal the unmeshed engine's
+  under the same generator.
 
     engine = GenerationEngine(cfg, scheme, gen=32, device="cuda")
     store, prep = engine.prepare(params, generator=g, fault=model)
@@ -39,6 +51,7 @@
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Any, Dict, Iterator, List, Optional, Tuple
 
 import torch
@@ -47,9 +60,15 @@ from ..core import arena
 from ..core import tree as T
 from ..device import resolve_device
 from ..models.config import ModelConfig
+from ..models.params import partition_specs
 from ..models.steps import make_decode_step, make_prefill_step
+from ..models.transformer import model_specs
 from ..obs import NULL_TRACER, LatencyTimeline, Tracer, fetch_telemetry
+from ..optim.sharding_rules import copy_stack_pspec
+from ..pshard import DEFAULT_RULES, ShardingRules, use_mesh_and_rules
 from ..reliability.scheme import ArenaEcc, Compose, Scheme, Tmr, Unprotected
+from . import placement as PL
+from .mesh import fold_copy_axis
 
 __all__ = ["GenerationEngine", "fetch_telemetry", "make_eval_hook"]
 
@@ -91,16 +110,34 @@ class GenerationEngine:
     device     : where it runs; CUDA unless 'cpu' is asked for.
     cost_spec  : optional `costmodel.DeviceSpec`: telemetry gains the
                  `mmpu_*` gauges of `mmpu_projection` (None adds nothing).
+    mesh       : optional `launch.mesh.Mesh` of which this process is a
+                 rank: shard the store and the batch over it (module doc);
+                 the engine runs on the mesh's device.
+    rules      : `pshard.ShardingRules` for the logical axes on `mesh`.
+    fold       : fold the copy axis of parallel/semi TMR onto data-replica
+                 groups when the mesh allows (the batcher, which keeps
+                 every copy on every rank, turns it off).
     """
 
     def __init__(self, cfg: ModelConfig, scheme: Optional[Scheme] = None, *,
                  gen: int, cache_len: Optional[int] = None,
                  vote_every: int = 0, vote_cache: bool = False,
-                 execution: str = "scan", device=None, cost_spec=None):
+                 execution: str = "scan", device=None, cost_spec=None,
+                 mesh=None, rules: Optional[ShardingRules] = None,
+                 fold: bool = True):
         if execution not in ("scan", "loop"):
             raise ValueError(f"execution must be 'scan' or 'loop', "
                              f"got {execution!r}")
+        if mesh is not None:
+            if device is not None and torch.device(device).type \
+                    != mesh.device.type:
+                raise ValueError(f"the mesh runs on {mesh.device}, the "
+                                 f"engine was asked for {device}")
+            device = mesh.device
         self.device = resolve_device(device)
+        self.mesh = mesh
+        self.rules = rules if rules is not None else DEFAULT_RULES
+        self.fold = bool(fold)
         self.cfg = cfg
         self.scheme = scheme if scheme is not None else Unprotected()
         if vote_every or vote_cache:
@@ -144,6 +181,81 @@ class GenerationEngine:
         tmr = self._tmr()
         return tmr.discipline if tmr is not None else None
 
+    # -- mesh plumbing (DESIGN.md §14) ------------------------------------------
+
+    @property
+    def exec_mesh(self):
+        """The mesh the generation runs on: the parallel and semi
+        disciplines fold the copy axis onto data-replica groups when the
+        data axis can host the three copies; the serial discipline (one
+        copy in flight) and the single-copy schemes keep the constructor
+        mesh."""
+        if self.mesh is None:
+            return None
+        if self.fold and self.copy_axis and self._discipline() != "serial":
+            folded = fold_copy_axis(self.mesh)
+            if folded is not None:
+                return folded
+        return self.mesh
+
+    def _placement(self, mesh):
+        """(per-copy spec of every leaf in flatten order, the copies this
+        rank holds or None) on `mesh`."""
+        specs = T.leaves(partition_specs(model_specs(self.cfg), mesh,
+                                         self.rules))
+        if not self.copy_axis:
+            return specs, None
+        lead = copy_stack_pspec(specs[0], mesh, rules=self.rules)[0]
+        if lead is None:
+            return specs, (0, 1, 2)
+        return specs, (mesh.coords["copy"],)
+
+    def shard_store(self, store: Any) -> Any:
+        """Place an unmeshed store (a params tree; (3, *shape) leaves for
+        the copy-axis schemes) on the exec mesh: this rank's slices of the
+        copies it holds.  A no-op without a mesh."""
+        if self.mesh is None:
+            return store
+        mesh = self.exec_mesh
+        words, spec = arena.words_of(store, copies=3 if self.copy_axis
+                                     else 0)
+        specs, held = self._placement(mesh)
+        return PL.place_store(words, spec, specs, mesh, held)
+
+    def _prepare_mesh(self, params, generator, fault, dt, donate):
+        """`prepare` on the exec mesh by the plan of `launch.placement`."""
+        scheme, mesh = self.scheme, self.exec_mesh
+        words, spec = arena.words_of(params)
+        specs, held = self._placement(mesh)
+        if [s.shape for s in T.leaves(model_specs(self.cfg))] != \
+                [l.shape for l in spec.leaves]:
+            raise ValueError("params do not match the config's specs")
+        ecc = scheme if isinstance(scheme, ArenaEcc) else \
+            scheme.ecc if isinstance(scheme, Compose) else None
+        axes = mesh.axis_names if held is None or len(held) > 1 else \
+            tuple(a for a in mesh.axis_names if a != "copy")
+        with use_mesh_and_rules(mesh, self.rules):
+            store, counts = PL.build_store(
+                words, spec, specs, mesh, copies=3 if self.copy_axis else 1,
+                held=held, fault=fault, generator=generator, dt=dt, ecc=ecc,
+                scrub_axes=axes, donate=donate)
+        if counts is None:
+            return store, {}
+        return store, {"ecc_corrected": counts[0],
+                       "ecc_parity_fixed": counts[1],
+                       "ecc_uncorrectable": counts[2]}
+
+    def _params(self, store, copy: Optional[int] = None):
+        """What the model reads for `copy` (None: the single copy)."""
+        if isinstance(store, PL.ShardedStore):
+            return PL.gathered(store, copy)
+        return store if copy is None else _copy(store, copy)
+
+    def _held(self, store) -> Tuple[int, ...]:
+        if isinstance(store, PL.ShardedStore) and store.held is not None:
+            return store.held
+        return (0, 1, 2)
+
     # -- mMPU cost projection -------------------------------------------------
 
     def mmpu_projection(self, batch_size: int):
@@ -168,19 +280,26 @@ class GenerationEngine:
         return self._mmpu_cache[key]
 
     def prepare(self, params: Any, generator: Optional[torch.Generator] = None,
-                fault=None, dt: float = 1.0) -> Tuple[Any, Dict[str, Any]]:
-        """Build the serving store from clean `params` (left unchanged).
+                fault=None, dt: float = 1.0, donate: bool = False
+                ) -> Tuple[Any, Dict[str, Any]]:
+        """Build the serving store from clean `params` (left unchanged
+        unless `donate`).
 
         Applies one exposure interval of `fault` to every held data copy
         (copies in order 0, 1, 2, leaves in flatten order, all drawn from
         `generator`), then the scheme's storage-side protection.  Returns
         (store, prep telemetry): the store is a parameter tree of views
-        into its arena -- (3, *shape) leaves for TMR and Compose."""
+        into its arena -- (3, *shape) leaves for TMR and Compose.  On a
+        mesh it is this rank's `launch.placement.ShardedStore`, and
+        `donate` lets a rank that holds one copy build it in the params'
+        own arena (which it then no longer is)."""
         scheme = self.scheme
         words, spec = arena.words_of(params)
         if words.device != self.device:
             raise ValueError(f"params are on {words.device}, the engine runs "
                              f"on {self.device}")
+        if self.mesh is not None:
+            return self._prepare_mesh(params, generator, fault, dt, donate)
 
         def corrupt(w: torch.Tensor) -> None:
             if fault is not None:
@@ -273,13 +392,20 @@ class GenerationEngine:
                 mark(n)
         return parts
 
+    def _across(self, store):
+        """The three copies' values from this rank's: identity when every
+        copy is held here, else a gather over the folded copy axis."""
+        held = self._held(store)
+        if len(held) == 3:
+            return lambda vals: vals
+        c, mesh = held[0], store.mesh
+        return lambda vals: PL.exchange_copies(vals[c], c, mesh)
+
     def _prefill3(self, store, batch, prefill):
-        tok3, cache3 = [], []
-        for i in range(3):
-            tok, _, cache = prefill(_copy(store, i), batch)
-            tok3.append(tok)
-            cache3.append(cache)
-        return tok3, cache3
+        tok3, cache3 = [None] * 3, [None] * 3
+        for i in self._held(store):
+            tok3[i], _, cache3[i] = prefill(self._params(store, i), batch)
+        return self._across(store)(tok3), cache3
 
     def _tmr_steps(self, store, tok3, cache3, offset: int, n: int, decode):
         """parallel/semi TMR: n decode steps of the three copies advancing
@@ -287,11 +413,14 @@ class GenerationEngine:
         schedule ``(step + 1) % vote_every == 0``.  Returns (tok3, cache3,
         [per-step tok3], [per-step disagreements])."""
         vote = self._tmr()._vote()
+        held, across = self._held(store), self._across(store)
         steps, dis = [], []
         for step in range(offset, offset + n):
-            for i in range(3):
-                tok3[i], _, cache3[i] = decode(_copy(store, i), tok3[i],
-                                               cache3[i])
+            new = [None] * 3
+            for i in held:
+                new[i], _, cache3[i] = decode(self._params(store, i),
+                                              tok3[i], cache3[i])
+            tok3 = across(new)
             dis.append(_disagreements(tok3))
             if self.vote_every and (step + 1) % self.vote_every == 0:
                 tok3 = [vote(*tok3)] * 3
@@ -299,10 +428,17 @@ class GenerationEngine:
                     # every leaf of the cache tree (K/V, the SSM and RG-LRU
                     # states and conv tails, the position), as the
                     # reference's tree map
-                    for a, b, c in zip(*(T.leaves(cc) for cc in cache3)):
-                        vote(a, b, c, out=a)   # in place into copy 0,
-                        b.copy_(a)             # then to the other copies
-                        c.copy_(a)
+                    if len(held) == 3:
+                        for a, b, c in zip(*(T.leaves(cc) for cc in cache3)):
+                            vote(a, b, c, out=a)   # in place into copy 0,
+                            b.copy_(a)             # then to the others
+                            c.copy_(a)
+                    else:
+                        # a folded copy group holds one copy's cache: the
+                        # other two arrive over the copy axis
+                        for x in T.leaves(cache3[held[0]]):
+                            vote(*across([x if i == held[0] else None
+                                          for i in range(3)]), out=x)
             steps.append(list(tok3))
         return tok3, cache3, steps, dis
 
@@ -341,11 +477,12 @@ class GenerationEngine:
         per_copy = []
         for i in range(2):
             with tracer.trace(f"serial_copy{i}", copy=i):
-                per_copy.append(self._single(_copy(store, i), batch, prefill,
-                                             decode, sizes))
+                per_copy.append(self._single(self._params(store, i), batch,
+                                             prefill, decode, sizes))
         voted: List[torch.Tensor] = []
         parts2 = self._single(
-            _copy(store, 2), batch, prefill, decode, sizes, mark, tracer,
+            self._params(store, 2), batch, prefill, decode, sizes, mark,
+            tracer,
             spans=("serial_copy2_prefill", "serial_decode_chunk"),
             land=lambda i, part: voted.append(
                 vote(per_copy[0][i], per_copy[1][i], part)))
@@ -354,19 +491,22 @@ class GenerationEngine:
             "tmr_final_disagreements": _disagreements(seq3)}
 
     def _finish(self, tokens, telem):
+        # host constants become device scalars by a fill, not a blocking
+        # copy from the host
+        dev = tokens.device
         out = dict(telem)
-        out["tokens_emitted"] = torch.tensor(tokens.numel(), dtype=torch.int32,
-                                             device=tokens.device)
+        out["tokens_emitted"] = torch.full((), tokens.numel(),
+                                           dtype=torch.int32, device=dev)
         proj = self.mmpu_projection(tokens.shape[0])
         if proj is not None:
             _, cost = proj
-            dev = tokens.device
-            out["mmpu_cycles_per_token"] = torch.tensor(
-                cost.cycles_per_token, dtype=torch.float32, device=dev)
-            out["mmpu_energy_pj_per_token"] = torch.tensor(
-                cost.energy_pj_per_token, dtype=torch.float32, device=dev)
-            out["mmpu_events"] = torch.tensor(cost.n_events,
-                                              dtype=torch.int32, device=dev)
+            out["mmpu_cycles_per_token"] = torch.full(
+                (), cost.cycles_per_token, dtype=torch.float32, device=dev)
+            out["mmpu_energy_pj_per_token"] = torch.full(
+                (), cost.energy_pj_per_token, dtype=torch.float32,
+                device=dev)
+            out["mmpu_events"] = torch.full((), cost.n_events,
+                                            dtype=torch.int32, device=dev)
         return tokens, out
 
     def generate(self, store: Any, batch: Dict[str, torch.Tensor]
@@ -393,17 +533,50 @@ class GenerationEngine:
         """The one body of every discipline: all decode steps in one
         launch each without a chunk (and no sync), else chunk by chunk
         with `mark(n)` after each launch lands."""
-        batch = self._batch(batch)
+        batch, rows = self._split(self._batch(batch), store)
         prefill, decode = self._steps(batch["tokens"].shape[1])
         sizes = self._sizes(chunk)
-        with torch.no_grad():
+        with torch.no_grad(), self._ambient(store, rows):
             if not self.copy_axis:
-                parts = self._single(store, batch, prefill, decode, sizes,
+                parts = self._single(self._params(store), batch, prefill,
+                                     decode, sizes, mark, tracer)
+                tokens, telem = torch.cat(parts, dim=1), {}
+            else:
+                body = self._concurrent if concurrent else self._serial
+                tokens, telem = body(store, batch, prefill, decode, sizes,
                                      mark, tracer)
-                return self._finish(torch.cat(parts, dim=1), {})
-            body = self._concurrent if concurrent else self._serial
-            return self._finish(*body(store, batch, prefill, decode, sizes,
-                                      mark, tracer))
+            return self._finish(*self._join(store, rows, tokens, telem))
+
+    # -- the batch on a mesh ------------------------------------------------
+
+    def _split(self, batch, store):
+        """(this rank's rows of `batch`, the split) -- the split is None
+        off the mesh or when the batch does not divide the batch axes."""
+        if not isinstance(store, PL.ShardedStore):
+            return batch, None
+        n = batch["tokens"].shape[0]
+        sl, axes, pieces = PL.row_split(n, store.mesh, self.rules)
+        if pieces <= 1:
+            return batch, None
+        return {k: v[sl] for k, v in batch.items()}, (n, sl, axes, pieces)
+
+    def _ambient(self, store, rows):
+        if not isinstance(store, PL.ShardedStore):
+            return contextlib.nullcontext()
+        return use_mesh_and_rules(store.mesh, self.rules,
+                                  batch_shards=rows[3] if rows else 1)
+
+    def _join(self, store, rows, tokens, telem):
+        """The whole batch's tokens and counters from this rank's rows:
+        tokens gathered and disagreement counts summed over the batch
+        axes (exact integer all-reduces)."""
+        if rows is None:
+            return tokens, telem
+        n, sl, axes, _ = rows
+        mesh = store.mesh
+        tokens = PL.gather_rows(tokens, n, sl, axes, mesh)
+        return tokens, {k: mesh.all_reduce(v.clone(), axes)
+                        for k, v in telem.items()}
 
     # -- chunked generation ---------------------------------------------------
 
@@ -462,13 +635,17 @@ class GenerationEngine:
         """First generated token(s) only -- the prefill, voted across the
         copies under TMR.  Time this (after a warmup) for time to first
         token."""
-        batch = self._batch(batch)
+        batch, rows = self._split(self._batch(batch), store)
         prefill, _ = self._steps(batch["tokens"].shape[1])
-        with torch.no_grad():
+        with torch.no_grad(), self._ambient(store, rows):
             if not self.copy_axis:
-                return prefill(store, batch)[0]
-            toks = [prefill(_copy(store, i), batch)[0] for i in range(3)]
-            return self._tmr()._vote()(*toks)
+                tok = prefill(self._params(store), batch)[0]
+            else:
+                toks = [None] * 3
+                for i in self._held(store):
+                    toks[i] = prefill(self._params(store, i), batch)[0]
+                tok = self._tmr()._vote()(*self._across(store)(toks))
+            return self._join(store, rows, tok, {})[0]
 
 
 def make_eval_hook(engine: GenerationEngine, batch: Dict[str, torch.Tensor]):

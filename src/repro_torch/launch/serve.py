@@ -47,6 +47,21 @@ the pool-scrub cadence in ticks; ``--adaptive-scrub`` lets
 scrub finds (``--scrub-every`` seeds its first interval).  Under ``ecc-wb``
 and ``hsiao-wb`` every tick first repairs the KV pages it reads
 (write-back-on-read).
+
+``--mesh DATAxMODEL`` serves on a mesh of ``data * model`` ranks, one
+process each (`launch.mesh.spawn`: under torchrun the given world,
+otherwise spawned processes meeting through a file store; ``nccl`` when
+every rank has a card of its own, ``gloo`` otherwise -- on the CPU, or
+several ranks on one card).  Every rank draws the same parameters and
+faults; the store is placed by the logical-axis rules, the scrubs run on
+block ranges with summed counters, and parallel/semi TMR fold their copy
+axis onto data-replica groups when ``data % 3 == 0`` (DESIGN.md §14).
+Tokens and counters equal the run without a mesh; rank 0 alone prints and
+writes ``--trace`` and ``--metrics``:
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu \
+      --mesh 2x2 --batch 2 --prompt-len 16 --gen 8 --scheme ecc \
+      --inject-p-bit 1e-6
 """
 from __future__ import annotations
 
@@ -69,6 +84,7 @@ from ..reliability import (ArenaEcc, Compose, Scheme, Tmr, Unprotected,
                            parse_scheme, scheme_choices, scheme_help)
 from .batching import BatchSpec, ContinuousBatcher, Request, poisson_trace
 from .engine import GenerationEngine, _sync
+from .mesh import make_test_mesh, parse_mesh, spawn
 
 __all__ = ["serve", "serve_server", "make_inputs", "make_fault",
            "FAULTS", "main"]
@@ -79,6 +95,14 @@ FAULTS = ("bitflip", "stuckat", "drift")
 
 def _log(msg: str) -> None:
     print(msg, flush=True)
+
+
+def _quiet(msg: str) -> None:
+    """A mesh rank other than 0 prints nothing."""
+
+
+def _mesh_desc(mesh) -> str:
+    return "single" if mesh is None else mesh.describe()
 
 
 def make_fault(kind: str, p_bit: float) -> Optional[FaultModel]:
@@ -135,8 +159,8 @@ def serve(cfg: ModelConfig, params: Any, tokens: torch.Tensor,
           chunk: int = 0, cost_spec=None, mmpu_events: Optional[str] = None,
           trace_path: Optional[str] = None,
           metrics_path: Optional[str] = None, device=None,
-          modality: Optional[Dict[str, torch.Tensor]] = None
-          ) -> Dict[str, Any]:
+          modality: Optional[Dict[str, torch.Tensor]] = None,
+          mesh=None, rules=None) -> Dict[str, Any]:
     """Prepare the scheme's store under `fault` at rate `p_bit`, run one
     untimed warmup generation and one timed one (chunked when `chunk`),
     fetch the telemetry once, and compare with a clean run.  Prints the
@@ -144,18 +168,35 @@ def serve(cfg: ModelConfig, params: Any, tokens: torch.Tensor,
     agreement, tok/s, prepare seconds, the latency summary (chunked runs),
     the mMPU projection (with `cost_spec`), the store and the engine.
     `modality` holds the stub modality inputs beside the tokens (vis_emb,
-    enc_emb; `make_inputs`)."""
-    device = resolve_device(device)
+    enc_emb; `make_inputs`).
+
+    With `mesh` (this process is one of its ranks) the store is this
+    rank's shard, built in the params' own arena where the rank holds one
+    copy (`prepare(donate=True)`), so the clean run the agreement compares
+    with goes first; rank 0 alone prints and writes the files."""
+    device = resolve_device(device if mesh is None else mesh.device)
+    lead = mesh is None or mesh.rank == 0
+    emit = _log if lead else _quiet
+    if not lead:
+        trace_path = metrics_path = mmpu_events = None
     batch = {"tokens": tokens, **(modality or {})}
     tracer = Tracer(enabled=bool(trace_path or metrics_path))
     eng = GenerationEngine(cfg, scheme, gen=gen, vote_every=vote_every,
                            vote_cache=vote_cache, execution=engine,
-                           device=device, cost_spec=cost_spec)
+                           device=device, cost_spec=cost_spec, mesh=mesh,
+                           rules=rules)
     model = make_fault(fault, p_bit)
+    ref = None
+    if mesh is not None and p_bit:
+        # every rank runs the clean reference on its own whole params
+        # (no collective; the params are donated to the store below)
+        ref = GenerationEngine(cfg, gen=gen, execution=engine,
+                               device=device).generate(params, batch)[0]
     fault_gen = torch.Generator(device=device).manual_seed(seed + 100)
     t0 = time.perf_counter()
     with tracer.trace("prepare", scheme=scheme.name):
-        store, prep = eng.prepare(params, generator=fault_gen, fault=model)
+        store, prep = eng.prepare(params, generator=fault_gen, fault=model,
+                                  donate=mesh is not None)
         _sync(device)
     prepare_s = time.perf_counter() - t0
 
@@ -175,13 +216,16 @@ def serve(cfg: ModelConfig, params: Any, tokens: torch.Tensor,
     with tracer.trace("fetch_telemetry"):
         stats = fetch_telemetry({**prep, **telem})      # the single fetch
 
-    clean = eng if isinstance(scheme, (Unprotected, ArenaEcc)) \
-        else GenerationEngine(cfg, gen=gen, execution=engine, device=device)
-    ref = clean.generate(params, batch)[0] if p_bit else out
+    if ref is None:
+        clean = eng if isinstance(scheme, (Unprotected, ArenaEcc)) \
+            else GenerationEngine(cfg, gen=gen, execution=engine,
+                                  device=device)
+        ref = clean.generate(params, batch)[0] if p_bit else out
     agree = float((out == ref).float().mean().item())
     tok_s = tokens.shape[0] * gen / dt
-    _log(f"[serve] {cfg.name} scheme={scheme.name} engine={engine} "
-         f"device={device.type} fault={fault} p_bit={p_bit:g}: "
+    desc = _mesh_desc(eng.exec_mesh)
+    emit(f"[serve] {cfg.name} scheme={scheme.name} engine={engine} "
+         f"mesh={desc} device={device.type} fault={fault} p_bit={p_bit:g}: "
          f"{tokens.shape[0]}x{gen} tokens in {dt:.3f}s ({tok_s:.1f} tok/s), "
          f"prepare {prepare_s:.2f}s, agreement with clean run: {agree:.3f}")
     parts = []
@@ -196,29 +240,29 @@ def serve(cfg: ModelConfig, params: Any, tokens: torch.Tensor,
         steps = stats["tmr_step_disagreements"]
         parts.append(f"per-step={int(steps.sum())} over {steps.size} steps")
     if parts:
-        _log(f"[serve] reliability (fetched after timing): "
+        emit(f"[serve] reliability (fetched after timing): "
              f"{'; '.join(parts)}")
-    _log(f"[serve] cost model ({scheme.name}): "
+    emit(f"[serve] cost model ({scheme.name}): "
          f"{scheme.overhead().describe()}")
     proj = eng.mmpu_projection(tokens.shape[0])
     if proj is not None:
         stream, cost = proj
-        _log(f"[serve] mMPU projection ({cost_spec.name}): "
+        emit(f"[serve] mMPU projection ({cost_spec.name}): "
              f"{cost.describe()}")
         if mmpu_events:
             from ..costmodel import dump_jsonl
             n = dump_jsonl(stream, mmpu_events)
-            _log(f"[serve] mmpu event stream -> {mmpu_events} ({n} events)")
+            emit(f"[serve] mmpu event stream -> {mmpu_events} ({n} events)")
     lat = timeline.summary() if timeline is not None else None
     if lat is not None:
-        _log(f"[serve] latency tails (chunk={chunk}): "
+        emit(f"[serve] latency tails (chunk={chunk}): "
              f"ttft={lat['ttft_s'] * 1e3:.1f}ms "
              f"tpot p50={lat.get('tpot_p50', float('nan')) * 1e3:.2f}ms "
              f"p95={lat.get('tpot_p95', float('nan')) * 1e3:.2f}ms "
              f"p99={lat.get('tpot_p99', float('nan')) * 1e3:.2f}ms")
     if trace_path or metrics_path:
         record = {"kind": "serve", "arch": cfg.name, "scheme": scheme.name,
-                  "engine": engine, "mesh": "single", "p_bit": p_bit,
+                  "engine": engine, "mesh": desc, "p_bit": p_bit,
                   "fault": fault, "batch": tokens.shape[0], "gen": gen,
                   "chunk": chunk, "tok_s": tok_s, "agreement": agree,
                   **{k: np.asarray(v).sum().item() for k, v in stats.items()}}
@@ -226,7 +270,7 @@ def serve(cfg: ModelConfig, params: Any, tokens: torch.Tensor,
             record.update({k: float(v) for k, v in lat.items()})
         _write_records(tracer, record, "serve", trace_path, metrics_path)
     sample = out[0, :16].cpu().tolist()
-    _log(f"[serve] sample: {sample}")
+    emit(f"[serve] sample: {sample}")
     return {"tokens": out, "stats": stats, "agreement": agree,
             "tok_s": tok_s, "prepare_s": prepare_s, "latency": lat,
             "mmpu": proj, "store": store, "engine": eng}
@@ -241,7 +285,8 @@ def serve_server(cfg: ModelConfig, params: Any, scheme: Scheme, *,
                  trace_path: Optional[str] = None,
                  metrics_path: Optional[str] = None,
                  on_tick: Optional[Callable] = None,
-                 realtime: bool = True, device=None) -> Dict[str, Any]:
+                 realtime: bool = True, device=None, mesh=None,
+                 rules=None) -> Dict[str, Any]:
     """The reference's `_run_server`: prepare the scheme's store under
     `fault` at rate `p_bit`, run the warmup requests (first `slots` prompts
     of the trace, 2 tokens each), then serve the Poisson trace of
@@ -253,12 +298,18 @@ def serve_server(cfg: ModelConfig, params: Any, scheme: Scheme, *,
     scrubbed at exactly those ticks, whatever the cadence).
     `on_tick(batcher)` (a fault-injection hook) is installed after the
     warmup.  Returns the results, the fetched stats, the latency tails and
-    the batcher."""
-    device = resolve_device(device)
+    the batcher.  With `mesh` (this process is one of its ranks) the
+    weight store is sharded over it and rank 0 alone prints and writes the
+    files."""
+    device = resolve_device(device if mesh is None else mesh.device)
+    lead = mesh is None or mesh.rank == 0
+    emit = _log if lead else _quiet
+    if not lead:
+        trace_path = metrics_path = None
     tracer = Tracer(enabled=bool(trace_path or metrics_path))
     b = ContinuousBatcher(cfg, scheme, spec, scrub_every=scrub_every,
                           forced_scrub_ticks=forced_scrub_ticks,
-                          device=device)
+                          device=device, mesh=mesh, rules=rules)
     if adaptive_scrub and b.ecc is not None:
         from ..runtime import AdaptiveScrub
         # the prior is sized for the pool the controller scrubs
@@ -295,12 +346,13 @@ def serve_server(cfg: ModelConfig, params: Any, scheme: Scheme, *,
     def q(a, p):
         return float(np.percentile(a, p)) if a.size else float("nan")
 
-    _log(f"[serve] {cfg.name} server scheme={scheme.name} mesh=single "
+    desc = _mesh_desc(b.engine.exec_mesh)
+    emit(f"[serve] {cfg.name} server scheme={scheme.name} mesh={desc} "
          f"fault={fault} p_bit={p_bit:g}: {requests} reqs @ {rate:g} rps, "
          f"slots={spec.slots} chunk={spec.chunk}: {useful} tokens in "
          f"{dt:.1f}s (goodput {goodput:.1f} tok/s, {b.ticks} ticks, "
          f"{b.decode_slot_steps} slot-steps)")
-    _log(f"[serve] ttft p50={q(ttft, 50) * 1e3:.1f}ms "
+    emit(f"[serve] ttft p50={q(ttft, 50) * 1e3:.1f}ms "
          f"p95={q(ttft, 95) * 1e3:.1f}ms p99={q(ttft, 99) * 1e3:.1f}ms; "
          f"tpot p50={q(tpot, 50) * 1e3:.2f}ms p95={q(tpot, 95) * 1e3:.2f}ms "
          f"p99={q(tpot, 99) * 1e3:.2f}ms")
@@ -312,16 +364,16 @@ def serve_server(cfg: ModelConfig, params: Any, scheme: Scheme, *,
         if "tmr_final_disagreements" in stats:
             parts.append(f"vote disagreements="
                          f"{int(stats['tmr_final_disagreements'])}")
-        _log(f"[serve] reliability (fetched after timing): "
+        emit(f"[serve] reliability (fetched after timing): "
              f"{'; '.join(parts) or 'n/a'}")
     if b.adaptive is not None:
-        _log(f"[serve] adaptive scrub: {b.adaptive.summary()}")
+        emit(f"[serve] adaptive scrub: {b.adaptive.summary()}")
     lat = {"ttft_p50_s": q(ttft, 50), "ttft_p95_s": q(ttft, 95),
            "ttft_p99_s": q(ttft, 99), "tpot_p50_s": q(tpot, 50),
            "tpot_p95_s": q(tpot, 95), "tpot_p99_s": q(tpot, 99)}
     if trace_path or metrics_path:
         record = {"kind": "server", "arch": cfg.name, "scheme": scheme.name,
-                  "mesh": "single", "p_bit": p_bit, "fault": fault,
+                  "mesh": desc, "p_bit": p_bit, "fault": fault,
                   "rate_rps": rate,
                   "requests": requests, "slots": spec.slots,
                   "chunk": spec.chunk, "gen_cap": spec.gen_cap,
@@ -333,12 +385,18 @@ def serve_server(cfg: ModelConfig, params: Any, scheme: Scheme, *,
             "seconds": dt, "latency": lat, "batcher": b}
 
 
-def main(argv: Optional[list] = None) -> None:
+def main(argv: Optional[list] = None):
+    """The CLI; returns the run's summary (`_run`), or with ``--mesh`` the
+    summaries of every rank in rank order."""
     ap = argparse.ArgumentParser(description=__doc__,
                                  formatter_class=argparse.RawTextHelpFormatter)
     ap.add_argument("--arch", default="qwen2.5-14b", choices=list_archs(),
                     help="a ported arch (default: the reference's, "
                          "qwen2.5-14b)")
+    ap.add_argument("--layers", type=int, default=0, metavar="N",
+                    help="cut the model to N layers at full width (a depth "
+                         "cut, for a config that does not fit the card; "
+                         "0 keeps the config's depth)")
     ap.add_argument("--smoke", action="store_true",
                     help="tiny same-family config (CPU-sized)")
     ap.add_argument("--batch", type=int, default=4)
@@ -360,6 +418,13 @@ def main(argv: Optional[list] = None) -> None:
                     help="fault model of the per-copy corruption (rate = "
                          "--inject-p-bit; stuckat splits it evenly between "
                          "stuck-at-0 and stuck-at-1)")
+    ap.add_argument("--mesh", default=None, metavar="DATAxMODEL",
+                    help="serve on a DATAxMODEL mesh of ranks, one process "
+                         "each (e.g. 2x2; DESIGN.md §14): the store sharded "
+                         "by the logical-axis rules, scrubs on block ranges "
+                         "with summed counters, TMR copies folded onto data "
+                         "replica groups when data %% 3 == 0; gloo on the "
+                         "CPU or with several ranks a card, else nccl")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu")
@@ -436,35 +501,80 @@ def main(argv: Optional[list] = None) -> None:
         if args.rate <= 0 or args.requests < 1 or args.slots < 1:
             ap.error("--server needs --rate > 0, --requests >= 1 and "
                      "--slots >= 1")
+    mesh_shape = None
+    if args.mesh:
+        try:
+            mesh_shape = parse_mesh(args.mesh)
+        except ValueError as e:
+            ap.error(str(e))
+    device = resolve_device(args.device)
+    if mesh_shape is None:
+        return _run(args, device)
+    data, model = mesh_shape
+    return spawn(_mesh_rank, data * model, args=(args, data, model),
+                 device=device)
+
+
+def _mesh_rank(device, args, data: int, model: int) -> Dict[str, Any]:
+    """One rank of ``--mesh``: the mesh over the world, then the run; the
+    rank's summary (host values) goes back to the launcher."""
+    return _run(args, device, make_test_mesh(data, model, device=device))
+
+
+def _run(args, device, mesh=None) -> Dict[str, Any]:
+    """One run of the CLI (on one rank of a mesh, or alone); returns its
+    summary as host values: tokens, fetched stats, and agreement and
+    tok/s (one-shot) or results and goodput (server), and the kernel
+    launches this process made in the run."""
+    from .. import kernels
+    before = kernels.launch_counts()
+
+    def launched():
+        return {k: v - before.get(k, 0)
+                for k, v in kernels.launch_counts().items()
+                if v > before.get(k, 0)}
+
+    scheme = parse_scheme(args.scheme)
     cost_spec = None
     if args.mmpu_cost or args.mmpu_events:
         from ..configs.mmpu_paper import get_device
         cost_spec = get_device(args.mmpu_device)
-
-    device = resolve_device(args.device)
     cfg = get_config(args.arch)
     if args.smoke:
         cfg = cfg.smoke()
+    if args.layers:
+        cfg = cfg.replace(n_layers=args.layers)
     inputs = make_inputs(cfg, args.batch, args.prompt_len, args.seed, device)
     if args.server:
         spec = BatchSpec(slots=args.slots, page_tokens=args.page_tokens,
                          chunk=args.chunk or 8,
                          prompt_buckets=(args.prompt_len,), gen_cap=args.gen)
-        serve_server(cfg, inputs["params"], scheme, spec=spec,
-                     requests=args.requests, rate=args.rate,
-                     p_bit=args.inject_p_bit, fault=args.fault,
-                     seed=args.seed, scrub_every=args.scrub_every,
-                     adaptive_scrub=args.adaptive_scrub,
-                     trace_path=args.trace, metrics_path=args.metrics,
-                     device=device)
-        return
-    serve(cfg, inputs["params"], inputs["tokens"], scheme, gen=args.gen,
-          vote_every=args.vote_every, vote_cache=args.vote_cache,
-          p_bit=args.inject_p_bit, fault=args.fault, seed=args.seed,
-          engine=args.engine, chunk=args.chunk, cost_spec=cost_spec,
-          mmpu_events=args.mmpu_events, trace_path=args.trace,
-          metrics_path=args.metrics, device=device,
-          modality=inputs["modality"])
+        res = serve_server(cfg, inputs["params"], scheme, spec=spec,
+                           requests=args.requests, rate=args.rate,
+                           p_bit=args.inject_p_bit, fault=args.fault,
+                           seed=args.seed, scrub_every=args.scrub_every,
+                           adaptive_scrub=args.adaptive_scrub,
+                           trace_path=args.trace, metrics_path=args.metrics,
+                           device=device, mesh=mesh)
+        return {"results": [(r.rid, r.tokens.tolist(), r.vote_disagreements)
+                            for r in res["results"]],
+                "stats": {k: np.asarray(v).tolist()
+                          for k, v in res["stats"].items()},
+                "goodput_tok_s": res["goodput_tok_s"],
+                "launches": launched()}
+    res = serve(cfg, inputs["params"], inputs["tokens"], scheme,
+                gen=args.gen, vote_every=args.vote_every,
+                vote_cache=args.vote_cache, p_bit=args.inject_p_bit,
+                fault=args.fault, seed=args.seed, engine=args.engine,
+                chunk=args.chunk, cost_spec=cost_spec,
+                mmpu_events=args.mmpu_events, trace_path=args.trace,
+                metrics_path=args.metrics, device=device,
+                modality=inputs["modality"], mesh=mesh)
+    return {"tokens": res["tokens"].cpu().tolist(),
+            "stats": {k: np.asarray(v).tolist()
+                      for k, v in res["stats"].items()},
+            "agreement": res["agreement"], "tok_s": res["tok_s"],
+            "launches": launched()}
 
 
 if __name__ == "__main__":

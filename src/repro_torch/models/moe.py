@@ -3,9 +3,11 @@ top-k routing with sort-based capacity dispatch.
 
 The reference splits the tokens into G data-parallel groups, G being the
 mesh's batch shard count (`_dp_groups`), so that every sort and scatter is
-local to a group.  Without a mesh its G is 1; the port has no mesh yet, so
-G is fixed at 1 here while the (G, ...) axis is kept, and the grouped form
-comes back with the mesh.
+local to a group; without a mesh G is 1.  The port runs one process per
+mesh position: where the engine has already split the batch over the
+ranks, a process's tokens are one group of the reference's (G local = 1),
+and where it has not (a batch that does not divide), the process splits
+its tokens into the reference's G groups itself.
 
 Supports llama4-style (128 experts, top-1, a shared expert, interleaved)
 and phi3.5-moe-style (16 experts, top-2) from the same code path.  The
@@ -20,11 +22,31 @@ from typing import Tuple
 import torch
 import torch.nn.functional as F
 
+from ..pshard import ambient_batch_shards, ambient_mesh, ambient_rules
 from .config import ModelConfig
 from .nn import gelu, mlp_apply, mlp_specs
 from .params import Spec
 
 __all__ = ["moe_specs", "moe_apply", "route", "dispatch"]
+
+
+def _dp_groups(n_tokens: int) -> int:
+    """Token groups in this process's `n_tokens` tokens: the reference's
+    group count over the ambient mesh's batch axes (halved until it
+    divides the whole batch's tokens; 1 without a mesh), divided by the
+    batch pieces the processes hold (`pshard.ambient_batch_shards`)."""
+    mesh = ambient_mesh()
+    if mesh is None:
+        return 1
+    shards = ambient_batch_shards()
+    total = n_tokens * shards
+    g = 1
+    for ax in ambient_rules().axes_for("batch"):
+        if ax in mesh.axis_names:
+            g *= mesh.shape[ax]
+    while g > 1 and total % g:
+        g //= 2
+    return max(g // shards, 1)
 
 
 def moe_specs(cfg: ModelConfig) -> dict:
@@ -91,7 +113,7 @@ def moe_apply(p: dict, cfg: ModelConfig,
     f = cfg.moe_dff or cfg.d_ff
     T = B * S
     dt = x.dtype
-    G = 1                                   # no mesh: one group
+    G = _dp_groups(T)
     Tl = T // G
     C = _capacity(cfg, Tl)
     xg = x.reshape(G, Tl, D)

@@ -1,7 +1,8 @@
 """Declarative parameter specs, materialized into an arena (port of
-`repro.models.params`: `Spec`, `materialize` and `count_params`, plus
-`from_numpy` and `train_state_from_reference`, which carry the JAX
-package's parameters and training state across as numpy trees).
+`repro.models.params`: `Spec`, `materialize`, `partition_specs` and
+`count_params`, plus `from_numpy` and `train_state_from_reference`, which
+carry the JAX package's parameters and training state across as numpy
+trees).
 
 Parameters are a dict tree with the reference's keys and shapes (stacked
 ``(n_layers, ...)`` layer leaves included) whose leaves are views of one
@@ -20,7 +21,7 @@ from ..core import arena
 from ..core import tree as T
 
 __all__ = ["Spec", "layout", "materialize", "count_params", "from_numpy",
-           "train_state_from_reference"]
+           "train_state_from_reference", "partition_specs"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -77,6 +78,13 @@ def materialize(tree: Any, generator: torch.Generator,
         else:
             x.normal_(0.0, s.scale, generator=generator)
     return params
+
+
+def partition_specs(tree: Any, mesh, rules=None) -> Any:
+    """The `pshard.spec_for` tuple of every leaf of a Spec tree on `mesh`
+    (the reference's PartitionSpec tree)."""
+    from ..pshard import spec_for
+    return T.map_tree(lambda s: spec_for(s.shape, s.axes, mesh, rules), tree)
 
 
 def count_params(tree: Any) -> int:

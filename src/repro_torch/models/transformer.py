@@ -381,8 +381,9 @@ def prefill(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
         return (torch.zeros(shape, dtype=cfg.cdtype, device=dev),
                 torch.zeros(shape, dtype=cfg.cdtype, device=dev))
 
-    cache: Dict[str, Any] = {"pos": torch.tensor(S, dtype=torch.int32,
-                                                 device=dev)}
+    # a fill, not a copy from the host: no blocking transfer on the card
+    cache: Dict[str, Any] = {"pos": torch.full((), S, dtype=torch.int32,
+                                               device=dev)}
     if cfg.family in ("dense", "moe"):
         ck, cv = kv_buffers(cfg.n_layers, cache_len)
         for l, (wl, is_moe) in enumerate(_schedule(params, cfg)):

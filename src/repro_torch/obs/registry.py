@@ -149,6 +149,23 @@ class MetricsRegistry:
             out["ecc_injected"] = injected
         return out
 
+    def psum(self, metrics: Mapping[str, torch.Tensor], mesh,
+             axes: Any) -> Dict[str, torch.Tensor]:
+        """Cross-rank reduce (the reference's psum inside a shard_map
+        body): every counter summed over the ranks of `mesh`'s `axes` by
+        an integer all-reduce, so the totals equal the single-device
+        counts bit for bit (DESIGN.md §14).  Returns new tensors; the
+        inputs stay as they were."""
+        axes = (axes,) if isinstance(axes, str) else tuple(axes)
+        out = {}
+        for k, v in metrics.items():
+            v = torch.as_tensor(v)
+            if v.is_floating_point():
+                raise TypeError(f"psum sums integer counters; {k!r} is "
+                                f"{v.dtype}")
+            out[k] = mesh.all_reduce(v.clone(), axes)
+        return out
+
     # -- the single host sync -------------------------------------------------
 
     def fetch(self, telemetry: Mapping[str, Any]) -> Dict[str, np.ndarray]:

@@ -1,0 +1,245 @@
+"""Logical-axis sharding (port of `repro.pshard`): one place that maps
+model-logical dimension names to mesh axes.
+
+Models annotate tensors with *logical* axes ("batch", "ff", "kv_seq",
+...); the launcher installs an ambient mesh and a `ShardingRules` table;
+resolution checks divisibility, so small or odd dimensions degrade to
+replication instead of erroring.
+
+A mesh here is anything with the reference's two attributes:
+``axis_names`` (a tuple) and ``shape`` (axis name -> size) -- the process
+mesh of `launch.mesh` (one process per position, on `torch.distributed`)
+or an `AbstractMesh`, which has no processes and serves the pure
+resolution functions.  `spec_for` returns the reference's per-dimension
+entries as a plain tuple -- ``None``, an axis name, or a tuple of names --
+and `to_placements` turns that tuple into DTensor placements (`Shard`,
+`Replicate`), which stand for the reference's `NamedSharding`.
+
+The port runs one process per mesh position, so a plain tensor under a
+mesh is that process's local value; `constrain` redistributes a DTensor
+and leaves a plain tensor as it is.
+"""
+from __future__ import annotations
+
+import contextlib
+import dataclasses
+import threading
+from typing import Dict, Optional, Sequence, Tuple
+
+__all__ = ["ShardingRules", "DEFAULT_RULES", "AbstractMesh", "ambient_mesh",
+           "ambient_rules", "ambient_batch_shards", "use_mesh_and_rules",
+           "spec_for", "to_placements", "shard_slices", "constrain",
+           "constrain_tree", "spec_axes"]
+
+
+@dataclasses.dataclass(frozen=True)
+class ShardingRules:
+    """logical dim name -> tuple of mesh axis names (in sharding order)."""
+
+    table: Dict[str, Tuple[str, ...]] = dataclasses.field(default_factory=dict)
+
+    def axes_for(self, logical: Optional[str]) -> Tuple[str, ...]:
+        if logical is None:
+            return ()
+        return self.table.get(logical, ())
+
+    def replace(self, **updates) -> "ShardingRules":
+        t = dict(self.table)
+        for k, v in updates.items():
+            t[k] = tuple(v) if v else ()
+        return ShardingRules(t)
+
+
+#: the reference's default strategy: DP over (pod, data); TP/EP/vocab over
+#: model; FSDP (weight d_model dim over data).  Reliability placement: the
+#: TMR copy axis rides a "copy" mesh axis (present only on meshes folded by
+#: `launch.mesh.fold_copy_axis`), and parity tables shard their arena-block
+#: axis across the whole mesh.
+DEFAULT_RULES = ShardingRules({
+    "batch": ("pod", "data"),
+    "vocab": ("model",),
+    "vocab_in": (),
+    "heads": ("model",),
+    "kv_heads": ("model",),
+    "ff": ("model",),
+    "expert": ("model",),
+    "model_dim": ("data",),
+    "kv_seq": ("model",),
+    "seq": (),
+    "zero": ("data",),
+    "copy": ("copy",),
+    "arena_block": ("data", "model"),
+})
+
+
+@dataclasses.dataclass(frozen=True)
+class AbstractMesh:
+    """A mesh shape without processes: ``AbstractMesh((2, 2), ("data",
+    "model"))``.  Enough for `spec_for` and the placement rules."""
+
+    sizes: Tuple[int, ...]
+    axis_names: Tuple[str, ...]
+
+    def __post_init__(self):
+        if len(self.sizes) != len(self.axis_names):
+            raise ValueError(f"sizes {self.sizes} vs axes {self.axis_names}")
+
+    @property
+    def shape(self) -> Dict[str, int]:
+        return dict(zip(self.axis_names, self.sizes))
+
+
+class _Ctx(threading.local):
+    mesh = None
+    rules: ShardingRules = DEFAULT_RULES
+    batch_shards: int = 1
+
+
+_CTX = _Ctx()
+
+
+def ambient_mesh():
+    return _CTX.mesh
+
+
+def ambient_rules() -> ShardingRules:
+    return _CTX.rules
+
+
+def ambient_batch_shards() -> int:
+    """Into how many per-process pieces the running code's batch dimension
+    was split (1 when every process holds the whole batch).  MoE reads it
+    to count its local token groups."""
+    return _CTX.batch_shards
+
+
+@contextlib.contextmanager
+def use_mesh_and_rules(mesh, rules: Optional[ShardingRules] = None,
+                       batch_shards: int = 1):
+    old = (_CTX.mesh, _CTX.rules, _CTX.batch_shards)
+    _CTX.mesh = mesh
+    _CTX.rules = rules if rules is not None else DEFAULT_RULES
+    _CTX.batch_shards = int(batch_shards)
+    try:
+        yield
+    finally:
+        _CTX.mesh, _CTX.rules, _CTX.batch_shards = old
+
+
+def _resolve_dim(size: int, logical: Optional[str], mesh,
+                 rules: ShardingRules):
+    axes = [a for a in rules.axes_for(logical) if a in mesh.axis_names]
+    if not axes:
+        return None
+    total = 1
+    for a in axes:
+        total *= mesh.shape[a]
+    if size % total != 0:
+        return None  # degrade to replication rather than erroring
+    return tuple(axes) if len(axes) > 1 else axes[0]
+
+
+def spec_for(shape: Sequence[int], logical: Sequence[Optional[str]],
+             mesh=None, rules: Optional[ShardingRules] = None) -> tuple:
+    """Per-dimension sharding of a tensor with the given logical axes
+    (None, an axis name or a tuple of names), with divisibility-checked
+    degradation; mesh axes are never used twice.  ``()`` without a mesh
+    (the reference's empty PartitionSpec)."""
+    mesh = mesh if mesh is not None else ambient_mesh()
+    rules = rules or ambient_rules()
+    if mesh is None:
+        return ()
+    parts, used = [], set()
+    for size, name in zip(shape, logical):
+        r = _resolve_dim(size, name, mesh, rules)
+        flat = r if isinstance(r, tuple) else ((r,) if r else ())
+        if r is not None and not (set(flat) & used):
+            parts.append(r)
+            used.update(flat)
+        else:
+            parts.append(None)
+    return tuple(parts)
+
+
+def spec_axes(entry) -> Tuple[str, ...]:
+    """The mesh axes of one dimension's entry, as a tuple."""
+    if entry is None:
+        return ()
+    return tuple(entry) if isinstance(entry, tuple) else (entry,)
+
+
+def _checked(spec: tuple, mesh) -> None:
+    """A dimension over several mesh axes must name them in mesh order:
+    DTensor nests a dimension's shards in mesh-dimension order, so any
+    other order has no placement.  Raises; never reorders."""
+    for d, entry in enumerate(spec):
+        axes = spec_axes(entry)
+        pos = [mesh.axis_names.index(a) for a in axes]
+        if pos != sorted(pos):
+            raise ValueError(
+                f"dimension {d} is sharded over {axes}, which is not the "
+                f"mesh's axis order {mesh.axis_names}: no DTensor placement "
+                f"nests shards that way")
+
+
+def to_placements(spec: tuple, mesh) -> list:
+    """DTensor placements (one per mesh axis, in mesh order) of a
+    `spec_for` tuple: ``Shard(d)`` on every mesh axis dimension d is split
+    over, ``Replicate()`` elsewhere."""
+    from torch.distributed.tensor import Replicate, Shard
+    _checked(spec, mesh)
+    out = [Replicate() for _ in mesh.axis_names]
+    for d, entry in enumerate(spec):
+        for a in spec_axes(entry):
+            out[mesh.axis_names.index(a)] = Shard(d)
+    return out
+
+
+def shard_slices(shape: Sequence[int], spec: tuple, mesh,
+                 coords: Dict[str, int]) -> Tuple[slice, ...]:
+    """The slice of a `shape` tensor that the process at mesh `coords`
+    holds under `spec` (the reference's NamedSharding layout: a dimension
+    over axes (a1, a2) is cut into size(a1) * size(a2) even pieces, a1
+    major)."""
+    _checked(spec, mesh)
+    out = []
+    for d, size in enumerate(shape):
+        entry = spec[d] if d < len(spec) else None
+        k, n = 0, 1
+        for a in spec_axes(entry):
+            k = k * mesh.shape[a] + coords[a]
+            n *= mesh.shape[a]
+        step = size // n
+        out.append(slice(k * step, (k + 1) * step))
+    return tuple(out)
+
+
+def constrain(x, *logical: Optional[str]):
+    """Redistribute a DTensor to the placements its logical axes resolve
+    to on the ambient mesh; a no-op without a mesh, and for a plain tensor
+    (a process's local value)."""
+    mesh = ambient_mesh()
+    if mesh is None:
+        return x
+    from torch.distributed.tensor import DTensor
+    if not isinstance(x, DTensor):
+        return x
+    spec = spec_for(x.shape, logical, mesh, ambient_rules())
+    return x.redistribute(mesh.device_mesh, to_placements(spec, mesh))
+
+
+def constrain_tree(tree, spec_tree):
+    """`constrain` a tree of DTensors against a tree of spec tuples;
+    no-op when spec_tree is None or there is no ambient mesh."""
+    mesh = ambient_mesh()
+    if mesh is None or spec_tree is None:
+        return tree
+    from torch.distributed.tensor import DTensor
+
+    from .core import tree as T
+
+    def one(x, s):
+        if not isinstance(x, DTensor):
+            return x
+        return x.redistribute(mesh.device_mesh, to_placements(s, mesh))
+    return T.map_tree(one, tree, spec_tree)

@@ -12,6 +12,9 @@
 
 ``kernel`` is the op's public wrapper: on a CUDA tensor it launches the
 Hopper kernel (or raises), on a CPU tensor it runs the plain version.
+The block-code ops also carry their mesh form (``scrub_sharded``; the
+inject+scrub op's ``.sharded``): the same implementation run on each
+rank's block range, counts summed (`kernels.sharded`).
 ``torch`` runs the plain version on any device.  Resolution order: the
 per-call ``impl=``, then the default.  Implementations load lazily and
 are cached.
@@ -69,34 +72,63 @@ def dispatch(op: str, impl: Optional[str] = None):
     return _CACHE[(op, name)]
 
 
+def _bind(sharded, local, name: str = "local_scrub"):
+    """The mesh form of an implementation: `sharded` (an op's
+    ``scrub_sharded``) running `local` on each rank's block range."""
+    def run(buf, parity, *extra, mesh=None, **kw):
+        return sharded(buf, parity, *extra, mesh=mesh,
+                       **{name: lambda *a: local(*a, **kw)})
+    return run
+
+
+class _Op:
+    """A callable implementation with its mesh form as ``.sharded``."""
+
+    def __init__(self, fn, sharded):
+        self.fn, self.sharded = fn, sharded
+
+    def __call__(self, *args, **kw):
+        return self.fn(*args, **kw)
+
+
 def _load_diag_parity_kernel():
-    from ..kernels.diag_parity import encode_parity, scrub
-    return SimpleNamespace(encode=encode_parity, scrub=scrub)
+    from ..kernels.diag_parity import encode_parity, scrub, scrub_sharded
+    return SimpleNamespace(encode=encode_parity, scrub=scrub,
+                           scrub_sharded=_bind(scrub_sharded, scrub))
 
 
 def _load_diag_parity_torch():
+    from ..kernels.diag_parity import scrub_sharded
     from ..kernels.diag_parity.ref import encode_parity_ref, scrub_ref
-    return SimpleNamespace(encode=encode_parity_ref, scrub=scrub_ref)
+    return SimpleNamespace(encode=encode_parity_ref, scrub=scrub_ref,
+                           scrub_sharded=_bind(scrub_sharded, scrub_ref))
 
 
 def _load_hsiao_secded_kernel():
-    from ..kernels.hsiao_secded import encode_hsiao, scrub
-    return SimpleNamespace(encode=encode_hsiao, scrub=scrub)
+    from ..kernels.hsiao_secded import encode_hsiao, scrub, scrub_sharded
+    return SimpleNamespace(encode=encode_hsiao, scrub=scrub,
+                           scrub_sharded=_bind(scrub_sharded, scrub))
 
 
 def _load_hsiao_secded_torch():
+    from ..kernels.hsiao_secded import scrub_sharded
     from ..kernels.hsiao_secded.ref import encode_hsiao_ref, scrub_hsiao_ref
-    return SimpleNamespace(encode=encode_hsiao_ref, scrub=scrub_hsiao_ref)
+    return SimpleNamespace(encode=encode_hsiao_ref, scrub=scrub_hsiao_ref,
+                           scrub_sharded=_bind(scrub_sharded,
+                                               scrub_hsiao_ref))
 
 
 def _load_inject_scrub_kernel():
-    from ..kernels.inject_scrub import inject_scrub
-    return inject_scrub
+    from ..kernels.inject_scrub import inject_scrub, inject_scrub_sharded
+    return _Op(inject_scrub, _bind(inject_scrub_sharded, inject_scrub,
+                                   "local_op"))
 
 
 def _load_inject_scrub_torch():
+    from ..kernels.inject_scrub import inject_scrub_sharded
     from ..kernels.inject_scrub.ref import inject_scrub_ref
-    return inject_scrub_ref
+    return _Op(inject_scrub_ref, _bind(inject_scrub_sharded,
+                                       inject_scrub_ref, "local_op"))
 
 
 def _load_tmr_vote_kernel():

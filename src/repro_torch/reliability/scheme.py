@@ -1,5 +1,4 @@
-"""Composable protection schemes (port of `repro.reliability.scheme`,
-without the mesh and the cost-model hooks).
+"""Composable protection schemes (port of `repro.reliability.scheme`).
 
     scheme = parse_scheme("ecc+tmr-serial")
     prot   = scheme.protect(params)           # Protected store
@@ -17,6 +16,12 @@ full-width store is never held twice.  `refresh` after a write to the
 payload's own views re-encodes (or re-copies) that arena in place where
 the reference protects a fresh copy.  Bits and counters match the
 reference's on the same inputs.
+
+With ``mesh=`` (a `launch.mesh.Mesh`, this process one of its ranks, the
+arena whole on every rank) the arena scrubs run on one contiguous block
+range per rank with the counts summed (`kernels.sharded`, DESIGN.md §14):
+the same bits and counts.  `shardings` gives the DTensor placements of a
+store's payload and redundancy on a mesh.
 """
 from __future__ import annotations
 
@@ -90,6 +95,11 @@ def _vote_counts(a: Any, b: Any, c: Any) -> Tuple[torch.Tensor,
     return corrected, conflicts
 
 
+def _placements(pspecs: Any, mesh) -> Any:
+    from ..pshard import to_placements
+    return T.map_tree(lambda sp: to_placements(sp, mesh), pspecs)
+
+
 def _copies(words: torch.Tensor, n: int = 3) -> torch.Tensor:
     """(n, n_words) arena holding n copies of `words`."""
     out = torch.empty((n,) + tuple(words.shape), dtype=words.dtype,
@@ -128,7 +138,11 @@ class Scheme:
         return (found is not None and found[0].data_ptr() == row.data_ptr()
                 and found[1] == prot.spec)
 
-    def scrub(self, prot: Protected) -> Tuple[Protected, ScrubReport]:
+    def scrub(self, prot: Protected,
+              mesh=None) -> Tuple[Protected, ScrubReport]:
+        """Verify/correct the redundancy.  With a mesh, arena-wide scrubs
+        run one block range per rank with summed counters -- bit-exact
+        against mesh=None."""
         raise NotImplementedError
 
     def vote_share(self, report: ScrubReport):
@@ -136,7 +150,7 @@ class Scheme:
         not vote, else an int32 device counter (fetch it with the rest)."""
         return None
 
-    def scrub_into(self, prot: Protected, metrics, registry=None
+    def scrub_into(self, prot: Protected, metrics, mesh=None, registry=None
                    ) -> Tuple[Protected, dict]:
         """Scrub and fold the report into a metrics-registry accumulator
         dict (`obs.MetricsRegistry` names, device-side adds), so counters
@@ -148,7 +162,7 @@ class Scheme:
         """
         from ..obs import DEFAULT_REGISTRY
         registry = registry if registry is not None else DEFAULT_REGISTRY
-        fixed, report = self.scrub(prot)
+        fixed, report = self.scrub(prot, mesh=mesh)
         updates = registry.from_report(report)
         vd = self.vote_share(report)
         if vd is not None:
@@ -171,6 +185,21 @@ class Scheme:
 
     def read(self, prot: Protected) -> Any:
         return prot.payload
+
+    def shardings(self, payload: Any, pspecs: Any, mesh,
+                  rules=None) -> Protected:
+        """DTensor placements shaped like ``protect(payload)`` on `mesh`:
+        `pspecs` is the payload's `spec_for` tree (`models.params.
+        partition_specs`).  Parity tables shard their arena-block axis
+        across the whole mesh; TMR copies are placed like the payload they
+        mirror.  The result's `words` and `spec` are None."""
+        return Protected(_placements(pspecs, mesh),
+                         self._redundancy_shardings(payload, pspecs, mesh,
+                                                    rules),
+                         self, None, None)
+
+    def _redundancy_shardings(self, payload, pspecs, mesh, rules):
+        return None
 
     def corrupt_store(self, prot: Protected, model, generator: torch.Generator,
                       dt: float = 1.0) -> Protected:
@@ -204,7 +233,8 @@ class Unprotected(Scheme):
         words, spec = arena.pack(payload)
         return Protected(arena.unpack(words, spec), None, self, words, spec)
 
-    def scrub(self, prot: Protected) -> Tuple[Protected, ScrubReport]:
+    def scrub(self, prot: Protected,
+              mesh=None) -> Tuple[Protected, ScrubReport]:
         return prot, _zero_report(prot.words.device)
 
     def overhead(self) -> CostReport:
@@ -236,8 +266,17 @@ class ArenaEcc(Scheme):
         raise NotImplementedError
 
     def _scrub(self, buf: torch.Tensor, parity: torch.Tensor,
-               out_parity: Optional[torch.Tensor] = None):
+               out_parity: Optional[torch.Tensor] = None, mesh=None):
         raise NotImplementedError
+
+    def _sharded(self, op, buf, parity, out_parity, mesh, **kw):
+        """`op.scrub` on this rank's block range of `mesh` with summed
+        counts (the backend's `scrub_sharded`), or `op.scrub` itself."""
+        if mesh is None:
+            return op.scrub(buf, parity, out_parity=out_parity, **kw)
+        if out_parity is not None:
+            raise ValueError("a sharded scrub corrects its parity in place")
+        return op.scrub_sharded(buf, parity, mesh=mesh, **kw)
 
     def _ecc_events(self, profile, spec, copies: int = 1):
         """This code's mMPU redundancy traffic (costmodel hookup)."""
@@ -262,29 +301,38 @@ class ArenaEcc(Scheme):
 
     checkpoint_redundancy = True
 
-    def scrub(self, prot: Protected) -> Tuple[Protected, ScrubReport]:
-        _, _, counts = self._scrub(prot.words, prot.redundancy)
+    def scrub(self, prot: Protected,
+              mesh=None) -> Tuple[Protected, ScrubReport]:
+        _, _, counts = self._scrub(prot.words, prot.redundancy, mesh=mesh)
         return prot, ScrubReport(corrected=counts[0], parity_fixed=counts[1],
                                  uncorrectable=counts[2])
 
-    def read_corrected(self, prot: Protected):
+    def read_corrected(self, prot: Protected, mesh=None):
         """Write-back-on-read at the scheme level: decode through a fused
         scrub, so the caller gets corrected bits and the corrected store
         persists (in place).  Returns (payload, prot, report)."""
-        fixed, report = self.scrub(prot)
+        fixed, report = self.scrub(prot, mesh=mesh)
         return fixed.payload, fixed, report
 
     def encode_arena(self, buf: torch.Tensor) -> torch.Tensor:
         """Parity table of a packed int32 arena."""
         return self._encode(buf)
 
-    def scrub_arena(self, buf: torch.Tensor, parity: torch.Tensor):
+    def _redundancy_shardings(self, payload, pspecs, mesh, rules):
+        from ..optim.sharding_rules import parity_pspec
+        from ..pshard import to_placements
+        n_blocks = arena.arena_spec(payload).n_blocks
+        return to_placements(parity_pspec(n_blocks, self.n_parity_words,
+                                          mesh, rules), mesh)
+
+    def scrub_arena(self, buf: torch.Tensor, parity: torch.Tensor,
+                    mesh=None):
         """Fused scrub of a packed arena, in place: (buf, parity, counts (3,)
         int32 corrected / parity_fixed / uncorrectable)."""
-        return self._scrub(buf, parity)
+        return self._scrub(buf, parity, mesh=mesh)
 
     def inject_scrub_arena(self, buf: torch.Tensor, parity: torch.Tensor,
-                           mask: torch.Tensor):
+                           mask: torch.Tensor, mesh=None):
         """Fused corrupt+repair of a packed arena, in place: XOR the fault
         mask in, then the code's scrub.  Returns (buf, parity, counts (4,)
         int32 injected / corrected / parity_fixed / uncorrectable).  Codes
@@ -293,11 +341,11 @@ class ArenaEcc(Scheme):
         block-local word code."""
         injected = popcount32(as_u64(mask)).sum(dtype=torch.int32)
         buf ^= mask
-        _, par, counts = self._scrub(buf, parity)
+        _, par, counts = self._scrub(buf, parity, mesh=mesh)
         return buf, par, torch.cat([injected[None], counts])
 
     def scrub_copies(self, words: torch.Tensor, parity: torch.Tensor,
-                     keep_parity: bool = True):
+                     keep_parity: bool = True, mesh=None):
         """Scrub C same-layout copies, a contiguous (C, n_words) arena, in
         ONE launch and in place (the reference concatenates the copies).
 
@@ -307,12 +355,16 @@ class ArenaEcc(Scheme):
         then the per-copy corrected tables are written to a new
         (C, n_blocks, F) tensor, or dropped when `keep_parity` is False.
         Returns (words, per-copy parity or None, counts (3,) int32 summed
-        over the copies)."""
+        over the copies).  With a mesh, the stacked block axis is cut into
+        one range per rank (a shared table is first repeated per copy, so
+        every range has its own rows)."""
         C = words.shape[0]
         flat = words.view(-1)
+        if parity.ndim == 2 and mesh is not None:
+            parity = parity.repeat(C, 1).view(C, *parity.shape)
         if parity.ndim == 3:
-            _, par, counts = self._scrub(flat, parity.view(-1,
-                                                           parity.shape[-1]))
+            _, par, counts = self._scrub(flat, parity.view(
+                -1, parity.shape[-1]), mesh=mesh)
             return words, par.view(parity.shape), counts
         out = None
         if keep_parity:
@@ -346,13 +398,16 @@ class DiagParityEcc(ArenaEcc):
     def _encode(self, buf):
         return self._op().encode(buf, slopes=self.slopes)
 
-    def _scrub(self, buf, parity, out_parity=None):
-        return self._op().scrub(buf, parity, slopes=self.slopes,
-                                out_parity=out_parity)
+    def _scrub(self, buf, parity, out_parity=None, mesh=None):
+        return self._sharded(self._op(), buf, parity, out_parity, mesh,
+                             slopes=self.slopes)
 
-    def inject_scrub_arena(self, buf, parity, mask):
+    def inject_scrub_arena(self, buf, parity, mask, mesh=None):
         # diagonal parity has a dedicated fused corrupt+repair kernel
         op = backend.dispatch("inject_scrub", self.impl)
+        if mesh is not None:
+            return op.sharded(buf, parity, mask, mesh=mesh,
+                              slopes=self.slopes)
         return op(buf, parity, mask, slopes=self.slopes)
 
     def overhead(self) -> CostReport:
@@ -390,8 +445,8 @@ class HsiaoSecDed(ArenaEcc):
     def _encode(self, buf):
         return self._op().encode(buf)
 
-    def _scrub(self, buf, parity, out_parity=None):
-        return self._op().scrub(buf, parity, out_parity=out_parity)
+    def _scrub(self, buf, parity, out_parity=None, mesh=None):
+        return self._sharded(self._op(), buf, parity, out_parity, mesh)
 
     def overhead(self) -> CostReport:
         return CostReport(storage_x=1.0 + 7.0 / arena.BLOCK, latency_x=1.42)
@@ -445,7 +500,14 @@ class Tmr(Scheme):
         # every TMR repair and every conflict is a copy disagreement
         return report.corrected + report.uncorrectable
 
-    def scrub(self, prot: Protected) -> Tuple[Protected, ScrubReport]:
+    def _redundancy_shardings(self, payload, pspecs, mesh, rules):
+        ns = _placements(pspecs, mesh)
+        return (ns, ns)
+
+    def scrub(self, prot: Protected,
+              mesh=None) -> Tuple[Protected, ScrubReport]:
+        # voting is elementwise: no block ranges to cut (the reference
+        # takes the mesh and has no sharded path either)
         c1, c2 = prot.redundancy
         corrected, conflicts = _vote_counts(prot.payload, c1, c2)
         w = prot.words
@@ -544,9 +606,21 @@ class Compose(Scheme):
         # `corrected` with the per-copy ECC counts)
         return report.uncorrectable
 
-    def scrub(self, prot: Protected) -> Tuple[Protected, ScrubReport]:
+    def _redundancy_shardings(self, payload, pspecs, mesh, rules):
+        ns = _placements(pspecs, mesh)
+        per_copy = self.ecc._redundancy_shardings(payload, pspecs, mesh,
+                                                  rules)
+        # the (3, n_blocks, F) table: copies replicated, blocks as one
+        # copy's table
+        from torch.distributed.tensor import Shard
+        shift = [Shard(p.dim + 1) if isinstance(p, Shard) else p
+                 for p in per_copy]
+        return ((ns, ns), shift)
+
+    def scrub(self, prot: Protected,
+              mesh=None) -> Tuple[Protected, ScrubReport]:
         w, parity3 = prot.words, prot.redundancy[1]
-        _, _, counts = self.ecc.scrub_copies(w, parity3)
+        _, _, counts = self.ecc.scrub_copies(w, parity3, mesh=mesh)
         d01, d02, d12 = w[0] != w[1], w[0] != w[2], w[1] != w[2]
         conflict = d01 & d02 & d12
         report = ScrubReport(

@@ -46,7 +46,7 @@ from repro_torch.launch.batching import (BatchSpec, ContinuousBatcher,
                                          PagedKVPool, Request,
                                          poisson_trace, sequential_slot_steps)
 from repro_torch.models.params import from_numpy
-from repro_torch.obs import fetch_telemetry
+from repro_torch.obs import count_host_transfers, fetch_telemetry
 from repro_torch.reliability import parse_scheme, standard_grid
 
 SPEC = dict(slots=2, page_tokens=8, chunk=3, prompt_buckets=(4, 8),
@@ -420,39 +420,33 @@ def test_admission_validation_and_pool_exhaustion(setup):
         b2.drain()
 
 
-def test_tick_makes_one_transfer_on_completion_ticks_only(setup,
-                                                          monkeypatch):
+def test_tick_makes_one_transfer_on_completion_ticks_only(setup):
     """The only device->host copy a tick makes is ONE batched copy of
     finished rows, and only on ticks where a request completes; the
-    telemetry fetch is one more."""
+    telemetry fetch is one more (counted by the transfer guard)."""
     _, cfg, _, _, params_np, prompts = setup
     b = ContinuousBatcher(cfg, parse_scheme("ecc+tmr"), BatchSpec(**SPEC),
                           scrub_every=2, device="cpu")
     prep = b.prepare(from_numpy(params_np),
                      generator=torch.Generator().manual_seed(1),
                      fault=TransientBitFlips(2e-3))
-    calls = []
-    for meth in ("cpu", "item", "tolist"):
-        orig = getattr(torch.Tensor, meth)
-
-        def spy(self, *a, _orig=orig, _m=meth, **k):
-            calls.append(_m)
-            return _orig(self, *a, **k)
-        monkeypatch.setattr(torch.Tensor, meth, spy)
     for r in (Request(0, prompts[8], 6), Request(1, prompts[4], 2),
               Request(2, prompts[8], 5), Request(3, prompts[4], 3)):
         b.submit(r)
     completion_ticks = 0
-    b.admit()
-    while b.active or b.queue:
-        if b.tick():
-            completion_ticks += 1
+    with count_host_transfers() as ledger:
         b.admit()
+        while b.active or b.queue:
+            if b.tick():
+                completion_ticks += 1
+            b.admit()
     assert 0 < completion_ticks <= b.ticks
-    assert calls == ["cpu"] * completion_ticks
-    del calls[:]
-    stats = fetch_telemetry({**prep, **b.telemetry()})
-    assert calls == ["cpu"]
+    assert ledger.syncs == completion_ticks, ledger.sites
+    assert all(site.startswith("Tensor.cpu @") for site in ledger.sites)
+    with count_host_transfers() as ledger:
+        stats = fetch_telemetry({**prep, **b.telemetry()})
+    assert ledger.syncs == 1 and ledger.sites[0].startswith(
+        "fetch_telemetry @"), ledger.sites
     assert int(stats["tokens_emitted"]) == 16
     assert int(stats["ecc_corrected"]) > 0
 

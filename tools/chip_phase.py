@@ -7,6 +7,9 @@ after a change to one phase's code:
     python3 tools/chip_phase.py 11    # the dense zoo and MoE (run_zoo_path)
     python3 tools/chip_phase.py 12    # the SSM, hybrid, VLM and enc-dec
                                       # families (run_family_path)
+    python3 tools/chip_phase.py 13    # the serving mesh (run_mesh_path)
+    python3 tools/chip_phase.py 13cd  # its one-shot meshes, server and
+                                      # guard alone (run_mesh_one_shot)
 
 from the repo root.
 """
@@ -21,13 +24,15 @@ sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
 import chip_smoke as C  # noqa: E402  (puts src/ on the path)
 
-#: phase number -> its runner, each called as runner(torch, card, device)
-PHASES = {10: C.run_train_path, 11: C.run_zoo_path, 12: C.run_family_path}
+#: phase -> its runner, each called as runner(torch, card, device)
+PHASES = {"10": C.run_train_path, "11": C.run_zoo_path,
+          "12": C.run_family_path, "13": C.run_mesh_path,
+          "13cd": C.run_mesh_one_shot}
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("phase", type=int, choices=sorted(PHASES))
+    ap.add_argument("phase", choices=sorted(PHASES))
     args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
