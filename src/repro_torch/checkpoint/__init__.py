@@ -1,5 +1,6 @@
 """Checkpointing of the port (port of `repro.checkpoint`: atomic, async,
-windowed snapshots; the elastic `restore_resharded` waits for the mesh)."""
-from .checkpointer import Checkpointer
+windowed snapshots, and `restore_resharded`, the elastic restore onto any
+mesh shape)."""
+from .checkpointer import Checkpointer, restore_resharded
 
-__all__ = ["Checkpointer"]
+__all__ = ["Checkpointer", "restore_resharded"]

@@ -1,13 +1,18 @@
 """Architecture registry of the port (the reference's ten archs); each
-module defines CONFIG, the same published shape as the reference's."""
+module defines CONFIG, the same published shape as the reference's, and
+optionally RULES_OVERRIDES and SERVE_RULES_OVERRIDES (per-arch sharding
+rule tweaks, training and serving) and TRAIN_POLICY (the training cell's
+micro-batches and dtypes), as the reference's modules do."""
 from __future__ import annotations
 
 import importlib
 from typing import Dict, List
+from types import ModuleType
 
 from ..models.config import ModelConfig
 
-__all__ = ["ARCHS", "ALIASES", "get_config", "list_archs"]
+__all__ = ["ARCHS", "ALIASES", "DEFAULT_TRAIN_POLICY", "get_config",
+           "get_rules_overrides", "get_train_policy", "list_archs"]
 
 ARCHS: List[str] = [
     "deepseek_67b",
@@ -37,11 +42,39 @@ ALIASES: Dict[str, str] = {
 }
 
 
-def get_config(name: str) -> ModelConfig:
+def _module(name: str) -> ModuleType:
     mod = ALIASES.get(name, name).replace("-", "_").replace(".", "_")
     if mod not in ARCHS:
         raise KeyError(f"unknown arch {name!r} (one of {list_archs()})")
-    return importlib.import_module(f".{mod}", __package__).CONFIG
+    return importlib.import_module(f".{mod}", __package__)
+
+
+def get_config(name: str) -> ModelConfig:
+    return _module(name).CONFIG
+
+
+def get_rules_overrides(name: str, serve: bool = False) -> dict:
+    """The arch's sharding-rule overrides (logical axis -> mesh axes);
+    with `serve`, its serving overrides on top."""
+    m = _module(name)
+    out = dict(getattr(m, "RULES_OVERRIDES", {}))
+    if serve:
+        out.update(getattr(m, "SERVE_RULES_OVERRIDES", {}))
+    return out
+
+
+#: defaults for training cells; config modules override via TRAIN_POLICY
+DEFAULT_TRAIN_POLICY = {
+    "microbatches": 16,        # gradient accumulation slices of the global batch
+    "param_dtype": "float32",
+    "opt_dtype": "float32",
+    "grad_dtype": "float32",   # gradient-accumulator dtype
+}
+
+
+def get_train_policy(name: str) -> dict:
+    return {**DEFAULT_TRAIN_POLICY, **getattr(_module(name), "TRAIN_POLICY",
+                                              {})}
 
 
 def list_archs() -> List[str]:

@@ -26,3 +26,13 @@ CONFIG = ModelConfig(
     moe_shared_expert=True,
     tie_embeddings=False,
 )
+
+# 400B params cannot hold fp32 Adam state: train with bf16 parameters,
+# bf16 moments and a bf16 gradient accumulator.
+TRAIN_POLICY = {"microbatches": 16, "param_dtype": "bfloat16",
+                "opt_dtype": "bfloat16", "grad_dtype": "bfloat16"}
+
+# Serving layout: stationary expert weights -- experts sharded over the
+# data axis, the expert FFN over model, d_model replicated.
+SERVE_RULES_OVERRIDES = {"model_dim": (), "expert": ("data",),
+                         "ff": ("model",)}

@@ -23,3 +23,9 @@ CONFIG = ModelConfig(
     conv_width=4,
     tie_embeddings=True,
 )
+
+# 130M params: every weight fits replicated.  The default TP/FSDP rules
+# only reshard here (the fused in_proj width does not divide the model
+# axis while the conv dim does), so: pure data parallelism, the moments
+# sharded over data by ZeRO-1.
+RULES_OVERRIDES = {"ff": (), "model_dim": ()}

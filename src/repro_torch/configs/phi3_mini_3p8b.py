@@ -17,3 +17,6 @@ CONFIG = ModelConfig(
     act="swiglu",
     tie_embeddings=False,
 )
+
+# 32 kv heads divide the model axis: prefer head-sharded decode caches.
+RULES_OVERRIDES = {"kv_seq": (), "kv_heads": ("model",)}

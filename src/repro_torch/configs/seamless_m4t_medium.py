@@ -23,3 +23,6 @@ CONFIG = ModelConfig(
     audio_frontend=True,
     tie_embeddings=False,
 )
+
+# 16 kv heads divide the model axis: prefer head-sharded decode caches.
+RULES_OVERRIDES = {"kv_seq": (), "kv_heads": ("model",)}

@@ -31,7 +31,7 @@ import pickle
 import sys
 import tempfile
 import traceback
-from typing import Any, Callable, Dict, Optional, Sequence, Tuple
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -141,6 +141,24 @@ class Mesh:
             k = k * self.shape[a] + self.coords[a]
         return k
 
+    def all_gather(self, x: torch.Tensor,
+                   axes: Sequence[str]) -> List[torch.Tensor]:
+        """Every rank's `x` over the ranks of `axes`, in `group_ranks`
+        order: exact copies (``[x]`` over none or a group of one)."""
+        if self.group_size(axes) <= 1:
+            return [x]
+        x = x.contiguous()
+        out = [torch.empty_like(x) for _ in range(self.group_size(axes))]
+        _dist().all_gather(out, x, group=self.group(axes))
+        _ISSUED[0] += 1
+        return out
+
+    def barrier(self) -> None:
+        """Wait for every rank of the mesh (a group of one waits for none)."""
+        if self.size > 1:
+            _dist().barrier(group=self.group(self.axis_names))
+            _ISSUED[0] += 1
+
     def all_reduce(self, x: torch.Tensor, axes: Sequence[str]) -> torch.Tensor:
         """SUM `x` in place over the ranks of `axes` (a no-op over none or
         a group of one); returns x."""
@@ -150,14 +168,15 @@ class Mesh:
         return x
 
 
-#: collectives this process has issued through `Mesh.all_reduce`, on any
-#: of its meshes (a group of one issues none)
+#: collectives this process has issued through `Mesh.all_reduce`,
+#: `all_gather` and `barrier`, on any of its meshes (a group of one issues
+#: none)
 _ISSUED = [0]
 
 
 def collectives_issued() -> int:
     """How many collectives this process (one rank) has issued through
-    `Mesh.all_reduce` so far: read it before and after a region."""
+    the `Mesh` methods so far: read it before and after a region."""
     return _ISSUED[0]
 
 

@@ -290,7 +290,16 @@ def _gather(store: ShardedStore, li: int, slot: Optional[int],
     return full
 
 
-class _Leaf:
+class Lazy:
+    """A leaf of a lazy params view: `get` returns the tensor the model
+    reads (`View` calls it when the leaf is read)."""
+    __slots__ = ()
+
+    def get(self) -> torch.Tensor:
+        raise NotImplementedError
+
+
+class _Leaf(Lazy):
     __slots__ = ("store", "li", "slot", "idx")
 
     def __init__(self, store, li, slot, idx=()):
@@ -307,12 +316,12 @@ class _Leaf:
         return _gather(self.store, self.li, self.slot, self.idx)
 
 
-class _View(dict):
-    """A params dict whose leaves are gathered when read (`gathered`)."""
+class View(dict):
+    """A params dict whose `Lazy` leaves are gathered when read."""
 
     def __getitem__(self, k):
         v = dict.__getitem__(self, k)
-        return v.get() if isinstance(v, _Leaf) else v
+        return v.get() if isinstance(v, Lazy) else v
 
     def get(self, k, default=None):
         return self[k] if k in self else default
@@ -362,7 +371,7 @@ def _leaves(node):
 
 def _wrap(node):
     if isinstance(node, dict):
-        return _View({k: _wrap(v) for k, v in node.items()})
+        return View({k: _wrap(v) for k, v in node.items()})
     return node
 
 
@@ -375,7 +384,7 @@ def gathered(store: ShardedStore, copy: Optional[int] = None):
     leaves = [_Leaf(store, li, slot)
               for li in range(len(store.global_spec.leaves))]
     tree = T.unflatten(store.global_spec.paths, leaves)
-    out = _View()
+    out = View()
     for k, v in tree.items():
         if k in STACKED and isinstance(v, dict):
             first = next(iter(_leaves(v)))

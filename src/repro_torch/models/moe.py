@@ -22,7 +22,8 @@ from typing import Tuple
 import torch
 import torch.nn.functional as F
 
-from ..pshard import ambient_batch_shards, ambient_mesh, ambient_rules
+from ..pshard import (ambient_batch_shards, ambient_batch_sum,
+                      ambient_mesh, ambient_rules)
 from .config import ModelConfig
 from .nn import gelu, mlp_apply, mlp_specs
 from .params import Spec
@@ -124,8 +125,18 @@ def moe_apply(p: dict, cfg: ModelConfig,
     gate_vals, expert_idx = route(cfg, probs)                      # (G,Tl,K)
 
     # load-balance auxiliary loss (Switch-style, over all tokens)
-    me = probs.mean(dim=(0, 1))                                    # (E,)
-    ce = F.one_hot(expert_idx, E).sum(dim=(0, 1, 2)).float() / (T * K)
+    bsum = ambient_batch_sum()
+    if bsum is None:
+        me = probs.mean(dim=(0, 1))                                # (E,)
+        ce = F.one_hot(expert_idx, E).sum(dim=(0, 1, 2)).float() / (T * K)
+    else:
+        # the training step's batch is split over the processes: the
+        # statistics are the whole batch's, as the reference's are
+        Tg = T * ambient_batch_shards()
+        stats = bsum(torch.cat([probs.sum(dim=(0, 1)),
+                                F.one_hot(expert_idx, E)
+                                .sum(dim=(0, 1, 2)).float()]))
+        me, ce = stats[:E] / Tg, stats[E:] / (Tg * K)
     aux = E * torch.sum(me * ce)
 
     # --- sort-based capacity dispatch ---------------------------------------

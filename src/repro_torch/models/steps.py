@@ -25,6 +25,7 @@ from ..core import tree as T
 from ..optim import (AdamWConfig, adamw_update, compress_decompress,
                      init_error_state, init_opt_state)
 from .config import ModelConfig
+from ..pshard import ambient_mesh, ambient_rules, use_mesh_and_rules
 from .transformer import STACKED, decode_step, forward, prefill
 
 __all__ = ["head_weights", "chunked_xent", "make_loss_fn", "make_train_step",
@@ -112,38 +113,46 @@ def _grad_leaves(params: Any, grads: Any) -> Any:
 
 
 def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig,
-                    grad_compression: bool = False, microbatches: int = 1):
+                    grad_compression: bool = False, microbatches: int = 1,
+                    param_pspecs=None, grad_dtype=torch.float32):
     """train_step(state, batch) -> (state, metrics); `state` =
     {params, opt: {m, v, count}, [err]} is updated in place and returned.
 
-    microbatches > 1 accumulates the grads of K slices of the batch, so
-    activation memory scales with B/K, as the reference does with its
-    default fp32 `grad_dtype`: each slice's grads are added in fp32 into
-    fp32 accumulators, in order, and the sum is divided by K; those are
-    the grads AdamW gets.  Each slice's backward lands in grad buffers of
-    the params' dtype (zeroed after each slice); where those are fp32,
-    they are the accumulators themselves (autograd's in-place fp32 add is
-    the reference's), so no second buffer is held.  With K == 1 the grads
-    stay in the params' dtype, as in the reference."""
+    microbatches > 1 accumulates the grads of K slices of the batch (slice
+    k the rows [k B/K, (k+1) B/K)), so activation memory scales with B/K,
+    as the reference does: each slice's grads are added in fp32 to the
+    `grad_dtype` accumulator and rounded once to it, in order, and the sum
+    is divided by K; those are the grads AdamW gets.  Each slice's
+    backward lands in grad buffers of the params' dtype (zeroed after each
+    slice); where those and the accumulator are fp32, they are the
+    accumulators themselves (autograd's in-place fp32 add is the
+    reference's), so no second buffer is held.  With K == 1 there is no
+    accumulator: the grads stay in the params' dtype, as in the reference.
+
+    `param_pspecs` (the `params.partition_specs` tree of the params on
+    the ambient process mesh, `launch.mesh.Mesh`) makes this the sharded
+    step (`launch.shards`): `state` then holds this rank's shards -- the
+    params by `param_pspecs`, `m` and `v` by the ZeRO-1 moment specs
+    (`launch.specs.train_state` places them) -- and every rank gets the
+    whole global batch; slice k's rows are then split over the batch
+    axes, as the reference's `resplit` does.  Without an ambient mesh the
+    specs are ignored, as the reference's constraints are."""
     loss_fn = make_loss_fn(cfg)
     K = microbatches
 
     def train_step(state, batch):
+        mesh = ambient_mesh()
+        if param_pspecs is not None and mesh is not None:
+            return _sharded_step(cfg, opt_cfg, loss_fn, K, param_pspecs,
+                                 grad_dtype, grad_compression, mesh,
+                                 state, batch)
         params = state["params"]
         grads = T.map_tree(torch.zeros_like, params)
         leaves = _grad_leaves(params, grads)
-        if K == 1:
-            parts = [batch]
-        else:
-            B = batch["tokens"].shape[0]
-            assert B % K == 0, (B, K)
-            n = B // K
-            parts = [{k: v[i * n:(i + 1) * n] for k, v in batch.items()}
-                     for i in range(K)]
-        in_place = K == 1 or all(g.dtype == torch.float32
-                                 for g in T.leaves(grads))
+        parts = _slices(batch, K)
+        in_place = _in_place(K, grads, grad_dtype)
         acc = grads if in_place else T.map_tree(
-            lambda g: torch.zeros(g.shape, dtype=torch.float32,
+            lambda g: torch.zeros(g.shape, dtype=grad_dtype,
                                   device=g.device), grads)
         lsum = asum = 0
         for part in parts:
@@ -152,9 +161,7 @@ def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig,
             lsum = lsum + total.detach()
             asum = asum + metrics["aux"].detach()
             if not in_place:
-                for a, g in zip(T.leaves(acc), T.leaves(grads)):
-                    a.add_(g)       # fp32 + the promoted slice grad
-                    g.zero_()
+                _accumulate(acc, grads)
         del leaves
         grads = acc
         if K > 1:
@@ -170,6 +177,108 @@ def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig,
                        **opt_metrics}
 
     return train_step
+
+
+def _slices(batch: dict, K: int) -> list:
+    """The K micro-slices of a batch: slice k is rows [k B/K, (k+1) B/K)."""
+    if K == 1:
+        return [batch]
+    B = batch["tokens"].shape[0]
+    assert B % K == 0, (B, K)
+    n = B // K
+    return [{k: v[i * n:(i + 1) * n] for k, v in batch.items()}
+            for i in range(K)]
+
+
+def _in_place(K: int, grads: Any, grad_dtype) -> bool:
+    """Whether the backward's grad buffers are the accumulators: one
+    slice, or fp32 grads into an fp32 accumulator."""
+    return K == 1 or (grad_dtype == torch.float32 and all(
+        g.dtype == torch.float32 for g in T.leaves(grads)))
+
+
+def _accumulate(acc: Any, grads: Any) -> None:
+    """acc := round_to_acc_dtype(acc + grads) in fp32; grads := 0."""
+    for a, g in zip(T.leaves(acc), T.leaves(grads)):
+        if a.dtype == torch.float32:
+            a.add_(g)           # fp32 + the promoted slice grad
+        else:
+            a.copy_(a.float().add_(g))
+        g.zero_()
+
+
+def _sharded_step(cfg, opt_cfg, loss_fn, K, param_pspecs, grad_dtype,
+                  grad_compression, mesh, state, batch):
+    """One step of this rank of a process mesh (`make_train_step`'s
+    `param_pspecs`; `launch.shards` for the plan, the gathers and the
+    exchanges).
+
+    Slice k's rows are split over the batch axes (every row on every rank
+    where they do not divide); each rank's loss on its rows is weighted by
+    its share of the slice's counted tokens (the mask's, else its rows),
+    so the grads summed over the batch axes are the slice's mean loss's,
+    and the MoE load-balance statistics are summed over the batch axes
+    inside the forward (`pshard.ambient_batch_sum`), so its aux loss is
+    the slice's, on every rank."""
+    from ..launch.placement import row_split
+    from ..launch.shards import model_view, plan_for
+    if grad_compression:
+        raise ValueError("make_train_step: the int8 grad compression is "
+                         "not sharded (param_pspecs on a mesh)")
+    rules = ambient_rules()
+    plan = plan_for(cfg, mesh, rules)
+    if T.leaves(plan.pspecs) != [tuple(s) for s in T.leaves(param_pspecs)]:
+        raise ValueError("param_pspecs are not the params' partition specs "
+                         "on the ambient mesh and rules")
+    params = state["params"]
+    grads = T.map_tree(torch.zeros_like, params)
+    in_place = _in_place(K, grads, grad_dtype)
+    acc = grads if in_place else T.map_tree(
+        lambda g: torch.zeros(g.shape, dtype=grad_dtype, device=g.device),
+        grads)
+    B = batch["tokens"].shape[0]
+    assert B % K == 0, (B, K)
+    rows, axes, pieces = row_split(B // K, mesh, rules)
+    view = model_view(params, grads, plan, axes, cfg.cdtype)
+    bsum = plan.batch_sum(axes)
+    lpart = asum = 0
+    for part in _slices(batch, K):
+        mine = {k: v[rows] for k, v in part.items()}
+        w = _share(part, mine, pieces)
+        with use_mesh_and_rules(mesh, rules, batch_shards=pieces,
+                                batch_sum=bsum):
+            _, metrics = loss_fn(view, mine)
+            obj = w * metrics["loss"] + cfg.router_aux_weight * metrics["aux"]
+            obj.backward()
+        lpart = lpart + w * metrics["loss"].detach()
+        asum = asum + metrics["aux"].detach()
+        if not in_place:
+            _accumulate(acc, grads)
+    del view
+    if K > 1:
+        for g in T.leaves(acc):
+            g.div_(K)
+    # the slices' losses over the batch axes (group order), on every rank
+    lsum = plan.exchange.sum(lpart, axes) if pieces > 1 else lpart
+    total = lsum + cfg.router_aux_weight * asum
+    loss = lsum if K == 1 else total / K
+    _, _, opt_metrics = adamw_update(opt_cfg, acc, state["opt"], params,
+                                     plan=plan)
+    return state, {"total": total / K, "loss": loss, "aux": asum / K,
+                   **opt_metrics}
+
+
+def _share(part: dict, mine: dict, pieces: int):
+    """This rank's weight in its slice's mean loss: its counted tokens
+    (the mask's after the first position) over the slice's, or 1/pieces
+    without a mask (every row counts alike)."""
+    if pieces == 1:
+        return 1.0
+    mask = part.get("mask")
+    if mask is None:
+        return 1.0 / pieces
+    return (mine["mask"][:, 1:].float().sum()
+            / torch.clamp(mask[:, 1:].float().sum(), min=1.0))
 
 
 def init_train_state(params, grad_compression: bool = False) -> dict:

@@ -46,6 +46,7 @@ from .config import ModelConfig
 from .moe import moe_apply, moe_specs
 from .nn import embed_specs, mlp_apply, mlp_specs, rms_norm
 from .params import Spec
+from ..pshard import capture
 from .rglru import (rglru_cache_specs, rglru_decode_step, rglru_forward,
                     rglru_specs)
 from .ssm import (mamba_cache_specs, mamba_decode_step, mamba_forward,
@@ -214,10 +215,36 @@ def _hybrid_schedule(cfg: ModelConfig) -> List[Tuple[str, int]]:
     return out
 
 
+class _EmbedLookup(torch.autograd.Function):
+    """Rows of a narrower table, in the compute dtype.  Forward: gather,
+    then convert (the values of the reference's convert-then-gather
+    without converting the whole table).  Backward: the reference's, the
+    token grads scatter-added into the table in the compute dtype and
+    rounded to the table's once (a gather in bf16 would add them in
+    bf16)."""
+
+    @staticmethod
+    def forward(ctx, table, idx, dtype):
+        ctx.save_for_backward(idx)
+        ctx.shape, ctx.table_dtype = table.shape, table.dtype
+        return table[idx].to(dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        idx, = ctx.saved_tensors
+        out = torch.zeros(ctx.shape, dtype=g.dtype, device=g.device)
+        out.index_put_((idx,), g, accumulate=True)
+        return out.to(ctx.table_dtype), None, None
+
+
 def _embed(params, cfg: ModelConfig, tokens: torch.Tensor) -> torch.Tensor:
+    table, idx = params["embed"]["tok"], tokens.long()
+    if table.dtype != cfg.cdtype and table.requires_grad \
+            and torch.is_grad_enabled():
+        return _EmbedLookup.apply(table, idx, cfg.cdtype)
     # gather, then convert: the same values as the reference's
     # convert-then-gather without converting the whole table
-    return params["embed"]["tok"][tokens.long()].to(cfg.cdtype)
+    return table[idx].to(cfg.cdtype)
 
 
 def _mlp_res(cfg: ModelConfig, x, wl):
@@ -278,8 +305,17 @@ def _encode(params, cfg: ModelConfig, enc_emb, remat: bool):
 
 
 def _run(body, cfg, x, wl, *extra, remat: bool):
-    return (checkpoint(body, cfg, x, wl, *extra, use_reentrant=False)
-            if remat else body(cfg, x, wl, *extra))
+    if not remat:
+        return body(cfg, x, wl, *extra)
+    # the recompute re-enters the ambient mesh context of this forward
+    # (autograd runs a CUDA backward on its own thread)
+    ctx = capture()
+
+    def run(*args):
+        with ctx():
+            return body(*args)
+
+    return checkpoint(run, cfg, x, wl, *extra, use_reentrant=False)
 
 
 def forward(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor]):

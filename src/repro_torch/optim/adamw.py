@@ -1,5 +1,5 @@
 """AdamW with global-norm clipping and a warmup + cosine schedule (port of
-`repro.optim.adamw`, without the ZeRO-1 sharding rules).
+`repro.optim.adamw`).
 
 The reference returns new params and moments; here `adamw_update`
 updates the params, `m`, `v`, the clipped grads and the step count in
@@ -7,6 +7,12 @@ place, in the reference's arithmetic order.  Each leaf is walked in
 chunks of `CHUNK` elements, so the update's temporaries are a few
 chunk-sized fp32 buffers, never a leaf-sized one (phi3-mini's stacked
 `w_up` is 6.44 GB a copy).
+
+On a process mesh (``plan``, a `launch.shards.ShardPlan`) the params and
+grads are this rank's shards by the params specs and `m` / `v` its
+slices by the ZeRO-1 moment specs: the norm counts every element once
+over the mesh, each rank updates the elements of its moments slice, and
+the params are rejoined to their own spec (`ShardPlan.rejoin`).
 """
 from __future__ import annotations
 
@@ -68,40 +74,81 @@ def _flat(x: torch.Tensor) -> torch.Tensor:
     return x.view(-1)
 
 
-def global_norm(tree: Any) -> torch.Tensor:
+def global_norm(tree: Any, plan=None) -> torch.Tensor:
     """sqrt of the sum over leaves of each leaf's fp32 dot with itself
-    (a leaf's dot summed over its `CHUNK`-element chunks)."""
-    total = 0
-    for x in T.leaves(tree):
-        f = _flat(x)
-        for a in range(0, f.numel(), CHUNK):
-            c = f[a:a + CHUNK].float()
-            total = total + torch.dot(c, c)
-    return torch.sqrt(torch.as_tensor(total, dtype=torch.float32))
+    (a leaf's dot summed over its `CHUNK`-element chunks); with a
+    `ShardPlan`, of this rank's shards, each element counted once over
+    the mesh.  A 0-d fp32 tensor on the leaves' device (no host sync)."""
+    leaves = T.leaves(tree)
+    if plan is not None:
+        return torch.sqrt(plan.norm_sq(leaves, leaf_sq))
+    return torch.sqrt(sum_in_order([leaf_sq(x) for x in leaves]))
 
 
-def adamw_update(cfg: AdamWConfig, grads: Any, opt_state: dict, params: Any):
+def leaf_sq(x: torch.Tensor) -> torch.Tensor:
+    """A leaf's fp32 dot with itself, summed over its `CHUNK`-element
+    chunks in order (0-d, on its device)."""
+    f = x.reshape(-1)
+    total = torch.zeros((), dtype=torch.float32, device=x.device)
+    for a in range(0, f.numel(), CHUNK):
+        c = f[a:a + CHUNK].float()
+        total = total + torch.dot(c, c)
+    return total
+
+
+def sum_in_order(terms) -> torch.Tensor:
+    """0 + t0 + t1 + ..., one add at a time (fp32, 0-d)."""
+    total = torch.zeros((), dtype=torch.float32,
+                        device=terms[0].device if len(terms) else None)
+    for t in terms:
+        total = total + t
+    return total
+
+
+def adamw_update(cfg: AdamWConfig, grads: Any, opt_state: dict, params: Any,
+                 plan=None):
     """One AdamW step, in place: the grads are clipped, `m`, `v`, the
     params and ``opt_state["count"]`` updated.  Returns (params,
-    opt_state, metrics {grad_norm, lr}), the same trees it was given."""
+    opt_state, metrics {grad_norm, lr}), the same trees it was given.
+    `plan` (a `launch.shards.ShardPlan`): the trees are this rank's
+    shards (module doc)."""
     count = opt_state["count"]
     count.add_(1)
     lr = warmup_cosine(cfg, count)
-    gnorm = global_norm(grads)
+    gnorm = global_norm(grads, plan)
     scale = torch.clamp(cfg.clip_norm / torch.clamp(gnorm, min=1e-9),
                         max=1.0)
     b1, b2 = cfg.b1, cfg.b2
     c = count.to(torch.float32)
     mh = 1.0 - torch.pow(b1, c)
     vh = 1.0 - torch.pow(b2, c)
-    for p, g, m, v in zip(T.leaves(params), T.leaves(grads),
-                          T.leaves(opt_state["m"]),
-                          T.leaves(opt_state["v"])):
-        p, g, m, v = _flat(p), _flat(g), _flat(m), _flat(v)
-        for a in range(0, p.numel(), CHUNK):
-            _update_chunk(cfg, lr, scale, mh, vh, p[a:a + CHUNK],
-                          g[a:a + CHUNK], m[a:a + CHUNK], v[a:a + CHUNK])
+    for i, (p, g, m, v) in enumerate(zip(T.leaves(params), T.leaves(grads),
+                                         T.leaves(opt_state["m"]),
+                                         T.leaves(opt_state["v"]))):
+        if plan is None:
+            _update_leaf(cfg, lr, scale, mh, vh, p, g, m, v)
+            continue
+        # this rank's moments slice of the params and grads (views where
+        # it lies in the params slice), updated, then rejoined
+        pm = plan.moment_part(i, p)
+        _update_leaf(cfg, lr, scale, mh, vh, pm, plan.moment_part(i, g),
+                     m, v)
+        plan.rejoin(i, p, pm)
     return params, opt_state, {"grad_norm": gnorm, "lr": lr}
+
+
+def _update_leaf(cfg, lr, scale, mh, vh, p, g, m, v) -> None:
+    """The update of one leaf (or of one moments slice of it), chunk by
+    chunk; a strided slice is updated in a contiguous copy."""
+    pc, gc = p.contiguous(), g.contiguous()
+    fp, fg, fm, fv = _flat(pc), _flat(gc), _flat(m), _flat(v)
+    for a in range(0, fp.numel(), CHUNK):
+        _update_chunk(cfg, lr, scale, mh, vh, fp[a:a + CHUNK],
+                      fg[a:a + CHUNK], fm[a:a + CHUNK], fv[a:a + CHUNK])
+    if pc.data_ptr() != p.data_ptr():
+        p.copy_(pc)
+    if gc.data_ptr() != g.data_ptr():
+        g.copy_(gc)
 
 
 def _update_chunk(cfg, lr, scale, mh, vh, p, g, m, v) -> None:

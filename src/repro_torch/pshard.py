@@ -23,11 +23,13 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import threading
 from typing import Dict, Optional, Sequence, Tuple
 
 __all__ = ["ShardingRules", "DEFAULT_RULES", "AbstractMesh", "ambient_mesh",
-           "ambient_rules", "ambient_batch_shards", "use_mesh_and_rules",
+           "ambient_rules", "ambient_batch_shards", "ambient_batch_sum",
+           "capture", "use_mesh_and_rules",
            "spec_for", "to_placements", "shard_slices", "constrain",
            "constrain_tree", "spec_axes"]
 
@@ -93,6 +95,7 @@ class _Ctx(threading.local):
     mesh = None
     rules: ShardingRules = DEFAULT_RULES
     batch_shards: int = 1
+    batch_sum = None
 
 
 _CTX = _Ctx()
@@ -113,17 +116,35 @@ def ambient_batch_shards() -> int:
     return _CTX.batch_shards
 
 
+def ambient_batch_sum():
+    """The sharded training step's sum over the processes that hold the
+    other pieces of the batch (``f(x) -> sum of every piece's x``, the
+    gradient flowing to this process's own x), or None.  MoE reads it to
+    make its load-balance statistics the whole batch's, as the
+    reference's are."""
+    return _CTX.batch_sum
+
+
 @contextlib.contextmanager
 def use_mesh_and_rules(mesh, rules: Optional[ShardingRules] = None,
-                       batch_shards: int = 1):
-    old = (_CTX.mesh, _CTX.rules, _CTX.batch_shards)
+                       batch_shards: int = 1, batch_sum=None):
+    old = (_CTX.mesh, _CTX.rules, _CTX.batch_shards, _CTX.batch_sum)
     _CTX.mesh = mesh
     _CTX.rules = rules if rules is not None else DEFAULT_RULES
     _CTX.batch_shards = int(batch_shards)
+    _CTX.batch_sum = batch_sum
     try:
         yield
     finally:
-        _CTX.mesh, _CTX.rules, _CTX.batch_shards = old
+        _CTX.mesh, _CTX.rules, _CTX.batch_shards, _CTX.batch_sum = old
+
+
+def capture():
+    """The ambient context as a zero-argument context-manager factory:
+    a layer recomputed in the backward (which autograd may run on another
+    thread) re-enters the context its forward ran in."""
+    return functools.partial(use_mesh_and_rules, _CTX.mesh, _CTX.rules,
+                             _CTX.batch_shards, _CTX.batch_sum)
 
 
 def _resolve_dim(size: int, logical: Optional[str], mesh,

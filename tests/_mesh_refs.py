@@ -88,3 +88,59 @@ def ops_inputs():
     mask = (bits.astype(np.uint64) << np.arange(32, dtype=np.uint64)) \
         .sum(axis=1).astype(np.uint32)
     return words, mask
+
+
+# -- the training step (tests/test_torch_train_mesh.py) -------------------------
+
+def smoke_params(jcfg, seed=0, std=0.02):
+    """numpy params for the reference's spec tree (zeros where the spec
+    says zeros, else normal(0, std)), float32."""
+    from repro.models import transformer as JTr
+    rng = np.random.default_rng(seed)
+    return jax.tree.map(
+        lambda s: np.zeros(s.shape, np.float32) if s.init == "zeros"
+        else (std * rng.standard_normal(s.shape)).astype(np.float32),
+        JTr.model_specs(jcfg), is_leaf=lambda x: isinstance(x, JP.Spec))
+
+
+def train_batch(cfg, B, S, seed=1):
+    """numpy tokens (B, S) and the family's stub modality input."""
+    rng = np.random.default_rng(seed)
+    batch = {"tokens": rng.integers(0, cfg.vocab, (B, S)).astype(np.int32)}
+    if cfg.family == "vlm":
+        batch["vis_emb"] = rng.standard_normal(
+            (B, cfg.vis_tokens, cfg.vis_dim)).astype(np.float32)
+    if cfg.family == "encdec":
+        batch["enc_emb"] = rng.standard_normal(
+            (B, S, cfg.d_model)).astype(np.float32)
+    return batch
+
+
+def reference_train(jcfg, params, batch, K, policy, opt, steps):
+    """The reference's single-device `make_train_step` (jitted) from
+    `params` (numpy, float32) in the policy's dtypes, zero moments: the
+    metrics of every step, the params and `m` after the first step and
+    the params after the last (numpy; bf16 as float32)."""
+    import jax.numpy as jnp
+    from repro.models.steps import make_train_step as j_step
+    from repro.optim import AdamWConfig as JAdamW
+    pdt, odt = jnp.dtype(policy["param_dtype"]), jnp.dtype(policy["opt_dtype"])
+    p = jax.tree.map(lambda a: jnp.asarray(a, pdt), params)
+    state = {"params": p,
+             "opt": {"m": jax.tree.map(lambda a: jnp.zeros(a.shape, odt), p),
+                     "v": jax.tree.map(lambda a: jnp.zeros(a.shape, odt), p),
+                     "count": jnp.zeros((), jnp.int32)}}
+    step = jax.jit(j_step(jcfg, JAdamW(**opt), microbatches=K,
+                          grad_dtype=jnp.dtype(policy["grad_dtype"])))
+    jb = {k: jnp.asarray(v) for k, v in batch.items()}
+    host = lambda t: [np.asarray(x, np.float32) for x in jax.tree.leaves(t)]
+    metrics, first = [], None
+    for s in range(steps):
+        state, m = step(state, jb)
+        metrics.append({k: float(v) for k, v in m.items()})
+        if s == 0:
+            first = {"params": host(state["params"]),
+                     "m": host(state["opt"]["m"])}
+    return {"metrics": metrics, "first": first,
+            "last": {"params": host(state["params"])},
+            "count": int(state["opt"]["count"])}

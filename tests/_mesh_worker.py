@@ -8,6 +8,8 @@ package's single-device results.
 """
 from __future__ import annotations
 
+import time
+
 import numpy as np
 import torch
 
@@ -152,4 +154,97 @@ def world(device, shape, tasks):
                            fold_copy_axis(mesh).shape, tmr.coords)
     for name, fn, args in tasks:
         out[name] = fn(mesh, *args)
+    return out
+
+
+def _np(t):
+    """A tensor's host copy (bf16 as float32: exact)."""
+    t = t.detach().to("cpu", copy=True)
+    return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+
+
+def train_runs(mesh, runs):
+    """The sharded training step (`make_train_step(param_pspecs=...)`) on
+    `mesh` for each run: dict(name, cfg, overrides, policy, K, params
+    (numpy tree), batch (numpy dict), opt (AdamWConfig kwargs), steps,
+    [save: a directory, the state saved after the last step; restore: mesh
+    shapes to restore that snapshot onto]).  Returns per run the metrics
+    of every step, this rank's params and `m` shards after the first step,
+    its params, `m` and `v` shards after the last, its slices under both
+    specs, the elements it holds, and each restore's shards and slices."""
+    from repro_torch.checkpoint import Checkpointer, restore_resharded
+    from repro_torch.core import tree as T
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.launch.shards import plan_for, state_shardings
+    from repro_torch.launch.specs import train_state
+    from repro_torch.models.params import from_numpy
+    from repro_torch.models.steps import make_train_step
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.pshard import DEFAULT_RULES, use_mesh_and_rules
+    out = {}
+    for run in runs:
+        t0 = time.perf_counter()
+        cfg, policy = run["cfg"], run["policy"]
+        rules = DEFAULT_RULES.replace(**run["overrides"])
+        plan = plan_for(cfg, mesh, rules)
+        batch = {k: torch.from_numpy(v) for k, v in run["batch"].items()}
+        with use_mesh_and_rules(mesh, rules):
+            state = train_state(from_numpy(run["params"]), cfg, mesh, rules,
+                                policy)
+            step = make_train_step(
+                cfg, AdamWConfig(**run["opt"]), microbatches=run["K"],
+                param_pspecs=plan.pspecs,
+                grad_dtype=getattr(torch, policy["grad_dtype"]))
+            metrics, first = [], None
+            for s in range(run["steps"]):
+                state, m = step(state, batch)
+                metrics.append({k: float(v) for k, v in m.items()})
+                if s == 0:
+                    first = {k: [_np(x) for x in T.leaves(t)] for k, t in
+                             (("params", state["params"]),
+                              ("m", state["opt"]["m"]))}
+        res = {"metrics": metrics, "first": first,
+               "last": {k: [_np(x) for x in T.leaves(t)] for k, t in
+                        (("params", state["params"]),
+                         ("m", state["opt"]["m"]),
+                         ("v", state["opt"]["v"]))},
+               "count": int(state["opt"]["count"]),
+               "pslices": [lp.pslice for lp in plan.leaves],
+               "mslices": [lp.mslice for lp in plan.leaves],
+               "held": {k: sum(x.numel() for x in T.leaves(t)) for k, t in
+                        (("params", state["params"]),
+                         ("m", state["opt"]["m"]),
+                         ("v", state["opt"]["v"]))},
+               "dtypes": sorted({str(x.dtype) for x in T.leaves(state)})}
+        if run.get("save"):
+            ck = Checkpointer(run["save"], async_save=False)
+            ck.save(run["steps"], state, shardings=state_shardings(plan),
+                    mesh=mesh)
+            res["restored"] = {}
+            for shape in run.get("restore", ()):
+                other = make_test_mesh(*shape, device=mesh.device)
+                oplan = plan_for(cfg, other, rules)
+                got = restore_resharded(ck, state_shardings(oplan),
+                                        mesh=other)
+                res["restored"][shape] = {
+                    "params": [_np(x) for x in T.leaves(got["params"])],
+                    "m": [_np(x) for x in T.leaves(got["opt"]["m"])],
+                    "count": int(got["opt"]["count"]),
+                    "pslices": [lp.pslice for lp in oplan.leaves],
+                    "mslices": [lp.mslice for lp in oplan.leaves]}
+        res["seconds"] = time.perf_counter() - t0
+        out[run["name"]] = res
+    return out
+
+
+def train_meshes(mesh, runs_by_shape):
+    """`train_runs` on each (data, model) shape in turn, over the ranks of
+    `mesh`'s world (its own shape first, the others as further meshes of
+    the same ranks); returns {shape: its results}."""
+    from repro_torch.launch.mesh import make_test_mesh
+    out = {}
+    for shape, runs in runs_by_shape.items():
+        m = mesh if shape == tuple(mesh.sizes) else \
+            make_test_mesh(*shape, device=mesh.device)
+        out[shape] = train_runs(m, runs)
     return out

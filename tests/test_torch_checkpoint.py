@@ -1,9 +1,10 @@
 """The port's Checkpointer (`repro_torch.checkpoint`): every scenario of
-`tests/test_checkpoint.py` but the elastic `restore_resharded` (it waits
-for the mesh), plus the port's own: tensors (float32, bfloat16, int32,
-0-d) round trip bit for bit through `restore_tensors`, a snapshot is
-taken at `save` (later in-place writes do not reach it), and strings and
-Python scalars round trip as numpy."""
+`tests/test_checkpoint.py`, the elastic `restore_resharded` with `None`
+shardings among them (its placement onto other mesh shapes is in
+tests/test_torch_train_mesh.py), plus the port's own: tensors (float32,
+bfloat16, int32, 0-d) round trip bit for bit through `restore_tensors`, a
+snapshot is taken at `save` (later in-place writes do not reach it), and
+strings and Python scalars round trip as numpy."""
 import json
 import os
 
@@ -11,7 +12,7 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.checkpoint import Checkpointer
+from repro_torch.checkpoint import Checkpointer, restore_resharded
 
 
 def _state(seed=0):
@@ -114,3 +115,20 @@ def test_manifest_describes_the_tree(tmp_path):
         manifest = json.load(f)
     assert manifest["paths"] == [["state", "params", "w"], ["step"]]
     assert not (tmp_path / "step_00000003" / "treedef.pkl").exists()
+
+
+def test_restore_resharded_places_leaves(tmp_path):
+    """Elastic restore: host arrays placed with explicit (new) shardings;
+    None keeps a leaf whole (here with no mesh at all)."""
+    ck = Checkpointer(str(tmp_path), async_save=False)
+    state = _state()
+    ck.save(2, state)
+    shardings = {"params": {"w": None}, "step": None}
+    out = restore_resharded(ck, shardings)
+    np.testing.assert_array_equal(out["params"]["w"].numpy(),
+                                  state["params"]["w"].numpy())
+    assert isinstance(out["params"]["w"], torch.Tensor)
+    assert out["step"].shape == () and int(out["step"]) == 7
+    # one None for the whole tree, as the reference maps every leaf
+    whole = restore_resharded(ck, None, step=2)
+    assert torch.equal(whole["params"]["w"], out["params"]["w"])

@@ -381,3 +381,105 @@ def test_single_batch_grads_stay_in_the_params_dtype(bf16_setup,
     cfg, state, tokens, _, _ = bf16_setup
     _, _, grads = _port_step_grads(monkeypatch, cfg, state, tokens, K=1)
     assert {g.dtype for g in T.leaves(grads)} == {torch.bfloat16}
+
+
+@pytest.fixture(scope="module")
+def bf16_acc_setup(bf16_setup):
+    """The reference's step from bf16_setup's state with a bf16 gradient
+    accumulator (`grad_dtype=jnp.bfloat16`, llama4's policy), K = 2, 4."""
+    cfg, state, tokens, _, _ = bf16_setup
+    jcfg = jax_config("phi3-mini-3.8b").smoke().replace(**BF16)
+    out = {}
+    for K in (2, 4):
+        new, m = jax.jit(j_train_step(jcfg, JAdamWConfig(**BIG_STEP),
+                                      microbatches=K,
+                                      grad_dtype=jnp.bfloat16))(
+            _j(state), {"tokens": jnp.asarray(tokens)})
+        out[K] = jax.tree.map(np.asarray, new), m
+    return out
+
+
+@pytest.mark.parametrize("K", [2, 4])
+def test_bf16_accumulator_matches_reference(bf16_setup, bf16_acc_setup,
+                                            monkeypatch, K):
+    """`grad_dtype=torch.bfloat16`: each slice's grads are added in fp32
+    and rounded once to the bf16 accumulator, then divided by K, as the
+    reference does.  The criteria of the two tests above, except that each
+    grad is held within one bf16 step at its leaf's largest grad
+    (2^(floor(log2 max) - 7)) where they hold 2^-8 of it: those grads
+    reached AdamW in fp32, these in bf16, where two sums straddling a
+    rounding boundary land one step apart (2^-8 to 2^-7 of the largest
+    element)."""
+    cfg, state, tokens, _, _ = bf16_setup
+    new, jm = bf16_acc_setup[K]
+    out, m, grads = _port_step_grads(monkeypatch, cfg, state, tokens, K=K,
+                                     grad_dtype=torch.bfloat16)
+    np.testing.assert_allclose(float(m["loss"]), float(jm["loss"]),
+                               rtol=1e-5)
+    want = _step_grads(new)
+    for a, b in zip(T.leaves(grads), T.leaves(want)):
+        assert a.dtype == torch.bfloat16
+        a = a.float().numpy()
+        scale = max(np.abs(b).max(), 1e-30)
+        assert np.abs(a - b).max() <= 2.0 ** (np.floor(np.log2(scale)) - 7)
+        off = np.abs(a - b) > 1e-3 * np.abs(b) + 1e-6 * scale
+        assert off.mean() <= 1e-2, off.mean()
+    for a, b in zip(T.leaves(out["params"]), T.leaves(new["params"])):
+        d = np.abs(a.float().numpy() - np.asarray(b).astype(np.float32))
+        assert (d > 0).mean() <= 2e-3
+        assert d.max() <= 2.5 * BIG_STEP["lr"]
+
+
+def test_fp32_four_microbatches_match_reference(setup):
+    """K = 4 in fp32 (the accumulator is the grad buffers): the loss, the
+    grad norm and the params, `m`, `v` as the K = 1 and 2 steps are held."""
+    cfg, params, tokens, _ = setup
+    jcfg = jax_config("phi3-mini-3.8b").smoke().replace(**SMOKE)
+    start = jax.tree.map(np.asarray, j_init_state(_j(params)))
+    new, jm = jax.jit(j_train_step(jcfg, JAdamWConfig(clip_norm=UNCLIPPED),
+                                   microbatches=4))(
+        _j(start), {"tokens": jnp.asarray(tokens)})
+    want = jax.tree.map(np.asarray, new)
+    out, m = make_train_step(cfg, AdamWConfig(clip_norm=UNCLIPPED),
+                             microbatches=4)(
+        train_state_from_reference(start),
+        {"tokens": torch.from_numpy(tokens)})
+    for k in ("total", "loss", "lr"):
+        np.testing.assert_allclose(float(m[k]), float(jm[k]), rtol=1e-5,
+                                   err_msg=k)
+    np.testing.assert_allclose(float(m["grad_norm"]), float(jm["grad_norm"]),
+                               rtol=1e-3)
+    for got, exp in ((out["params"], want["params"]),
+                     (out["opt"]["m"], want["opt"]["m"]),
+                     (out["opt"]["v"], want["opt"]["v"])):
+        for a, b in zip(T.leaves(got), T.leaves(exp)):
+            assert a.dtype == torch.float32
+            _close(a.numpy(), b, 1e-5)
+
+
+def test_bf16_embedding_grads_sum_in_compute_dtype(monkeypatch):
+    """bf16 params under fp32 compute: the reference converts the
+    embedding table, then gathers, so its backward adds the token grads in
+    fp32 and rounds the table's grad to bf16 once.  The port gathers bf16
+    rows then converts; its backward must still add in fp32
+    (`transformer._EmbedLookup`): at 8 x 256 tokens over a 512-word vocab
+    (32 occurrences a word), bf16 adds put about a fifth of the table's
+    grads an ulp or more away.  K = 1, so these bf16 grads reach AdamW
+    as they are on both sides."""
+    jcfg = jax_config("phi3-mini-3.8b").smoke().replace(**BF16)
+    cfg = get_config("phi3-mini-3.8b").smoke().replace(**BF16)
+    params = jax.tree.map(lambda a: np.asarray(jnp.asarray(a, jnp.bfloat16)),
+                          smoke_params(jcfg))
+    tokens = np.random.default_rng(2).integers(
+        0, cfg.vocab, (8, 256)).astype(np.int32)
+    state = jax.tree.map(np.asarray, j_init_state(_j(params)))
+    new, _ = jax.jit(j_train_step(jcfg, JAdamWConfig(**BIG_STEP)))(
+        _j(state), {"tokens": jnp.asarray(tokens)})
+    want = _step_grads(jax.tree.map(np.asarray, new))["embed"]["tok"]
+    _, _, grads = _port_step_grads(monkeypatch, cfg, state, tokens, K=1)
+    got = grads["embed"]["tok"]
+    assert got.dtype == torch.bfloat16
+    got = got.float().numpy()
+    scale = np.abs(want).max()
+    off = np.abs(got - want) > 1e-3 * np.abs(want) + 1e-6 * scale
+    assert off.mean() <= 1e-2, off.mean()

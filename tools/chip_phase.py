@@ -10,6 +10,11 @@ after a change to one phase's code:
     python3 tools/chip_phase.py 13    # the serving mesh (run_mesh_path)
     python3 tools/chip_phase.py 13cd  # its one-shot meshes, server and
                                       # guard alone (run_mesh_one_shot)
+    python3 tools/chip_phase.py 14    # the training step on a mesh
+                                      # (run_train_mesh_path)
+    python3 tools/chip_phase.py 14d   # its four-card 2x2 world over nccl
+                                      # (run_train_mesh_four; needs four
+                                      # cards on one host)
 
 from the repo root.
 """
@@ -27,7 +32,8 @@ import chip_smoke as C  # noqa: E402  (puts src/ on the path)
 #: phase -> its runner, each called as runner(torch, card, device)
 PHASES = {"10": C.run_train_path, "11": C.run_zoo_path,
           "12": C.run_family_path, "13": C.run_mesh_path,
-          "13cd": C.run_mesh_one_shot}
+          "13cd": C.run_mesh_one_shot, "14": C.run_train_mesh_path,
+          "14d": C.run_train_mesh_four}
 
 
 def main(argv=None) -> int:
