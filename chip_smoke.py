@@ -245,6 +245,25 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      restore against the saved leaves' digests.  It prints each rank's
      peak beside its reckoning, the step times beside one process's and
      the exchanges a step.  The step launches none of the kernels.
+ 15. the dry run (`repro_torch.launch.dryrun`: one rank's step on `meta`
+     tensors under a memory tally and `FlopCounterMode`, its collectives
+     recorded, not sent) held against the card (`run_dryrun_path`;
+     `tools/chip_phase.py 15`): (a) phi3-mini's training step at 16 of 32
+     layers, fp32, batch 8 x 256, K = 1, one process; (b) a one-shot
+     prefill at phase 4's shape (batch 4, prompt 256) and one decode step
+     after it, bf16 params at full depth: FLOPs equal to `FlopCounterMode`
+     on the card's step, (a)'s argument bytes equal to its state's and
+     batch's, each peak within 10% of `max_memory_allocated` after
+     `reset_peak_memory_stats` (less what the process holds besides the
+     step's inputs).  Inside phase 14: (c) each rank of (a)'s 2x2 world
+     dry-runs its own cell (its gathers reading the peers' staging, as
+     ranks sharing a card do): its exchanges (the `Exchange`'s posts plus
+     its other collectives) and FLOPs equal its first step's, its peak
+     within 10% (the staging halves, mapped before the step, taken out);
+     (e) the same in phase 14 (d)'s four-card world (gathers allocated,
+     as nccl's are).  Inside phase 13 (b): (d) the folded
+     engine's generate dry-run on a 3x1 mesh beside each rank's peak,
+     within 10% under `tmr-parallel`.  No kernel is launched.
 
 The second-to-last line is a JSON object of per-kernel numbers; the last is
 {"ok": true, "device": {...}}.  Times are CUDA-event means on this card
@@ -365,8 +384,13 @@ def main() -> int:
     mesh, _ = run_mesh_path(torch, card, dev)
     gc.collect()
     torch.cuda.empty_cache()
-    # 14. the training step on a mesh (it launches none of the kernels)
+    # 14. the training step on a mesh (it launches none of the kernels);
+    # phase 15 (c) inside it
     run_train_mesh_path(torch, card, dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    # 15. the dry run against the card (it launches none of the kernels)
+    run_dryrun_path(torch, card, dev)
     paths = (launches, server, netlist, campaigns, serve_rest, train, zoo,
              families, mesh)
     for name, row in rows.items():
@@ -4238,6 +4262,7 @@ def run_folded_tmr(torch, card, dev):
         if ecc:
             check(alone["stats"]["ecc_corrected"] > 0,
                   f"(b) {name}: no corrections")
+        p15_folded_peaks(name, depth, ranks)
         log(f"phase 13 (b) {name}: 3x1 folded tokens and counters "
             f"{alone['stats']} equal alone's on every rank (agreement with "
             f"the clean run {alone['agreement']:.3f}); tok/s 3x1 "
@@ -4653,12 +4678,21 @@ def p14_train(torch, mesh, task):
         batch = {k: v.to(dev) for k, v in ref["batch"].items()}
         c0 = collectives_issued()
         for s in range(P14_STEPS):
-            (state, m), ms = rank_ms(torch, dev, lambda: step(state, batch))
+            if s == 0 and task.get("dry"):
+                # phase 15 (c)/(e): this step measured beside its dry run
+                (state, m), ms, real = p15_measured_step(torch, plan, step,
+                                                         state, batch)
+            else:
+                (state, m), ms = rank_ms(torch, dev,
+                                         lambda: step(state, batch))
             out["ms"].append(ms)
             out["metrics"].append({k: float(v) for k, v in m.items()})
             if s == 0:
                 out["errors"] = p14_errors(torch, plan, state, ref, bf16)
         out["collectives"] = (collectives_issued() - c0) / P14_STEPS
+    if task.get("dry"):
+        out["dry"] = {"real": real, "dry": p15_dry_rank(
+            mesh, cfg, policy, rules, task["K"], batch)}
     if ref.get("final") is not None:
         fin = ref["final"]
         out["exact"] = all(
@@ -4676,6 +4710,8 @@ def p14_train(torch, mesh, task):
     out["held"] = plan.held()
     out["peak"] = torch.cuda.max_memory_allocated(dev) \
         if dev.type == "cuda" else 0
+    if task.get("dry"):
+        out["peak"] = max(out["peak"], real["max_before"])
     return out, state, plan
 
 
@@ -4961,7 +4997,7 @@ def run_train_mesh_path(torch, card, dev):
     cfg_m, in_m, pol_m, K_m, ref_m = run_b(P14_MAMBA, (4, 1))
     over = {a: get_rules_overrides(a) for a in
             (P14_SEAMLESS[0], P14_LLAMA4[0], P14_MAMBA[0])}
-    tasks = [a_task("a", (2, 2), keep=True),
+    tasks = [a_task("a", (2, 2), keep=True, dry=True),
              {"kind": "save", "dir": ckpt},
              p14_task("seamless", cfg_s, pol_s, over[P14_SEAMLESS[0]], K_s,
                       ref_s, in_s),
@@ -5005,6 +5041,7 @@ def run_train_mesh_path(torch, card, dev):
               f"{b['loss']} at step {s_}")
     for name, what, ref, _, _, _, pol, _ in lines:
         gate_all(what, ranks, name, ref, pol["param_dtype"] == "bfloat16")
+    p15_gate_world("phase 15 (c) inside phase 14 (a)'s 2x2 world", ranks, "a")
     for k, r in enumerate(ranks):
         h = r["mamba"]["held"]
         check(4 * h["m"] == 4 * h["v"] == h["params"],
@@ -5087,13 +5124,271 @@ def run_train_mesh_four(torch, card, dev):
         f" GB a rank ({n * 16 / 4 / 1e9:.2f} of state)")
     t0 = time.perf_counter()
     ranks = spawn(p14_rank, 4, args=(shape, [p14_task(
-        "a", cfg, policy, {}, K, ref, inputs)]), device=dev.type)
+        "a", cfg, policy, {}, K, ref, inputs, dry=True)]), device=dev.type)
     log(f"phase 14 (d): 4 ranks in {time.perf_counter() - t0:.1f} s")
     p14_line("phase 14 (d) 2x2 nccl, a card a rank", ranks, "a", ref, reckon)
     for k, r in enumerate(ranks):
         p14_gate(f"(d) 2x2 rank {k}", r["a"], ref, False)
+    p15_gate_world("phase 15 (e) inside phase 14 (d)'s four-card world",
+                   ranks, "a")
     log(f"phase 14 (d): {time.perf_counter() - t_path:.1f} s")
     return {}
+
+
+# -- phase 15: the dry run held against the card --------------------------------
+
+#: (a)'s depth of 32 layers (phase 10 (a)'s, the one process's step)
+P15_DEPTH = 16
+#: (b)'s serving shape: phase 4's one-shot prefill, then one decode step
+P15_BATCH, P15_PROMPT = 4, 256
+#: a dry run's peak against the card's (`max_memory_allocated` after
+#: `reset_peak_memory_stats`, less what the process holds besides the
+#: step's inputs)
+P15_PEAK_TOL = 0.10
+#: smoke configs (a CPU rehearsal; never on the card)
+P15_SMOKE = False
+
+
+def p15_config(depth=None, compute_dtype=None):
+    from repro_torch.configs import get_config
+    cfg = get_config(P14_ARCH)
+    if P15_SMOKE:
+        cfg = cfg.smoke()
+    elif depth is not None:
+        cfg = cfg.replace(n_layers=depth)
+    return cfg.replace(compute_dtype=compute_dtype) if compute_dtype else cfg
+
+
+def p15_measure(torch, dev, fn, args):
+    """(fn's result, figures) of one call: its FLOPs (`FlopCounterMode`),
+    CUDA-event ms, `args`' bytes (`dryrun.storage_bytes`) and its peak:
+    `max_memory_allocated` after `reset_peak_memory_stats`, less what the
+    process holds besides `args` when the call starts (0 off the card)."""
+    from torch.utils.flop_counter import FlopCounterMode
+    from repro_torch.launch.dryrun import storage_bytes
+    cuda = dev.type == "cuda"
+    if cuda:
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    arg = storage_bytes(args)
+    besides = torch.cuda.memory_allocated() - arg if cuda else 0
+    with FlopCounterMode(display=False) as fc:
+        out, ms = rank_ms(torch, dev, fn)
+    peak = torch.cuda.max_memory_allocated() - besides if cuda else 0
+    return out, {"flops": fc.get_total_flops(), "arg_bytes": arg,
+                 "besides": besides, "peak": peak, "ms": ms}
+
+
+def p15_gate(what, dry, real, exchanges=None, args=True):
+    """FLOPs exact, and argument bytes (unless not `args`) and the
+    exchanges (where given), the peak within P15_PEAK_TOL of the card's
+    (on the card)."""
+    check(dry["flops"] == real["flops"], f"{what}: the dry run's FLOPs "
+          f"{dry['flops']:.6g} != the card's {real['flops']:.6g}")
+    check(not args or dry["arg_bytes"] == real["arg_bytes"],
+          f"{what}: the dry run's arg_bytes {dry['arg_bytes']} != the "
+          f"card's {real['arg_bytes']}")
+    if exchanges is not None:
+        n = sum(dry["collectives"]["per_op_count"].values())
+        check(n == exchanges, f"{what}: the dry run records {n} exchanges, "
+              f"the rank made {exchanges}")
+    if real["peak"]:
+        err = dry["peak_bytes"] / real["peak"] - 1
+        check(abs(err) <= P15_PEAK_TOL, f"{what}: the dry run's peak "
+              f"{dry['peak_bytes'] / 1e9:.3f} GB is {100 * err:+.1f}% of "
+              f"the card's {real['peak'] / 1e9:.3f} GB")
+
+
+def p15_line(what, dry, real):
+    gb = lambda x: f"{x / 1e9:.3f}"
+    err = (f"{100 * (dry['peak_bytes'] / real['peak'] - 1):+.1f}%"
+           if real["peak"] else "not measured off the card")
+    log(f"{what}: dry run peak {gb(dry['peak_bytes'])} GB (args "
+        f"{gb(dry['arg_bytes'])}, temp {gb(dry['temp_bytes'])}, out - alias "
+        f"{gb(dry['out_bytes'] - dry['alias_bytes'])}), the card's "
+        f"{gb(real['peak'])} ({err}; held besides the inputs "
+        f"{gb(real['besides'])} subtracted); "
+        f"FLOPs {dry['flops']:.6g} (card {real['flops']:.6g}); arg_bytes "
+        f"{dry['arg_bytes']} (card {real['arg_bytes']}); bytes accessed "
+        f"{dry['bytes_accessed']:.4g}; collectives "
+        f"{dry['collectives']['per_op_count']}; meta run {dry['lower_s']} s, "
+        f"the card's call {real['ms']:.1f} ms")
+
+
+def run_dryrun_path(torch, card, dev):
+    """Phase 15 (a) and (b) on one card (`tools/chip_phase.py 15`): the
+    dry run of one process's steps held against the same steps on the
+    card.  (a) phi3-mini's training step at P15_DEPTH layers, fp32, batch
+    P14_BATCH x P14_SEQ, K = 1, a leaf a tensor as the dry run lays them
+    out; (b) a one-shot prefill at phase 4's shape and one decode step
+    after it, bf16 params in one arena at full depth.  Gates: FLOPs and
+    argument bytes exact, peaks within P15_PEAK_TOL.  Returns {} (no
+    kernel is launched)."""
+    from repro_torch.configs import DEFAULT_TRAIN_POLICY
+    from repro_torch.core import tree as T
+    from repro_torch.launch import dryrun as D
+    from repro_torch.launch.specs import ShapeSpec
+    from repro_torch.models.params import materialize
+    from repro_torch.models.steps import (make_decode_step,
+                                          make_prefill_step,
+                                          make_train_step)
+    from repro_torch.models.transformer import model_specs
+    from repro_torch.optim import AdamWConfig, init_opt_state
+    t_path = time.perf_counter()
+    g = torch.Generator(device=dev).manual_seed(SEED + 15)
+
+    # (a) one process's training step
+    cfg = p15_config(P15_DEPTH, "float32")
+    B, S = P14_BATCH, P14_SEQ
+    thunk, args, _ = D.lower(cfg, ShapeSpec("phase15a", "train", S, B), None,
+                             None, dict(DEFAULT_TRAIN_POLICY), K=1)
+    dry = D.measure(thunk, args)
+    del thunk, args
+    arena = materialize(model_specs(cfg), g, "float32", dev)
+    params = T.map_tree(lambda x: x.clone(), arena)     # a leaf a tensor
+    del arena
+    state = {"params": params, "opt": init_opt_state(params)}
+    batch = {"tokens": torch.randint(0, cfg.vocab, (B, S), dtype=torch.int32,
+                                     device=dev, generator=g)}
+    step = make_train_step(cfg, AdamWConfig(), microbatches=1)
+    _, real = p15_measure(torch, dev, lambda: step(state, batch),
+                          (state, batch))
+    what = (f"phase 15 (a) {cfg.name} at {cfg.n_layers} layers, fp32, "
+            f"train {B} x {S}, K=1")
+    p15_line(what, dry, real)
+    p15_gate(what, dry, real)
+    del state, params, batch, step
+
+    # (b) the serving steps, bf16 params in one arena at full depth
+    cfg = p15_config()
+    params = materialize(model_specs(cfg), g, cfg.compute_dtype, dev)
+    tokens = torch.randint(0, cfg.vocab, (P15_BATCH, P15_PROMPT),
+                           dtype=torch.int32, device=dev, generator=g)
+    for kind, seq in (("prefill", P15_PROMPT), ("decode", P15_PROMPT + 1)):
+        thunk, args, _ = D.lower(cfg, ShapeSpec(f"phase15b_{kind}", kind,
+                                                seq, P15_BATCH))
+        dry = D.measure(thunk, args)
+        del thunk, args
+        with torch.no_grad():
+            if kind == "prefill":
+                fn = make_prefill_step(cfg)
+                ins = (params, {"tokens": tokens})
+            else:
+                # a cache one position longer than the prompt
+                tok, _, cache = make_prefill_step(cfg, cache_len=seq)(
+                    params, {"tokens": tokens})
+                fn = make_decode_step(cfg)
+                ins = (params, tok, cache)
+            out, real = p15_measure(torch, dev, lambda: fn(*ins), ins)
+        what = (f"phase 15 (b) {cfg.name} at {cfg.n_layers} layers, bf16 "
+                f"params, {kind} B={P15_BATCH} S={seq}")
+        p15_line(what, dry, real)
+        # the decode's cache is the prefill's, laid out as the model makes
+        # it; the dry run's is a tensor a leaf
+        p15_gate(what, dry, real, args=kind == "prefill")
+        del out, ins
+    del params, tokens
+    log(f"phase 15 (a)-(b): {time.perf_counter() - t_path:.1f} s")
+    return {}
+
+
+def p15_measured_step(torch, plan, step, state, batch):
+    """A phase 14 rank's first step measured for phase 15 (c) and (e):
+    `p15_measure`'s figures, and the exchanges it made: the `Exchange`'s
+    posts through staging halves on a shared card, plus every collective
+    it issued but the barriers (which order a shared card's staging and
+    are no exchange).  On a shared card the staging halves are mapped
+    first at the step's largest post (a whole leaf's fp32 grad): a remap
+    inside the step would leave the superseded halves allocated until
+    CUDA IPC's collector frees them, at a time that varies by rank.  The
+    halves, which a card a rank does not hold, are then among what the
+    rank holds besides the step's inputs, and out of its peak.  Returns
+    ((state, metrics), ms, figures)."""
+    from repro_torch.launch.mesh import collective_log
+    ex = plan.exchange
+    dev = plan.mesh.device
+    # the task's peak so far (p15_measure resets it)
+    before = torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" \
+        else 0
+    if ex.peer:
+        ex._map(4 * max(math.prod(lp.shape) for lp in plan.leaves))
+        torch.cuda.ipc_collect()
+    posts = ex._count
+    with collective_log() as issued:
+        out, real = p15_measure(torch, dev, lambda: step(state, batch),
+                                (state, batch))
+    real["max_before"] = before
+    real["exchanges"] = ex._count - posts + sum(
+        op != "barrier" for op, _, _ in issued)
+    real["staging"] = 0 if ex._mine is None else ex._mine.numel()
+    return out, real["ms"], real
+
+
+def p15_dry_rank(mesh, cfg, policy, rules, K, batch):
+    """This rank's dry run of its own training cell: the same config,
+    policy, rules, K and batch shape on a `RecordingMesh` of the world's
+    shape at this rank, its gathers read as the world reads them (peers'
+    staging on a shared card, `peer_views`)."""
+    from repro_torch.launch import dryrun as D
+    from repro_torch.launch.mesh import RecordingMesh
+    from repro_torch.launch.specs import ShapeSpec
+    from repro_torch.optim import AdamWConfig
+    B, S = batch["tokens"].shape
+    rec = RecordingMesh(mesh.sizes, mesh.axis_names, mesh.rank,
+                        peer_views=mesh.shares_card)
+    thunk, args, _ = D.lower(cfg, ShapeSpec("phase14", "train", S, B), rec,
+                             rules, policy, K, AdamWConfig(**P14_OPT))
+    return D.measure(thunk, args, rec.log)
+
+
+def p15_gate_world(what, ranks, name):
+    """(c) and (e): each rank's dry run of its cell against its first
+    step: exchanges, FLOPs and argument bytes exact, the peak within
+    P15_PEAK_TOL."""
+    for k, r in enumerate(ranks):
+        fig = r[name]["dry"]
+        staging = fig["real"]["staging"]
+        p15_line(f"{what}, rank {k} (exchanges {fig['real']['exchanges']}"
+                 + (f"; the shared card's staging halves, "
+                    f"{staging / 1e9:.3f} GB, among what it holds besides"
+                    if staging else "") + ")", fig["dry"], fig["real"])
+        p15_gate(f"{what}, rank {k}", fig["dry"], fig["real"],
+                 fig["real"]["exchanges"])
+
+
+def p15_folded_peaks(name, depth, ranks):
+    """(d): phase 13 (b)'s ``serve --mesh 3x1`` ranks' peaks beside each
+    rank's dry run of the folded engine's generate (its copy, the batch,
+    the generate's own buffers).  A rank's peak is its whole run's: under
+    ``tmr-parallel`` that is the generate's (the copy lives in the params'
+    own arena), gated within P15_PEAK_TOL; an ECC scheme's prepare also
+    holds its range's parity twice (the encode and the scrub's copy),
+    which the generate does not, so its peaks are printed, not gated.
+    The ranks' shards have one shape (a copy each), so rank 0's dry run
+    stands for each."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import dryrun as D
+    from repro_torch.launch.mesh import RecordingMesh
+    cfg = get_config(P13_ARCH)
+    if P13_SMOKE:
+        cfg = cfg.smoke()
+    cfg = cfg.replace(n_layers=depth)
+    # every rank holds one whole copy: rank 0's dry run is each rank's
+    dry = D.engine_cell(cfg, name, RecordingMesh((3, 1), ("data", "model")),
+                        batch=P13_BATCH, prompt_len=P13_PROMPT, gen=P13_GEN)
+    for k, r in enumerate(ranks):
+        peak = r["peak_bytes"]
+        err = dry["peak_bytes"] / peak - 1 if peak else 0.0
+        log(f"phase 15 (d) {name} 3x1 rank {k}: the dry run of the folded "
+            f"engine's generate peak {dry['peak_bytes'] / 1e9:.3f} GB (args "
+            f"{dry['arg_bytes'] / 1e9:.3f}, temp {dry['temp_bytes'] / 1e9:.3f}"
+            f"), the rank's run {peak / 1e9:.3f} GB ({100 * err:+.1f}%); "
+            f"collectives {dry['collectives']['per_op_count']}; meta run "
+            f"{dry['lower_s']} s")
+        if peak and not name.startswith("ecc"):
+            check(abs(err) <= P15_PEAK_TOL, f"(d) {name} rank {k}: the dry "
+                  f"run's peak is {100 * err:+.1f}% of the rank's")
 
 
 if __name__ == "__main__":

@@ -20,9 +20,17 @@ the device the caller asked for.
 §14): a ("data", "model") mesh whose data axis divides by the TMR copy
 count reshapes into ("copy", "data", "model") over the same ranks, so the
 three copies land on three disjoint groups of data replicas.
+
+`RecordingMesh` is one rank of a mesh with no processes behind it (the
+dry run, `launch.dryrun`): it answers what a `Mesh` answers about ranks
+and groups, runs on the ``meta`` device, and its collectives append
+(op, result bytes, group size) to its log and return ``meta`` tensors of
+the right shape; they move no data.  `collective_log` records the same
+triples for the collectives a real `Mesh` issues.
 """
 from __future__ import annotations
 
+import contextlib
 import datetime
 import faulthandler
 import itertools
@@ -37,9 +45,10 @@ import torch
 
 from ..pshard import AbstractMesh
 
-__all__ = ["Mesh", "make_production_mesh", "make_test_mesh",
+__all__ = ["Mesh", "RecordingMesh", "make_production_mesh", "make_test_mesh",
            "make_tmr_serving_mesh", "fold_copy_axis", "require_devices",
-           "spawn", "backend_for", "parse_mesh", "collectives_issued"]
+           "spawn", "backend_for", "parse_mesh", "collectives_issued",
+           "collective_log"]
 
 #: collective timeout: a rank that died leaves the others waiting this
 #: long at most
@@ -51,7 +60,41 @@ def _dist():
     return dist
 
 
-class Mesh:
+class _Ranks:
+    """What a mesh answers about its ranks from its ``axis_names``,
+    ``sizes`` and this rank's ``coords`` (row-major positions)."""
+
+    @property
+    def shape(self) -> Dict[str, int]:
+        return dict(zip(self.axis_names, self.sizes))
+
+    def describe(self) -> str:
+        return "x".join(f"{a}={s}" for a, s in zip(self.axis_names,
+                                                    self.sizes))
+
+    def _axes(self, axes: Sequence[str]) -> Tuple[str, ...]:
+        return tuple(a for a in self.axis_names if a in tuple(axes))
+
+    def coords_of(self, rank: int) -> Dict[str, int]:
+        """The mesh coordinates of `rank`."""
+        out = {}
+        for name, s in reversed(list(zip(self.axis_names, self.sizes))):
+            out[name] = rank % s
+            rank //= s
+        return {a: out[a] for a in self.axis_names}
+
+    def group_size(self, axes: Sequence[str]) -> int:
+        return _prod(self.shape[a] for a in self._axes(axes))
+
+    def index_in(self, axes: Sequence[str]) -> int:
+        """This rank's row-major position among the ranks of `group(axes)`."""
+        k = 0
+        for a in self._axes(axes):
+            k = k * self.shape[a] + self.coords[a]
+        return k
+
+
+class Mesh(_Ranks):
     """This process's view of a mesh of ranks (module doc).  Collective to
     construct: every rank of the world builds the same mesh at the same
     point."""
@@ -94,17 +137,6 @@ class Mesh:
                         self._ranks[axes] = tuple(ranks)
         self._folded = None
 
-    @property
-    def shape(self) -> Dict[str, int]:
-        return dict(zip(self.axis_names, self.sizes))
-
-    def describe(self) -> str:
-        return "x".join(f"{a}={s}" for a, s in zip(self.axis_names,
-                                                    self.sizes))
-
-    def _axes(self, axes: Sequence[str]) -> Tuple[str, ...]:
-        return tuple(a for a in self.axis_names if a in tuple(axes))
-
     def group(self, axes: Sequence[str]):
         """The process group of this rank over `axes` (None for no axes:
         nothing to reduce over)."""
@@ -116,30 +148,12 @@ class Mesh:
         axes = self._axes(axes)
         return self._ranks[axes] if axes else (self.rank,)
 
-    def coords_of(self, rank: int) -> Dict[str, int]:
-        """The mesh coordinates of `rank`."""
-        out = {}
-        for name, s in reversed(list(zip(self.axis_names, self.sizes))):
-            out[name] = rank % s
-            rank //= s
-        return {a: out[a] for a in self.axis_names}
-
     @property
     def shares_card(self) -> bool:
         """Several ranks on one card (the gloo case): their arenas can be
         read from each other directly (`launch.placement`)."""
         return (self.device.type == "cuda" and self.size > 1
                 and _dist().get_backend() == "gloo")
-
-    def group_size(self, axes: Sequence[str]) -> int:
-        return _prod(self.shape[a] for a in self._axes(axes))
-
-    def index_in(self, axes: Sequence[str]) -> int:
-        """This rank's row-major position among the ranks of `group(axes)`."""
-        k = 0
-        for a in self._axes(axes):
-            k = k * self.shape[a] + self.coords[a]
-        return k
 
     def all_gather(self, x: torch.Tensor,
                    axes: Sequence[str]) -> List[torch.Tensor]:
@@ -148,36 +162,126 @@ class Mesh:
         if self.group_size(axes) <= 1:
             return [x]
         x = x.contiguous()
-        out = [torch.empty_like(x) for _ in range(self.group_size(axes))]
+        n = self.group_size(axes)
+        out = [torch.empty_like(x) for _ in range(n)]
         _dist().all_gather(out, x, group=self.group(axes))
-        _ISSUED[0] += 1
+        _note("all-gather", n * _nbytes(x), n)
         return out
 
     def barrier(self) -> None:
         """Wait for every rank of the mesh (a group of one waits for none)."""
         if self.size > 1:
             _dist().barrier(group=self.group(self.axis_names))
-            _ISSUED[0] += 1
+            _note("barrier", 0, self.size)
 
     def all_reduce(self, x: torch.Tensor, axes: Sequence[str]) -> torch.Tensor:
         """SUM `x` in place over the ranks of `axes` (a no-op over none or
         a group of one); returns x."""
-        if self.group_size(axes) > 1:
+        n = self.group_size(axes)
+        if n > 1:
             _dist().all_reduce(x, group=self.group(axes))
-            _ISSUED[0] += 1
+            _note("all-reduce", _nbytes(x), n)
         return x
+
+
+class RecordingMesh(_Ranks, AbstractMesh):
+    """Rank `rank` of a `sizes` mesh with no processes (module doc): the
+    surface of `Mesh` that the training step and the engine use, on the
+    ``meta`` device.  Its collectives append (op, result bytes, group
+    size) to `log` and return ``meta`` tensors; a folded copy
+    (`fold_copy_axis`) keeps the rank and the log.  An all-gather
+    allocates every rank's tensor, as a card a rank does; with
+    `peer_views` it returns this rank's own and views of memory it does
+    not allocate, as ranks sharing one card read their peers' staging
+    (`shards.Exchange`)."""
+
+    shares_card = False
+
+    def __init__(self, sizes: Sequence[int], axis_names: Sequence[str],
+                 rank: int = 0, log: Optional[list] = None,
+                 peer_views: bool = False):
+        super().__init__(tuple(int(s) for s in sizes), tuple(axis_names))
+        self.peer_views = bool(peer_views)
+        self.size = _prod(self.sizes)
+        if not 0 <= rank < self.size:
+            raise ValueError(f"rank {rank} of a mesh of {self.size}")
+        self.rank = int(rank)
+        self.coords = self.coords_of(self.rank)
+        self.device = torch.device("meta")
+        self.log = [] if log is None else log
+
+    def group_ranks(self, axes: Sequence[str]) -> Tuple[int, ...]:
+        """The ranks that differ from this one only along `axes`, in
+        row-major order (`Mesh.group_ranks`)."""
+        axes = self._axes(axes)
+        out = []
+        for pos in itertools.product(*(range(self.shape[a]) for a in axes)):
+            c = {**self.coords, **dict(zip(axes, pos))}
+            r = 0
+            for a in self.axis_names:
+                r = r * self.shape[a] + c[a]
+            out.append(r)
+        return tuple(out)
+
+    def all_gather(self, x: torch.Tensor,
+                   axes: Sequence[str]) -> List[torch.Tensor]:
+        n = self.group_size(axes)
+        if n <= 1:
+            return [x]
+        self.log.append(("all-gather", n * _nbytes(x), n))
+        if self.peer_views:
+            # ranks sharing a card: this rank's own tensor, and views of
+            # memory its peers hold (`shards.Exchange`)
+            return [x if r == self.rank else
+                    torch.empty((), dtype=x.dtype, device=self.device)
+                    .expand(x.shape) for r in self.group_ranks(axes)]
+        return [torch.empty(x.shape, dtype=x.dtype, device=self.device)
+                for _ in range(n)]
+
+    def barrier(self) -> None:
+        if self.size > 1:
+            self.log.append(("barrier", 0, self.size))
+
+    def all_reduce(self, x: torch.Tensor, axes: Sequence[str]) -> torch.Tensor:
+        n = self.group_size(axes)
+        if n > 1:
+            self.log.append(("all-reduce", _nbytes(x), n))
+        return x
+
+
+def _nbytes(x: torch.Tensor) -> int:
+    return x.numel() * x.element_size()
 
 
 #: collectives this process has issued through `Mesh.all_reduce`,
 #: `all_gather` and `barrier`, on any of its meshes (a group of one issues
-#: none)
+#: none), and the log `collective_log` keeps (None outside it)
 _ISSUED = [0]
+_LOG: List[Optional[list]] = [None]
+
+
+def _note(op: str, nbytes: int, group: int) -> None:
+    _ISSUED[0] += 1
+    if _LOG[0] is not None:
+        _LOG[0].append((op, int(nbytes), int(group)))
 
 
 def collectives_issued() -> int:
     """How many collectives this process (one rank) has issued through
     the `Mesh` methods so far: read it before and after a region."""
     return _ISSUED[0]
+
+
+@contextlib.contextmanager
+def collective_log():
+    """Yields a list that gets (op, result bytes, group size) of every
+    collective this process issues through the `Mesh` methods inside the
+    block: what a `RecordingMesh` logs for the same code."""
+    old, _LOG[0] = _LOG[0], []
+    try:
+        yield _LOG[0]
+    finally:
+        _LOG[0] = old
 
 
 def _prod(xs) -> int:
@@ -238,7 +342,8 @@ def fold_copy_axis(mesh: Mesh, copies: int = 3) -> Optional[Mesh]:
     data rows [i * data/copies, (i+1) * data/copies)).  None when the data
     axis cannot host the copies; a mesh that already has a "copy" axis is
     returned unchanged.  Collective on first call; cached on the mesh.  An
-    `pshard.AbstractMesh` folds to an AbstractMesh of the same shape."""
+    `pshard.AbstractMesh` folds to an AbstractMesh of the same shape, a
+    `RecordingMesh` to one with its rank and log."""
     if "copy" in mesh.axis_names:
         return mesh
     if mesh.axis_names != ("data", "model"):
@@ -246,12 +351,17 @@ def fold_copy_axis(mesh: Mesh, copies: int = 3) -> Optional[Mesh]:
     d = mesh.shape["data"]
     if d % copies != 0:
         return None
+    sizes = (copies, d // copies, mesh.shape["model"])
+    if isinstance(mesh, RecordingMesh):
+        # the rank keeps its position in row-major order
+        if "_folded" not in mesh.__dict__:
+            mesh._folded = RecordingMesh(sizes, ("copy", "data", "model"),
+                                         mesh.rank, mesh.log, mesh.peer_views)
+        return mesh._folded
     if isinstance(mesh, AbstractMesh):
-        return AbstractMesh((copies, d // copies, mesh.shape["model"]),
-                            ("copy", "data", "model"))
+        return AbstractMesh(sizes, ("copy", "data", "model"))
     if mesh._folded is None:
-        mesh._folded = Mesh((copies, d // copies, mesh.shape["model"]),
-                            ("copy", "data", "model"), mesh.device)
+        mesh._folded = Mesh(sizes, ("copy", "data", "model"), mesh.device)
     return mesh._folded
 
 

@@ -61,8 +61,8 @@ from ..core import tree as T
 from ..kernels.sharded import BLOCK, block_range, scrub_joined
 from ..pshard import shard_slices, spec_axes
 
-__all__ = ["ShardedStore", "build_store", "place_store", "gathered",
-           "replicate",
+__all__ = ["ShardedStore", "build_store", "place_store", "empty_store",
+           "gathered", "replicate",
            "exchange_copies", "row_split", "gather_rows", "local_elements"]
 
 
@@ -207,6 +207,16 @@ def place_store(words: torch.Tensor, global_spec: arena.ArenaSpec,
                         device=words.device)
     for slot, row in enumerate(rows):
         _keep_slices(local[slot], lspec, row, global_spec, slices)
+    return _store(local, lspec, global_spec, specs, mesh, held)
+
+
+def empty_store(global_spec: arena.ArenaSpec, specs: Sequence[tuple], mesh,
+                held: Optional[Tuple[int, ...]], device=None) -> ShardedStore:
+    """A store of this rank's layout whose words are not set (the dry
+    run's, on ``meta``: nothing is drawn, scrubbed or allocated)."""
+    _, lspec = _layout(global_spec, specs, mesh)
+    local = torch.empty((1 if held is None else len(held), lspec.n_words),
+                        dtype=torch.int32, device=device or mesh.device)
     return _store(local, lspec, global_spec, specs, mesh, held)
 
 

@@ -524,8 +524,8 @@ def _mesh_rank(device, args, data: int, model: int) -> Dict[str, Any]:
 def _run(args, device, mesh=None) -> Dict[str, Any]:
     """One run of the CLI (on one rank of a mesh, or alone); returns its
     summary as host values: tokens, fetched stats, and agreement and
-    tok/s (one-shot) or results and goodput (server), and the kernel
-    launches this process made in the run."""
+    tok/s (one-shot) or results and goodput (server), the kernel launches
+    this process made in the run and its peak device memory."""
     from .. import kernels
     before = kernels.launch_counts()
 
@@ -561,7 +561,7 @@ def _run(args, device, mesh=None) -> Dict[str, Any]:
                 "stats": {k: np.asarray(v).tolist()
                           for k, v in res["stats"].items()},
                 "goodput_tok_s": res["goodput_tok_s"],
-                "launches": launched()}
+                "launches": launched(), "peak_bytes": _peak(device)}
     res = serve(cfg, inputs["params"], inputs["tokens"], scheme,
                 gen=args.gen, vote_every=args.vote_every,
                 vote_cache=args.vote_cache, p_bit=args.inject_p_bit,
@@ -574,7 +574,14 @@ def _run(args, device, mesh=None) -> Dict[str, Any]:
             "stats": {k: np.asarray(v).tolist()
                       for k, v in res["stats"].items()},
             "agreement": res["agreement"], "tok_s": res["tok_s"],
-            "launches": launched()}
+            "launches": launched(), "peak_bytes": _peak(device)}
+
+
+def _peak(device) -> int:
+    """This process's peak device memory (`torch.cuda.max_memory_allocated`;
+    0 off the card)."""
+    return torch.cuda.max_memory_allocated(device) \
+        if device.type == "cuda" else 0
 
 
 if __name__ == "__main__":

@@ -1,15 +1,16 @@
-"""The shape-set registry of the dry run and the placement of a training
-cell's state (port of `repro.launch.specs`).
+"""The shape-set registry of the dry run, its abstract inputs, and the
+placement of a training cell's state (port of `repro.launch.specs`).
 
 `SHAPES`, `skip_reason`, `applicable` and `arch_rules` are the
-reference's.  The reference's `abstract_inputs` builds `ShapeDtypeStruct`
-stand-ins for the dry run's lowering, which comes with the dry-run report
-(`launch/dryrun.py`, `launch/hlo_stats.py`), not yet ported.  What its
-train branch places is here concretely: `train_state` puts this rank's
-params (by `params.partition_specs`, in the policy's ``param_dtype``),
-`m` and `v` (by `optim.opt_spec_tree`, ZeRO-1, in its ``opt_dtype``) and
-the count on a process mesh, and `microbatches` clamps the policy's K
-as the reference's `dryrun.lower_cell` does.
+reference's.  `abstract_inputs(arch, shape, mesh)` gives every input of a
+cell's step as one rank's shards on the ``meta`` device
+(`params.abstractify`): nothing is allocated for the full configs, and
+the shapes are the reference's per-device shapes on the same mesh.  What
+its train branch places is here concretely too: `train_state` puts this
+rank's params (by `params.partition_specs`, in the policy's
+``param_dtype``), `m` and `v` (by `optim.opt_spec_tree`, ZeRO-1, in its
+``opt_dtype``) and the count on a process mesh, and `microbatches` clamps
+the policy's K as the reference's `dryrun.lower_cell` does.
 """
 from __future__ import annotations
 
@@ -18,12 +19,13 @@ from typing import Any, Dict, Optional
 
 import torch
 
-from ..configs import get_rules_overrides, get_train_policy
+from ..configs import get_config, get_rules_overrides, get_train_policy
 from ..models.config import ModelConfig
 from ..pshard import DEFAULT_RULES, ShardingRules
 
 __all__ = ["SHAPES", "ShapeSpec", "ENCDEC_MEM_LEN", "applicable",
-           "arch_rules", "skip_reason", "microbatches", "train_state"]
+           "arch_rules", "abstract_inputs", "cell_inputs", "skip_reason",
+           "microbatches", "train_state"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -62,6 +64,76 @@ def arch_rules(arch: str, extra: Optional[dict] = None,
     if extra:
         rules = rules.replace(**extra)
     return rules
+
+
+def _mem_len(cfg: ModelConfig, shape: ShapeSpec) -> int:
+    if cfg.family == "vlm":
+        return cfg.vis_tokens
+    if cfg.family == "encdec":
+        return shape.seq if shape.kind == "train" else ENCDEC_MEM_LEN
+    return 0
+
+
+def abstract_inputs(arch: str, shape_name: str, mesh,
+                    rules: Optional[ShardingRules] = None) -> Dict[str, Any]:
+    """Every input of the (arch, shape) cell's step as this rank's shards
+    on ``meta`` (`params.abstractify`), by kind:
+      train  : state {params, opt {m, v, count}} in the train policy's
+               dtypes, the moments ZeRO-1 (`optim.opt_spec_tree`); batch
+      prefill: params (compute dtype, as serving holds them), batch
+      decode : params, cache, token
+    plus 'cfg', 'rules', 'shape' and (train) 'policy'."""
+    cfg = get_config(arch)
+    shape = SHAPES[shape_name]
+    reason = skip_reason(cfg, shape)
+    if reason:
+        raise ValueError(f"{arch} x {shape_name} skipped: {reason}")
+    policy = get_train_policy(arch) if shape.kind == "train" else None
+    return cell_inputs(cfg, shape, mesh, rules or arch_rules(arch), policy)
+
+
+def cell_inputs(cfg: ModelConfig, shape: ShapeSpec, mesh,
+                rules: Optional[ShardingRules] = None,
+                policy: Optional[dict] = None) -> Dict[str, Any]:
+    """`abstract_inputs` of a config (cut in depth, say) and any shape:
+    train cells in `policy`'s dtypes (default: the arch's)."""
+    from ..data.synthetic import make_batch_specs
+    from ..models.params import Spec, abstractify
+    from ..models.transformer import cache_specs, model_specs
+    from ..optim.sharding_rules import opt_spec_tree
+    rules = rules if rules is not None else DEFAULT_RULES
+    pspecs = model_specs(cfg)
+    out: Dict[str, Any] = {"cfg": cfg, "rules": rules, "shape": shape}
+    if shape.kind == "train":
+        policy = policy or get_train_policy(cfg.name)
+        out["policy"] = policy
+        params = abstractify(pspecs, mesh, policy["param_dtype"], rules)
+        bspecs = make_batch_specs(cfg, shape.batch, shape.seq,
+                                  mem_len=_mem_len(cfg, shape))
+        opt_specs = opt_spec_tree(pspecs)
+        odt = policy["opt_dtype"]
+        out["state"] = {"params": params, "opt": {
+            "m": abstractify(opt_specs, mesh, odt, rules),
+            "v": abstractify(opt_specs, mesh, odt, rules),
+            "count": abstractify(Spec((), (), "zeros", dtype="int32"), mesh,
+                                 torch.int32, rules)}}
+        out["batch"] = abstractify(bspecs, mesh, cfg.cdtype, rules)
+        return out
+
+    # serving cells hold compute-dtype (bf16) parameters
+    out["params"] = abstractify(pspecs, mesh, cfg.cdtype, rules)
+    if shape.kind == "prefill":
+        bspecs = make_batch_specs(cfg, shape.batch, shape.seq,
+                                  mem_len=_mem_len(cfg, shape))
+        out["batch"] = abstractify(bspecs, mesh, cfg.cdtype, rules)
+    else:  # decode
+        cspecs = cache_specs(cfg, shape.batch, shape.seq,
+                             mem_len=_mem_len(cfg, shape))
+        out["cache"] = abstractify(cspecs, mesh, cfg.cdtype, rules)
+        out["token"] = abstractify(
+            Spec((shape.batch, 1), ("batch", None), dtype="int32"),
+            mesh, torch.int32, rules)
+    return out
 
 
 def microbatches(k: int, batch: int, mesh) -> int:

@@ -1,8 +1,8 @@
 """Declarative parameter specs, materialized into an arena (port of
-`repro.models.params`: `Spec`, `materialize`, `partition_specs` and
-`count_params`, plus `from_numpy` and `train_state_from_reference`, which
-carry the JAX package's parameters and training state across as numpy
-trees).
+`repro.models.params`: `Spec`, `materialize`, `abstractify`,
+`partition_specs` and `count_params`, plus `from_numpy` and
+`train_state_from_reference`, which carry the JAX package's parameters
+and training state across as numpy trees).
 
 Parameters are a dict tree with the reference's keys and shapes (stacked
 ``(n_layers, ...)`` layer leaves included) whose leaves are views of one
@@ -20,8 +20,8 @@ import torch
 from ..core import arena
 from ..core import tree as T
 
-__all__ = ["Spec", "layout", "materialize", "count_params", "from_numpy",
-           "train_state_from_reference", "partition_specs"]
+__all__ = ["Spec", "layout", "materialize", "abstractify", "count_params",
+           "from_numpy", "train_state_from_reference", "partition_specs"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -78,6 +78,28 @@ def materialize(tree: Any, generator: torch.Generator,
         else:
             x.normal_(0.0, s.scale, generator=generator)
     return params
+
+
+def abstractify(tree: Any, mesh, dtype: Any = "float32", rules=None) -> Any:
+    """One rank's shard of every leaf of a Spec tree as a ``meta`` tensor
+    (the dry run's inputs: nothing allocated), shaped by `pshard.spec_for`
+    and `pshard.shard_slices` at the mesh's ``coords`` (rank 0's where it
+    has none: a dimension is split only where it divides, so every rank's
+    shard has this shape); whole leaves without a mesh.
+    `launch.shards.global_shape` gives a shard's whole shape back."""
+    from ..pshard import shard_slices, spec_for
+
+    def conv(s: Spec) -> torch.Tensor:
+        shape = tuple(s.shape)
+        if mesh is not None:
+            coords = getattr(mesh, "coords", None) or {
+                a: 0 for a in mesh.axis_names}
+            sl = shard_slices(shape, spec_for(shape, s.axes, mesh, rules),
+                              mesh, coords)
+            shape = tuple(x.stop - x.start for x in sl)
+        return torch.empty(shape, dtype=s.resolved_dtype(dtype),
+                           device="meta")
+    return T.map_tree(conv, tree)
 
 
 def partition_specs(tree: Any, mesh, rules=None) -> Any:

@@ -30,7 +30,8 @@ from typing import Dict, Optional, Sequence, Tuple
 __all__ = ["ShardingRules", "DEFAULT_RULES", "AbstractMesh", "ambient_mesh",
            "ambient_rules", "ambient_batch_shards", "ambient_batch_sum",
            "capture", "use_mesh_and_rules",
-           "spec_for", "to_placements", "shard_slices", "constrain",
+           "spec_for", "named_sharding", "to_placements", "shard_slices",
+           "constrain",
            "constrain_tree", "spec_axes"]
 
 
@@ -180,6 +181,17 @@ def spec_for(shape: Sequence[int], logical: Sequence[Optional[str]],
         else:
             parts.append(None)
     return tuple(parts)
+
+
+def named_sharding(shape: Sequence[int], logical: Sequence[Optional[str]],
+                   mesh=None, rules: Optional[ShardingRules] = None):
+    """The DTensor placements of a tensor with the given logical axes (the
+    reference's NamedSharding: `to_placements` of `spec_for`), or None
+    without a mesh."""
+    mesh = mesh if mesh is not None else ambient_mesh()
+    if mesh is None:
+        return None
+    return to_placements(spec_for(shape, logical, mesh, rules), mesh)
 
 
 def spec_axes(entry) -> Tuple[str, ...]:

@@ -14,7 +14,11 @@ after a change to one phase's code:
                                       # (run_train_mesh_path)
     python3 tools/chip_phase.py 14d   # its four-card 2x2 world over nccl
                                       # (run_train_mesh_four; needs four
-                                      # cards on one host)
+                                      # cards on one host; phase 15 (e))
+    python3 tools/chip_phase.py 15    # the dry run against the card's
+                                      # steps (run_dryrun_path: phase 15
+                                      # (a)-(b); (c) runs inside 14, (d)
+                                      # inside 13)
 
 from the repo root.
 """
@@ -33,7 +37,7 @@ import chip_smoke as C  # noqa: E402  (puts src/ on the path)
 PHASES = {"10": C.run_train_path, "11": C.run_zoo_path,
           "12": C.run_family_path, "13": C.run_mesh_path,
           "13cd": C.run_mesh_one_shot, "14": C.run_train_mesh_path,
-          "14d": C.run_train_mesh_four}
+          "14d": C.run_train_mesh_four, "15": C.run_dryrun_path}
 
 
 def main(argv=None) -> int:
