@@ -264,6 +264,19 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      as nccl's are).  Inside phase 13 (b): (d) the folded
      engine's generate dry-run on a 3x1 mesh beside each rank's peak,
      within 10% under `tmr-parallel`.  No kernel is launched.
+ 16. the keyed draws (`repro_torch.core.prng`, the reference's
+     `jax.random`; `run_prng_path`; `tools/chip_phase.py 16`), from
+     PRNGKey(16): (a) `bits` over 2^26 elements from 0 and from 2^32 -
+     2^25 (across the 2^32 counter edge) on the card and on the CPU, equal
+     to each other and to the SHA-256 digests taken from jax 0.9.0; (b)
+     `bernoulli` at p 1e-9 over 2^28 draws: the reference's 37 flips at its
+     positions (2^28 * 2^-23 = 32 expected, 0.27 at the nominal p); (c) a
+     keyed `corrupt_store` (p_bit 1e-5) and scrub of phi3-mini's `smoke()`
+     store under `ecc` and `hsiao`: the encode and scrub kernels launch,
+     the counters and the read payload equal the CPU's plain route for the
+     same key; (d) a keyed `materialize` of that `smoke()` model on the
+     card equal to the CPU's, bit for bit.  Each
+     time is printed with the card's name and power limit.
 
 The second-to-last line is a JSON object of per-kernel numbers; the last is
 {"ok": true, "device": {...}}.  Times are CUDA-event means on this card
@@ -391,13 +404,18 @@ def main() -> int:
     torch.cuda.empty_cache()
     # 15. the dry run against the card (it launches none of the kernels)
     run_dryrun_path(torch, card, dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    # 16. the keyed draws (its keyed stores' launches in its count)
+    keyed = run_prng_path(torch, card, dev)
     paths = (launches, server, netlist, campaigns, serve_rest, train, zoo,
-             families, mesh)
+             families, mesh, keyed)
     for name, row in rows.items():
         row["launches"] = sum(p.get(name, 0) for p in paths)
         check(row["launches"] > 0, f"{name} never launched on the main path")
     log("launches by path (one-shot ecc+tmr-parallel / server, 4 runs / "
-        "netlist / campaigns / phase 9 / train / zoo / families / mesh): "
+        "netlist / campaigns / phase 9 / train / zoo / families / mesh / "
+        "keyed): "
         + ", ".join(f"{name} " + "/".join(str(p.get(name, 0)) for p in paths)
                     for name in rows))
 
@@ -5390,6 +5408,148 @@ def p15_folded_peaks(name, depth, ranks):
             check(abs(err) <= P15_PEAK_TOL, f"(d) {name} rank {k}: the dry "
                   f"run's peak is {100 * err:+.1f}% of the rank's")
 
+
+# ----------------------------------------------------------------------------
+# 16. the keyed draws (core.prng, the reference's jax.random)
+# ----------------------------------------------------------------------------
+
+P16_SEED = 16
+#: (first element, elements, SHA-256 of the uint32 words little-endian) of
+#: jax 0.9.0's `bits` under PRNGKey(16) (the second range by the threefry
+#: primitive bound with its (hi, lo) count words)
+P16_BITS = ((0, 1 << 26, "2a518b42a7daa27bfcb57af275230c50"
+             "50ab35623166f96adb2b2e9e62cca237"),
+            (2**32 - 2**25, 1 << 26, "e1a19853dbf39612d24c6e7992cb7844"
+             "07b7b0c43ce888b9390380e2be85706d"))
+#: jax 0.9.0's `bernoulli(PRNGKey(16), p, (draws,))`: p, draws, its flips
+#: and the SHA-256 of their positions (uint64 little-endian)
+P16_BERN = (1e-9, 1 << 28, 37, "4458a9fd9ae6ae2e15e0848b29837c5f"
+            "7635a6b01b50b349c3d03846c9631324")
+P16_ARCH = "phi3-mini-3.8b"
+P16_P_BIT = 1e-5
+P16_SCHEMES = (("ecc", ("encode_parity", "scrub")),
+               ("hsiao", ("encode_hsiao", "scrub_hsiao")))
+
+
+def keyed_bits(torch, prng, key, start, count):
+    """`prng` bits of [start, start + count) on the key's device, chunked."""
+    out = torch.empty(count, dtype=torch.int64, device=key.device)
+    for s, c in prng.chunks(count):
+        out[s:s + c] = prng._bits_range(key, start + s, c)
+    return out
+
+
+def sha256_le(torch, t, dtype: str) -> str:
+    """SHA-256 of a tensor's values as little-endian `dtype` ("<u4")."""
+    import hashlib
+    return hashlib.sha256(t.cpu().numpy().astype(dtype).tobytes()
+                          ).hexdigest()
+
+
+def keyed_store_run(torch, spec, params, key):
+    """protect, a keyed corrupt_store, scrub: (counters, read words)."""
+    from repro_torch.core import arena
+    from repro_torch.faults import TransientBitFlips
+    from repro_torch.reliability import parse_scheme
+    scheme = parse_scheme(spec)
+    prot = scheme.protect(params)
+    scheme.corrupt_store(prot, TransientBitFlips(P16_P_BIT), key)
+    fixed, rep = scheme.scrub(prot)
+    counts = (int(rep.corrected), int(rep.parity_fixed),
+              int(rep.uncorrectable))
+    return counts, arena.words_of(scheme.read(fixed))[0].cpu()
+
+
+def run_prng_path(torch, card, dev):
+    """Phase 16 (`tools/chip_phase.py 16`): the keyed draws on the card
+    against the CPU and jax 0.9.0's digests (the phase list above).
+    Returns its kernels' launches ((c)'s keyed stores)."""
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.core import arena, prng
+    from repro_torch.core import tree as T
+    from repro_torch.models.params import materialize
+    from repro_torch.models.transformer import model_specs
+    cpu = torch.device("cpu")
+    t_path = time.perf_counter()
+    kd, kc = prng.key(P16_SEED, dev), prng.key(P16_SEED, cpu)
+
+    # (a) bits across the 2^32 counter edge, the card against the CPU
+    keyed_bits(torch, prng, kd, 0, prng.CHUNK)      # first launches
+    for start, count, digest in P16_BITS:
+        words, ms = timed_once(torch, lambda: keyed_bits(torch, prng, kd,
+                                                         start, count))
+        t0 = time.perf_counter()
+        host = keyed_bits(torch, prng, kc, start, count)
+        cpu_s = time.perf_counter() - t0
+        check(torch.equal(words.cpu(), host),
+              f"(a) bits from {start}: the card differs from the CPU")
+        check(sha256_le(torch, words, "<u4") == digest,
+              f"(a) bits from {start}: not jax 0.9.0's digest")
+        log(f"phase 16 (a) bits [{start}, {start + count}): card {ms:.1f} ms "
+            f"({count / ms / 1e6:.3f} G elements/s), CPU {cpu_s:.2f} s; "
+            f"equal, jax 0.9.0's digest ({card})")
+        del words, host
+
+    # (b) the reference's Bernoulli floor at p 1e-9
+    p, n, flips, digest = P16_BERN
+    t = prng.threshold(p)
+
+    def positions():
+        return torch.cat([s + torch.nonzero(
+            (prng._bits_range(kd, s, c) >> 9) < t).view(-1)
+            for s, c in prng.chunks(n)])
+    pos, ms = timed_once(torch, positions)
+    check(pos.numel() == flips and sha256_le(torch, pos, "<u8") == digest,
+          f"(b) bernoulli({p:g}) over {n}: {pos.numel()} flips, not the "
+          f"reference's {flips} at its positions")
+    log(f"phase 16 (b) bernoulli p={p:g} over 2^{n.bit_length() - 1} draws: "
+        f"{pos.numel()} flips at the reference's positions (2^"
+        f"{n.bit_length() - 1} * 2^-23 = {n * 2.0**-23:g}; at the nominal p "
+        f"{n * p:.2f}); card {ms:.1f} ms "
+        f"({n / ms / 1e6:.3f} G draws/s) ({card})")
+
+    # (d) a keyed materialize of the smoke() model, the card against the CPU
+    cfg = get_config(P16_ARCH).smoke()
+    specs = model_specs(cfg)
+    params_d, ms = timed_once(torch, lambda: materialize(specs, kd, "float32",
+                                                          dev))
+    t0 = time.perf_counter()
+    params_c = materialize(specs, kc, "float32", cpu)
+    cpu_s = time.perf_counter() - t0
+    wd, wc = arena.words_of(params_d)[0].cpu(), arena.words_of(params_c)[0]
+    check(torch.equal(wd, wc), f"(d) materialize: "
+          f"{int((wd != wc).sum())} values of the card differ from the CPU's")
+    log(f"phase 16 (d) keyed materialize of {cfg.name} smoke "
+        f"({wd.numel()} words): equal to the CPU's; card {ms:.1f} ms, CPU "
+        f"{cpu_s:.2f} s ({card})")
+    # (c) keyed corrupt_store + scrub of the smoke() store, ecc and hsiao
+    counts = {}
+    for spec, names in P16_SCHEMES:
+        params = T.map_tree(lambda x: x.clone(), params_d)
+        kernels.reset_launch_counts()
+        (got, words), ms = timed_once(torch, lambda: keyed_store_run(
+            torch, spec, params, prng.key(P16_SEED + 1, dev)))
+        launched = kernels.launch_counts()
+        want, want_words = keyed_store_run(
+            torch, spec, T.map_tree(lambda x: x.clone(), params_c),
+            prng.key(P16_SEED + 1, cpu))
+        for name in names:
+            check(launched.get(name, 0) > 0,
+                  f"(c) {spec}: {name} never launched")
+            counts[name] = counts.get(name, 0) + launched.get(name, 0)
+        check(got == want and torch.equal(words, want_words),
+              f"(c) {spec}: card {got} != the CPU's {want}, or the read "
+              f"payloads differ")
+        check(got[0] > 0, f"(c) {spec}: nothing corrected")
+        log(f"phase 16 (c) keyed corrupt_store + scrub of {cfg.name} smoke, "
+            f"{spec}: counters (corrected, parity_fixed, uncorrectable) "
+            f"{got} equal the CPU's, payload equal; launches "
+            f"{ {k: launched.get(k, 0) for k in names} }; {ms:.1f} ms "
+            f"({card})")
+
+    log(f"phase 16: {time.perf_counter() - t_path:.1f} s ({card})")
+    return counts
 
 if __name__ == "__main__":
     sys.exit(main())

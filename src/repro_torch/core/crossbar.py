@@ -32,6 +32,7 @@ from typing import Optional, Sequence
 
 import torch
 
+from . import prng
 from . import stateful_logic as sl
 from ..device import resolve_device
 from ..faults.models import FaultModel, RetentionDrift, TransientBitFlips
@@ -105,6 +106,7 @@ class Crossbar:
     def _with(self, state) -> "Crossbar":
         return Crossbar(state, self.errors, self.counter)
 
+
     # -- input access corruption (indirect) ----------------------------------
 
     def _read(self, view: torch.Tensor, index, idx: Sequence[int],
@@ -116,8 +118,8 @@ class Crossbar:
             return [view[index(i)] for i in idx]
         model = self.errors.input_model()
         out = []
-        for i in idx:
-            corrupted = model.corrupt_bits(view[index(i)], generator)
+        for i, g in zip(idx, prng.streams(generator, len(idx))):
+            corrupted = model.corrupt_bits(view[index(i)], g)
             view[index(i)] = corrupted
             out.append(corrupted)
         return out
@@ -129,9 +131,9 @@ class Crossbar:
         """Apply `gate` with inputs at `in_cols`, output at `out_col`,
         simultaneously in every row (paper Fig. 1(a))."""
         state = self.state.clone()
-        ins = self._read(state, lambda c: (slice(None), c), in_cols,
-                         generator)
-        state[:, out_col] = _apply(gate, ins, generator,
+        g_in, g_gate = prng.streams(generator, 2)   # reads, gate
+        ins = self._read(state, lambda c: (slice(None), c), in_cols, g_in)
+        state[:, out_col] = _apply(gate, ins, g_gate,
                                    self.errors.gate_param())
         self.counter.tick(n_parallel=self.shape[0],
                           cycles=sl.GATE_COSTS[gate])
@@ -144,9 +146,9 @@ class Crossbar:
         """Apply `gate` with inputs at `in_rows`, output at `out_row`,
         simultaneously in every column (paper Fig. 1(b))."""
         state = self.state.clone()
-        ins = self._read(state, lambda r: (r, slice(None)), in_rows,
-                         generator)
-        state[out_row, :] = _apply(gate, ins, generator,
+        g_in, g_gate = prng.streams(generator, 2)   # reads, gate
+        ins = self._read(state, lambda r: (r, slice(None)), in_rows, g_in)
+        state[out_row, :] = _apply(gate, ins, g_gate,
                                    self.errors.gate_param())
         self.counter.tick(n_parallel=self.shape[1],
                           cycles=sl.GATE_COSTS[gate])
@@ -166,9 +168,10 @@ class Crossbar:
         assert n_cols % part_width == 0
         n_parts = n_cols // part_width
         view = self.state.clone().reshape(n_rows, n_parts, part_width)
+        g_in, g_gate = prng.streams(generator, 2)   # reads, gate
         ins = self._read(view, lambda o: (slice(None), slice(None), o),
-                         in_offsets, generator)
-        view[:, :, out_offset] = _apply(gate, ins, generator,
+                         in_offsets, g_in)
+        view[:, :, out_offset] = _apply(gate, ins, g_gate,
                                         self.errors.gate_param())
         self.counter.tick(n_parallel=n_rows * n_parts,
                           cycles=sl.GATE_COSTS[gate])

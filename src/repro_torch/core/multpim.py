@@ -21,6 +21,7 @@ from typing import Optional
 import torch
 
 from ..reliability import backend
+from . import prng
 from .bitops import MASK32, as_unsigned, from_bits, to_bits
 from .netlist import Netlist, NetlistBuilder, full_adder
 from .stateful_logic import g_maj3
@@ -127,16 +128,19 @@ def multiply_tmr_bits(a_words: torch.Tensor, b_words: torch.Tensor,
 
     With ideal_voting=False the two voting gates per output bit are
     fault-injected as well (paper Fig. 4: non-ideal voting becomes the
-    bottleneck near p_gate = 1e-9).  Returns bool bits (trials, 2N).
+    bottleneck near p_gate = 1e-9).  Returns bool bits (trials, 2N).  A
+    `core.prng` key is split in four (copies 1-3, the voting gates), as
+    the reference splits it.
     """
     nl = multiplier_netlist(n_bits)
     inputs = _pack_inputs(a_words, b_words, n_bits)
-    o1, o2, o3 = (execute_netlist(nl, inputs, generator=generator,
+    sources = prng.streams(generator, 4)
+    o1, o2, o3 = (execute_netlist(nl, inputs, generator=g,
                                   p_gate=p_gate, impl=impl)
-                  for _ in range(3))
+                  for g in sources[:3])
     if ideal_voting:
         return g_maj3(o1, o2, o3)
-    return g_maj3(o1, o2, o3, generator, p_gate)
+    return g_maj3(o1, o2, o3, sources[3], p_gate)
 
 
 def true_product_bits(a_words: torch.Tensor, b_words: torch.Tensor,

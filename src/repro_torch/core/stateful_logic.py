@@ -9,8 +9,10 @@ Error model (paper §II-B, "direct" soft errors): each gate evaluation
 produces the wrong output with probability ``p_gate`` (independently per
 row, per gate).  Every primitive takes an optional ``(generator, p_gate)``
 pair where the reference takes ``(key, p_gate)``; a gate made of several
-cycles draws its cycles' faults from the generator in order.  ``p_gate``
-may also be any `repro_torch.faults.FaultModel`.
+cycles draws its cycles' faults from the generator in order.  The
+generator may be a `core.prng` key: the draws are then the reference's,
+a gate of several cycles splitting its key as the reference does.
+``p_gate`` may also be any `repro_torch.faults.FaultModel`.
 
 Cycle accounting: each stateful gate is one crossbar cycle regardless of how
 many rows it spans.  ``CycleCounter`` tracks latency (cycles) and
@@ -24,6 +26,7 @@ from typing import Optional
 import torch
 
 from ..faults.models import FaultModel, TransientGateFaults
+from . import prng
 
 __all__ = [
     "CycleCounter",
@@ -99,7 +102,8 @@ def g_and(a, b, generator=None, p_gate=0.0):
     """AND = NOT(NAND): 2 cycles."""
     if generator is None:
         return a & b
-    return g_not(g_nand(a, b, generator, p_gate), generator, p_gate)
+    g1, g2 = prng.streams(generator, 2)
+    return g_not(g_nand(a, b, g1, p_gate), g2, p_gate)
 
 
 def g_min3(a, b, c, generator=None, p_gate=0.0):
@@ -115,7 +119,8 @@ def g_maj3(a, b, c, generator=None, p_gate=0.0):
     """Majority = NOT(Minority3): 2 cycles (Min3 then NOT)."""
     if generator is None:
         return (a & b) | (b & c) | (a & c)
-    return g_not(g_min3(a, b, c, generator, p_gate), generator, p_gate)
+    g1, g2 = prng.streams(generator, 2)
+    return g_not(g_min3(a, b, c, g1, p_gate), g2, p_gate)
 
 
 def g_xor(a, b, generator=None, p_gate=0.0):
@@ -126,11 +131,12 @@ def g_xor(a, b, generator=None, p_gate=0.0):
     """
     if generator is None:
         return a ^ b
-    x1 = g_nor(a, b, generator, p_gate)
-    x2 = g_nor(a, x1, generator, p_gate)
-    x3 = g_nor(b, x1, generator, p_gate)
-    x4 = g_nor(x2, x3, generator, p_gate)
-    return g_not(x4, generator, p_gate)
+    g = prng.streams(generator, 5)
+    x1 = g_nor(a, b, g[0], p_gate)
+    x2 = g_nor(a, x1, g[1], p_gate)
+    x3 = g_nor(b, x1, g[2], p_gate)
+    x4 = g_nor(x2, x3, g[3], p_gate)
+    return g_not(x4, g[4], p_gate)
 
 
 #: crossbar cycles per logical op (FELIX gate set)

@@ -17,6 +17,7 @@ from typing import Callable, Optional
 
 import torch
 
+from . import prng
 from . import tree as T
 from .seeds import derive_seed
 
@@ -74,10 +75,12 @@ def tmr(fn: Callable, mode: str = "serial", voter: Optional[Callable] = None,
         device=None) -> Callable:
     """Wrap `fn(generator, *args) -> tree` with triple modular redundancy.
 
-    `fn` takes a `torch.Generator` first (its copy's fault stream).  The
-    wrapper is called as wrapped(seed, *args): it runs `fn` three times, on
-    generators seeded derive_seed(seed, 0..2) on `device` (CUDA unless the
-    caller passes the CPU), and votes every leaf of the outputs per bit.
+    `fn` takes a `torch.Generator` or a `core.prng` key first (its copy's
+    fault stream).  The wrapper is called as wrapped(seed, *args): it runs
+    `fn` three times, on generators seeded derive_seed(seed, 0..2) on
+    `device` (CUDA unless the caller passes the CPU), and votes every leaf
+    of the outputs per bit.  Called with a key in place of the seed, the
+    copies take ``split(key, 3)``, the reference's keys.
     `voter` defaults to the registry's ``tmr_vote`` (on a CUDA tensor the
     kernel).  Every mode evaluates the copies one after another (the
     reference vmaps parallel and semi_parallel); the voted bits are the
@@ -91,9 +94,13 @@ def tmr(fn: Callable, mode: str = "serial", voter: Optional[Callable] = None,
         from ..reliability import backend
         voter = backend.dispatch("tmr_vote")
 
-    def wrapped(seed: int, *args):
-        outs = [fn(torch.Generator(device=dev).manual_seed(
-            derive_seed(seed, i)), *args) for i in range(3)]
+    def wrapped(seed, *args):
+        if prng.is_key(seed):
+            sources = list(prng.split(seed, 3))
+        else:
+            sources = [torch.Generator(device=dev).manual_seed(
+                derive_seed(seed, i)) for i in range(3)]
+        outs = [fn(g, *args) for g in sources]
         return T.map_tree(voter, *outs)
 
     wrapped.cost = TMR_COSTS[mode]

@@ -43,10 +43,11 @@ import numpy as np
 import torch
 
 from ..core import analytics as A
-from ..core import multpim
+from ..core import multpim, prng
 from ..device import resolve_device
 from ..faults import (CampaignConfig, CampaignResult, TransientBitFlips,
                       derive_seed, run_campaign, sweep, sweep_schemes)
+from ..faults.campaign import child_seed
 from ..reliability import backend, standard_grid
 
 __all__ = ["Mode", "FULL", "SMOKE", "Z", "FIG5_POINTS", "GRID_P_INPUT",
@@ -135,9 +136,17 @@ def measure_alpha(n_bits: int = 32, device=None) -> float:
 def make_mult_trial(p_gate: float, tmr: bool = False, n_bits: int = 32):
     """Batched trial: n multiplications of random operands; a trial fails
     when any product bit is wrong (the oracle product stands for the
-    reference's fault-free netlist run, which equals it)."""
+    reference's fault-free netlist run, which equals it).  With a
+    `core.prng` key, the reference benchmark's draws: ``split(key, 3)``
+    for a, b and the faults."""
     def trial(g: torch.Generator, n: int) -> torch.Tensor:
-        a, b = _operand_words(g, n, n_bits), _operand_words(g, n, n_bits)
+        if prng.is_key(g):
+            lim = 0xFFFFFFFF >> (32 - n_bits)
+            ka, kb, g = prng.split(g, 3)
+            a, b = prng.bits(ka, n) & lim, prng.bits(kb, n) & lim
+        else:
+            a, b = (_operand_words(g, n, n_bits),
+                    _operand_words(g, n, n_bits))
         if tmr:
             bits = multpim.multiply_tmr_bits(a, b, n_bits, g, p_gate)
         else:
@@ -151,15 +160,24 @@ def make_nn_trial(p_gate: float, n_bits: int = 32, m_scaled: int = 16,
                   p_mask_scaled: float = 0.25):
     """Batched trial: a sample is m_scaled multiplications through the
     netlist; each wrong product flips the classification w.p.
-    p_mask_scaled."""
+    p_mask_scaled.  With a `core.prng` key, the reference benchmark's
+    draws: ``split(key, 4)`` for a, b, the faults and the masking."""
     def trial(g: torch.Generator, n: int) -> torch.Tensor:
         k = n * m_scaled
-        a, b = _operand_words(g, k, n_bits), _operand_words(g, k, n_bits)
+        keyed = prng.is_key(g)
+        if keyed:
+            lim = 0xFFFFFFFF >> (32 - n_bits)
+            ka, kb, g, km = prng.split(g, 4)
+            a, b = prng.bits(ka, k) & lim, prng.bits(kb, k) & lim
+        else:
+            a, b = (_operand_words(g, k, n_bits),
+                    _operand_words(g, k, n_bits))
         bits = multpim.multiply_bits(a, b, n_bits, generator=g,
                                      p_gate=p_gate)
         wrong = (bits != multpim.true_product_bits(a, b, n_bits)).any(-1)
-        flips = torch.rand((n, m_scaled), generator=g,
-                           device=g.device) < p_mask_scaled
+        flips = prng.bernoulli(km, p_mask_scaled, (n, m_scaled)) if keyed \
+            else torch.rand((n, m_scaled), generator=g,
+                            device=g.device) < p_mask_scaled
         return (wrong.view(n, m_scaled) & flips).any(-1)
     return trial
 
@@ -234,13 +252,16 @@ def _us(res: CampaignResult) -> float:
 def fig4(alpha: float, mode: Mode = FULL, device=None, seed: int = SEED
          ) -> Tuple[List[Row], List[CampaignResult]]:
     """The multiplication and NN campaigns against their closed forms (each
-    inside its 99% interval), and the TMR point beside its upper bound."""
+    inside its 99% interval), and the TMR point beside its upper bound.
+    `seed` may be a `core.prng` key: the campaigns then make the reference
+    benchmark's draws (point i under ``fold_in(key, i)``, NN point i under
+    ``fold_in(key, 100 + i)``, TMR under ``fold_in(key, 200)``)."""
     cfg = mode.config()
     G = multpim.multiplier_netlist(mode.n_bits).n_gates
     rows, results = [], []
     for i, p_gate in enumerate(mode.fig4_pgates):
         res = run_campaign(make_mult_trial(p_gate, n_bits=mode.n_bits),
-                           derive_seed(seed, i), cfg, batched=True,
+                           child_seed(seed, i), cfg, batched=True,
                            name=f"mult p_gate={p_gate:g}", device=device)
         model = float(A.p_mult_from_alpha(np.array([p_gate]), alpha, G)[0])
         lo, hi = res.ci
@@ -259,7 +280,7 @@ def fig4(alpha: float, mode: Mode = FULL, device=None, seed: int = SEED
         res = run_campaign(
             make_nn_trial(p_gate, mode.n_bits, mode.m_scaled,
                           mode.p_mask_scaled),
-            derive_seed(seed, 100 + i), cfg, batched=True,
+            child_seed(seed, 100 + i), cfg, batched=True,
             name=f"nn p_gate={p_gate:g}", device=device)
         p_mult = A.p_mult_from_alpha(np.array([p_gate]), alpha, G)
         model = float(A.nn_misclassification(p_mult, cs)[0])
@@ -276,7 +297,7 @@ def fig4(alpha: float, mode: Mode = FULL, device=None, seed: int = SEED
 
     p_tmr = mode.fig4_pgates[-1]
     res = run_campaign(make_mult_trial(p_tmr, tmr=True, n_bits=mode.n_bits),
-                       derive_seed(seed, 200), cfg, batched=True,
+                       child_seed(seed, 200), cfg, batched=True,
                        name=f"tmr p_gate={p_tmr:g}", device=device)
     bound = float(A.p_mult_tmr(np.array([p_tmr]), alpha, G)[0])
     lo, hi = res.ci

@@ -30,10 +30,11 @@ from typing import (Any, Callable, Dict, List, Mapping, Optional, Sequence,
 
 import torch
 
+from ..core import prng
 from ..core.seeds import derive_seed
 from ..device import resolve_device
 
-__all__ = ["CampaignConfig", "CampaignResult", "derive_seed",
+__all__ = ["CampaignConfig", "CampaignResult", "derive_seed", "child_seed",
            "wilson_interval", "run_campaign", "sweep", "sweep_schemes"]
 
 
@@ -112,16 +113,29 @@ def _normalize(out) -> Tuple[torch.Tensor, Mapping[str, Any]]:
     return torch.as_tensor(out), {}
 
 
-def _generator(device: torch.device, seed: int) -> torch.Generator:
+def _generator(device: torch.device, seed) -> torch.Generator:
+    """A batch's fault source: a generator seeded `seed`, or the key."""
+    if prng.is_key(seed):
+        return seed.to(device)
     return torch.Generator(device=device).manual_seed(seed)
+
+
+def child_seed(seed, i: int):
+    """Stream i under `seed`: derive_seed(seed, i), or fold_in(key, i)."""
+    if prng.is_key(seed):
+        return prng.fold_in(seed, i)
+    return derive_seed(seed, i)
 
 
 def _per_trial(trial_fn: Callable, device: torch.device) -> Callable:
     """A batch of `trial_fn(generator)` calls, trial j of a batch on the
-    generator seeded derive_seed(batch seed, j); the reference vmaps them."""
+    generator seeded derive_seed(batch seed, j), or on ``split(batch key,
+    n)[j]`` (the reference's keys; it vmaps the trials)."""
     def batch_fn(seed, n):
-        outs = [_normalize(trial_fn(_generator(device, derive_seed(seed, j))))
-                for j in range(n)]
+        sources = list(prng.split(seed.to(device), n)) if \
+            prng.is_key(seed) else \
+            [_generator(device, derive_seed(seed, j)) for j in range(n)]
+        outs = [_normalize(trial_fn(g)) for g in sources]
         fail = torch.stack([f.reshape(()) for f, _ in outs])
         keys = outs[0][1].keys() if outs else ()
         extras = {k: torch.stack([torch.as_tensor(e[k]).reshape(())
@@ -148,7 +162,9 @@ def run_campaign(trial_fn: Callable, seed: int,
 
     Batch b runs on a generator seeded derive_seed(seed, b).  Each batch's
     failures and extras are summed on the device and fetched together in
-    one transfer.
+    one transfer.  `seed` may be a `core.prng` key: batch b then takes
+    ``fold_in(key, b)`` and its trials ``split`` of that (unbatched), the
+    reference's draws.
     """
     dev = resolve_device(device)
     batch_fn = (lambda s, n: trial_fn(_generator(dev, s), n)) if batched \
@@ -163,7 +179,7 @@ def run_campaign(trial_fn: Callable, seed: int,
     b = 0
     while n < cfg.max_trials:
         size = min(cfg.batch_size, cfg.max_trials - n)
-        fail, extras = _normalize(batch_fn(derive_seed(seed, b), size))
+        fail, extras = _normalize(batch_fn(child_seed(seed, b), size))
         b += 1
         if tuple(fail.shape) != (size,):
             raise ValueError(f"trial returned shape {tuple(fail.shape)}, "
@@ -197,9 +213,10 @@ def sweep(make_trial: Callable[..., Callable],
           cfg: CampaignConfig = CampaignConfig(), *, batched: bool = False,
           device=None) -> List[Tuple[Mapping[str, Any], CampaignResult]]:
     """One campaign a grid point: make_trial(**point) builds the point's
-    trial function, and point i runs under derive_seed(seed, i), so points
-    are independent and replayable one by one."""
-    return [(pt, run_campaign(make_trial(**pt), derive_seed(seed, i), cfg,
+    trial function, and point i runs under derive_seed(seed, i) (for a key,
+    fold_in(key, i)), so points are independent and replayable one by
+    one."""
+    return [(pt, run_campaign(make_trial(**pt), child_seed(seed, i), cfg,
                               batched=batched, name=_label(pt),
                               device=device))
             for i, pt in enumerate(points)]
@@ -212,8 +229,8 @@ def sweep_schemes(make_trial: Callable, schemes: Sequence, seed: int,
     """One campaign a protection scheme, labelled `scheme.name`: the one
     code path that walks the `repro_torch.reliability` design space.
     make_trial(scheme) builds the scheme's trial function; scheme i runs
-    under derive_seed(seed, i)."""
-    return [(scheme, run_campaign(make_trial(scheme), derive_seed(seed, i),
+    under derive_seed(seed, i) (for a key, fold_in(key, i))."""
+    return [(scheme, run_campaign(make_trial(scheme), child_seed(seed, i),
                                   cfg, batched=batched, name=scheme.name,
                                   device=device))
             for i, scheme in enumerate(schemes)]

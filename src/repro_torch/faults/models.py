@@ -3,7 +3,18 @@ word, pytree, boolean-state and packed-trial surfaces, `TransientBitFlips`,
 `TransientGateFaults`, `StuckAtFaults`, `RetentionDrift`,
 `CompositeFault`, `pack_flip_mask` and `inject_bit_flips`).
 
-Sampling takes an explicit `torch.Generator`.  The reference draws a dense
+Sampling takes an explicit `torch.Generator` or a `core.prng` key.
+
+With a key, every surface makes exactly the reference's draws: the same
+splits (one per leaf, one per `CompositeFault` member), the same per-gate
+`fold_in(key, gid)` in `gate_lane_masks`, and the same dense Bernoulli and
+uniform planes, computed chunk by chunk (`prng.word_plane`,
+`prng.lane_plane`) and packed into words, so the masks and lanes equal
+the reference's bit for bit and no plane exists whole.  That route draws
+every bit: about 175 int64 passes an element, so an arena-scale plane is
+not on the card's default path.
+
+With a generator, the port samples sparsely.  The reference draws a dense
 (n_words, 32) Bernoulli plane per leaf; at phi3-mini width the largest leaf
 (w_up, 1.6e9 words) would need 5e10 booleans, so `TransientBitFlips`
 samples sparsely instead: a binomial flip count per leaf, then that many
@@ -16,10 +27,16 @@ Binomial(n_bits, p0 + p1) count of distinct defective positions, each
 stuck-at-1 with probability p1 / (p0 + p1), else stuck-at-0, then those
 bits cleared or set in place (the reference draws a uniform per bit: 1.2e11
 draws for one phi3-mini arena copy).  `CompositeFault` applies its members
-in order from one generator where the reference splits keys.  That is the
-same distribution, not the same bits as the reference's threefry stream;
-the tests feed JAX's own masks (`StuckAtFaults.stick_bits`,
-`stuck_word_mask`, `lane_masks_from`, `CompositeFault.compose_lane_masks`).
+in order from one generator where the reference splits keys.  The bits
+differ from the reference's, and so does the rate below 2**-23: the
+reference's Bernoulli compares a 23-bit uniform with p rounded to float32,
+so it flips at ``ceil(float32(p) * 2**23) / 2**23`` (2**-23 at p = 1e-9,
+and `StuckAtFaults(p/2, p/2)` there gives stuck-at-0 cells at 2**-23 and
+no stuck-at-1 cell), where the generator route keeps the nominal p that
+the paper and the configs mean.  The key route reproduces the reference's
+rate.  Tests of the generator route feed JAX's own masks
+(`StuckAtFaults.stick_bits`, `stuck_word_mask`, `lane_masks_from`,
+`CompositeFault.compose_lane_masks`).
 
 Where the reference returns a corrupted copy, `corrupt` flips the bits of
 the given tree in place (its leaves are views of an arena) and returns it.
@@ -34,7 +51,7 @@ from typing import Any, Optional, Tuple
 
 import torch
 
-from ..core import arena
+from ..core import arena, prng
 from ..core import tree as T
 from ..core.bitops import PACK, as_i32, pack_trials
 
@@ -58,6 +75,21 @@ def pack_flip_mask(flips: torch.Tensor) -> torch.Tensor:
     shifts = torch.arange(arena.BLOCK, dtype=torch.int64,
                           device=flips.device)
     return as_i32((flips.to(torch.int64) << shifts).sum(-1))
+
+
+def _gate_keys(key: torch.Tensor, n_gates: int) -> torch.Tensor:
+    """Gate g's key, (n_gates, 2): `fold_in(key, g)` for one key (the
+    reference's netlist engines); a (n_gates, 2) batch is taken as is."""
+    if key.dim() == 2:
+        return key
+    return prng.fold_in(key, torch.arange(n_gates, device=key.device))
+
+
+def _ones_like(flip: torch.Tensor) -> torch.Tensor:
+    """An all-ones keep mask the shape of `flip`: a broadcast view, which
+    the engines read as "no AND" (`scheduler._all_ones_broadcast`)."""
+    return torch.full((1, 1), -1, dtype=torch.int32,
+                      device=flip.device).expand(*flip.shape)
 
 
 def _bits_view(x: torch.Tensor) -> torch.Tensor:
@@ -132,7 +164,8 @@ def flip_random_bits_(bits: torch.Tensor, p: float,
 
 class FaultModel:
     """Abstract error process over stored bits.  Subclasses are frozen
-    dataclasses; sampling draws from the caller's generator."""
+    dataclasses; sampling draws from the caller's generator, or from a
+    `core.prng` key as the reference does (module doc)."""
 
     @property
     def permanent(self) -> bool:
@@ -153,6 +186,8 @@ class FaultModel:
 
     def corrupt_bits(self, bits: torch.Tensor, generator: torch.Generator,
                      dt: float = 1.0) -> torch.Tensor:
+        if prng.is_key(generator):       # a keyed draw runs where the data is
+            generator = generator.to(bits.device)
         return bits ^ self.bit_flips(generator, tuple(bits.shape),
                                      dt).to(bits.device)
 
@@ -168,7 +203,9 @@ class FaultModel:
         may be a broadcast view.  Padding lanes are don't-care.  The
         netlist engines of the port all draw their gate faults here, so
         for one generator state they corrupt the same (gate, trial)
-        pairs."""
+        pairs.  With a key, gate g draws the reference's `gate_lane_masks`
+        under `fold_in(key, g)` (or under row g of a (n_gates, 2) batch of
+        keys): the subclasses' own."""
         flip = pack_trials(self.bit_flips(generator, (trials, n_gates), dt))
         return torch.full_like(flip.T, -1), flip.T.contiguous()
 
@@ -197,8 +234,14 @@ class FaultModel:
     def corrupt(self, params: Any, generator: torch.Generator,
                 dt: float = 1.0) -> Any:
         """Corrupt every leaf of a tree in place (leaf order = the
-        reference's flatten order) and return the tree."""
-        for x in T.leaves(params):
+        reference's flatten order) and return the tree.  A key is split
+        once per leaf, as the reference splits it."""
+        leaves = T.leaves(params)
+        if prng.is_key(generator):
+            for x, k in zip(leaves, prng.split(generator, len(leaves))):
+                self.corrupt_leaf_(x, k, dt)
+            return params
+        for x in leaves:
             self.corrupt_leaf_(x, generator, dt)
         return params
 
@@ -212,7 +255,10 @@ class FaultModel:
              dt: float = 1.0) -> None:
         """Draw what `corrupt(params)` draws and apply none of it: a mesh
         rank that does not hold a copy still advances the run's generator
-        past that copy's faults, so no draw depends on the rank."""
+        past that copy's faults, so no draw depends on the rank.  A key
+        has no state to advance."""
+        if prng.is_key(generator):
+            return
         for x in T.leaves(params):
             self.skip_leaf(x, generator, dt)
 
@@ -226,6 +272,8 @@ class _IidFlips(FaultModel):
         raise NotImplementedError
 
     def bit_flips(self, generator, shape, dt: float = 1.0):
+        if prng.is_key(generator):
+            return prng.bernoulli(generator, self._rate(dt), shape)
         plane = torch.zeros(math.prod(shape), dtype=torch.bool,
                             device=generator.device)
         pos = _distinct_positions(plane.numel(), self._rate(dt), generator)
@@ -234,11 +282,17 @@ class _IidFlips(FaultModel):
         return plane.reshape(shape)
 
     def word_mask(self, generator, words, dt: float = 1.0):
+        if prng.is_key(generator):
+            t = prng.threshold(self._rate(dt))
+            return prng.word_plane(generator.to(words.device), words.numel(),
+                                   lambda m: m < t).view(words.shape)
         mask = torch.zeros_like(words)
         flip_random_bits_(mask.view(-1), self._rate(dt), generator)
         return mask
 
     def corrupt_leaf_(self, x, generator, dt: float = 1.0) -> None:
+        if prng.is_key(generator):
+            return super().corrupt_leaf_(x, generator, dt)
         flip_random_bits_(_bits_view(x), self._rate(dt), generator)
 
     def skip_leaf(self, x, generator, dt: float = 1.0) -> None:
@@ -251,7 +305,13 @@ class _IidFlips(FaultModel):
                         dt: float = 1.0):
         """Sparse: one Binomial(n_gates * trials, p) count over the whole
         (gate, trial) plane, then that many distinct (gate, trial) pairs;
-        keep is all ones (a broadcast view)."""
+        keep is all ones (a broadcast view).  With a key, each gate's dense
+        plane under fold_in(key, g), as the reference draws it."""
+        if prng.is_key(generator):
+            t = prng.threshold(self._rate(dt))
+            flip = prng.lane_plane(_gate_keys(generator, n_gates), trials,
+                                   lambda m: m < t)
+            return _ones_like(flip), flip
         tw = -(-trials // PACK)
         dev = generator.device
         flip = torch.zeros((n_gates, tw), dtype=torch.int32, device=dev)
@@ -260,9 +320,7 @@ class _IidFlips(FaultModel):
         if pos is not None:
             g, t = pos // trials, pos % trials
             _xor_bits_(flip.view(-1), g * tw + t // PACK, t % PACK)
-        keep = torch.full((1, 1), -1, dtype=torch.int32,
-                          device=dev).expand(n_gates, tw)
-        return keep, flip
+        return _ones_like(flip), flip
 
 
 @dataclasses.dataclass(frozen=True)
@@ -327,10 +385,21 @@ class StuckAtFaults(FaultModel):
                        device=generator.device, dtype=torch.float64)
         return pos, u < self.p_stuck1 / p
 
+    def _planes(self, m: torch.Tensor):
+        """The reference's (sa0, sa1) of 23-bit uniform mantissas:
+        ``u < p0`` and ``p0 <= u < p0 + p1``, p rounded to float32."""
+        t0 = prng.threshold(self.p_stuck0)
+        t01 = prng.threshold(self.p_stuck0 + self.p_stuck1)
+        return m < t0, (m >= t0) & (m < t01)
+
     def stuck_masks(self, generator: torch.Generator,
                     shape: Tuple[int, ...]):
         """(sa0, sa1) bool defect maps of `shape` on the generator's
-        device; disjoint by construction."""
+        device; disjoint by construction.  With a key, the reference's
+        maps from one uniform plane."""
+        if prng.is_key(generator):
+            b = prng.bits(generator, shape)
+            return self._planes(b >> 9)
         n = math.prod(shape)
         sa0 = torch.zeros(n, dtype=torch.bool, device=generator.device)
         sa1 = torch.zeros_like(sa0)
@@ -374,6 +443,10 @@ class StuckAtFaults(FaultModel):
         _stick_bits_(flat, pos // width, pos % width, one)
 
     def corrupt_bits(self, bits, generator, dt: float = 1.0):
+        if prng.is_key(generator):
+            sa0, sa1 = self.stuck_masks(generator.to(bits.device),
+                                        tuple(bits.shape))
+            return self.stick_bits(bits, sa0, sa1)
         out = bits.clone().reshape(-1)
         found = self._defects(out.numel(), generator)
         if found is not None:
@@ -382,14 +455,22 @@ class StuckAtFaults(FaultModel):
         return out.reshape(bits.shape)
 
     def corrupt_words(self, words, generator, dt: float = 1.0):
+        if prng.is_key(generator):
+            return words ^ self.word_mask(generator, words, dt)
         out = words.clone()
         self._stick_flat_(out.view(-1), generator)
         return out
 
     def word_mask(self, generator, words, dt: float = 1.0):
+        if prng.is_key(generator):
+            sa0w, sa1w = (w.view(words.shape) for w in prng.word_plane(
+                generator.to(words.device), words.numel(), self._planes))
+            return (words & sa0w) | (~words & sa1w)
         return self.corrupt_words(words, generator, dt) ^ words
 
     def corrupt_leaf_(self, x, generator, dt: float = 1.0) -> None:
+        if prng.is_key(generator):
+            return super().corrupt_leaf_(x, generator, dt)
         self._stick_flat_(_bits_view(x), generator)
 
     def skip_leaf(self, x, generator, dt: float = 1.0) -> None:
@@ -398,6 +479,11 @@ class StuckAtFaults(FaultModel):
 
     def gate_lane_masks(self, generator, n_gates: int, trials: int,
                         dt: float = 1.0):
+        if prng.is_key(generator):
+            # (v & ~sa0) | sa1 == (v & ~(sa0 | sa1)) ^ sa1: disjoint maps
+            sa0w, sa1w = prng.lane_plane(_gate_keys(generator, n_gates),
+                                         trials, self._planes)
+            return ~(sa0w | sa1w), sa1w
         tw = -(-trials // PACK)
         dev = generator.device
         stuck = torch.zeros((n_gates, tw), dtype=torch.int32, device=dev)
@@ -416,8 +502,8 @@ class StuckAtFaults(FaultModel):
 @dataclasses.dataclass(frozen=True)
 class CompositeFault(FaultModel):
     """Sequential composition: the members corrupt in order, each drawing
-    from the same generator after the one before it (the reference gives
-    each member an independent subkey)."""
+    from the same generator after the one before it.  A key is split once
+    per member, as the reference splits it."""
 
     models: Tuple[FaultModel, ...] = ()
 
@@ -426,21 +512,24 @@ class CompositeFault(FaultModel):
         return bool(self.models) and all(m.permanent for m in self.models)
 
     def corrupt_bits(self, bits, generator, dt: float = 1.0):
-        for m in self.models:
-            bits = m.corrupt_bits(bits, generator, dt)
+        for m, g in zip(self.models,
+                        prng.streams(generator, len(self.models))):
+            bits = m.corrupt_bits(bits, g, dt)
         return bits
 
     def corrupt_words(self, words, generator, dt: float = 1.0):
-        for m in self.models:
-            words = m.corrupt_words(words, generator, dt)
+        for m, g in zip(self.models,
+                        prng.streams(generator, len(self.models))):
+            words = m.corrupt_words(words, g, dt)
         return words
 
     def word_mask(self, generator, words, dt: float = 1.0):
         return self.corrupt_words(words, generator, dt) ^ words
 
     def corrupt_leaf_(self, x, generator, dt: float = 1.0) -> None:
-        for m in self.models:
-            m.corrupt_leaf_(x, generator, dt)
+        for m, g in zip(self.models,
+                        prng.streams(generator, len(self.models))):
+            m.corrupt_leaf_(x, g, dt)
 
     def skip_leaf(self, x, generator, dt: float = 1.0) -> None:
         # a member after a stuck-at member sees the stuck bits, but no
@@ -463,15 +552,21 @@ class CompositeFault(FaultModel):
 
     def gate_lane_masks(self, generator, n_gates: int, trials: int,
                         dt: float = 1.0):
+        if prng.is_key(generator):       # member j: split(fold_in(key, g))[j]
+            keys = prng.split(_gate_keys(generator, n_gates),
+                              len(self.models))
+            sources = [keys[:, j] for j in range(len(self.models))]
+        else:
+            sources = [generator] * len(self.models)
         return self.compose_lane_masks(
-            (m.gate_lane_masks(generator, n_gates, trials, dt)
-             for m in self.models),
+            (m.gate_lane_masks(g, n_gates, trials, dt)
+             for m, g in zip(self.models, sources)),
             n_gates, -(-trials // PACK), generator.device)
 
 
 def inject_bit_flips(params: Any, generator: torch.Generator,
                      p_bit: float) -> Any:
     """Flip each stored bit of every leaf with probability p_bit, in place
-    (`TransientBitFlips(p_bit).corrupt`); returns the tree.  The reference
-    returns a corrupted copy."""
+    (`TransientBitFlips(p_bit).corrupt`, from a generator or a key); returns
+    the tree.  The reference returns a corrupted copy."""
     return TransientBitFlips(p_bit).corrupt(params, generator)

@@ -287,7 +287,9 @@ class GenerationEngine:
 
         Applies one exposure interval of `fault` to every held data copy
         (copies in order 0, 1, 2, leaves in flatten order, all drawn from
-        `generator`), then the scheme's storage-side protection.  Returns
+        `generator`; for a `core.prng` key, copy i under ``fold_in(key,
+        100 + i)``, the reference's convention), then the scheme's
+        storage-side protection.  Returns
         (store, prep telemetry): the store is a parameter tree of views
         into its arena -- (3, *shape) leaves for TMR and Compose.  On a
         mesh it is this rank's `launch.placement.ShardedStore`, and
@@ -301,16 +303,17 @@ class GenerationEngine:
         if self.mesh is not None:
             return self._prepare_mesh(params, generator, fault, dt, donate)
 
-        def corrupt(w: torch.Tensor) -> None:
+        def corrupt(w: torch.Tensor, i: int = 0) -> None:
             if fault is not None:
-                fault.corrupt(arena.unpack(w, spec), generator, dt)
+                fault.corrupt(arena.unpack(w, spec),
+                              PL.copy_source(generator, i), dt)
 
         def copies() -> torch.Tensor:
             w3 = torch.empty((3, spec.n_words), dtype=torch.int32,
                              device=words.device)
             for i in range(3):
                 w3[i].copy_(words)
-                corrupt(w3[i])
+                corrupt(w3[i], i)
             return w3
 
         def ecc_telem(counts):

@@ -56,7 +56,7 @@ from typing import Any, List, Optional, Sequence, Tuple
 
 import torch
 
-from ..core import arena
+from ..core import arena, prng
 from ..core import tree as T
 from ..kernels.sharded import BLOCK, block_range, scrub_joined
 from ..pshard import shard_slices, spec_axes
@@ -134,6 +134,15 @@ def _store(local: torch.Tensor, lspec, global_spec, specs, mesh, held):
                                mesh=mesh))
 
 
+def copy_source(generator, i: int):
+    """Copy i's fault source when a store is built: the one generator,
+    drawn in copy order, or ``fold_in(key, 100 + i)`` for a `core.prng`
+    key (the reference engine's convention)."""
+    if prng.is_key(generator):
+        return prng.fold_in(generator, 100 + i)
+    return generator
+
+
 def build_store(words: torch.Tensor, global_spec: arena.ArenaSpec,
                 specs: Sequence[tuple], mesh, *, copies: int,
                 held: Optional[Tuple[int, ...]], fault=None,
@@ -171,13 +180,15 @@ def build_store(words: torch.Tensor, global_spec: arena.ArenaSpec,
     for j in range(copies):
         if j not in held_set:
             if fault is not None:
-                fault.skip(arena.unpack(words, global_spec), generator, dt)
+                fault.skip(arena.unpack(words, global_spec),
+                           copy_source(generator, j), dt)
             continue
         if not fresh and work is not words:
             work.copy_(words)
         fresh = False
         if fault is not None:
-            fault.corrupt(arena.unpack(work, global_spec), generator, dt)
+            fault.corrupt(arena.unpack(work, global_spec),
+                          copy_source(generator, j), dt)
         if ecc is not None:
             # this rank's range scrubbed by the kernel, the group's
             # corrections swapped into the whole working arena

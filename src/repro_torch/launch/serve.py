@@ -73,6 +73,7 @@ import numpy as np
 import torch
 
 from ..configs import get_config, list_archs
+from ..core import prng
 from ..device import resolve_device
 from ..faults import (FaultModel, RetentionDrift, StuckAtFaults,
                       TransientBitFlips)
@@ -130,14 +131,32 @@ def _write_records(tracer: Tracer, record: Dict[str, Any], kind: str,
         _log(f"[serve] metrics jsonl -> {metrics_path}")
 
 
-def make_inputs(cfg: ModelConfig, batch: int, prompt_len: int, seed: int,
+def make_inputs(cfg: ModelConfig, batch: int, prompt_len: int, seed,
                 device) -> Dict[str, Any]:
     """Random-init parameters (into an arena), prompt tokens and the stub
     modality inputs, drawn in that order from one generator seeded with
     `seed` on `device`: ``modality`` holds vis_emb (batch, vis_tokens,
     vis_dim) for the vlm family, enc_emb (batch, prompt_len, d_model) for
-    encdec (standard normal, fp32), and nothing for the others."""
+    encdec (standard normal, fp32), and nothing for the others.
+
+    `seed` may be a `core.prng` key instead: each draw then takes that one
+    key, unsplit, as the reference's serve driver does (`materialize`,
+    `randint` for the prompts, `normal` for the modality inputs)."""
     device = resolve_device(device)
+    if prng.is_key(seed):
+        key = seed.to(device)
+        params = P.materialize(T.model_specs(cfg), key, cfg.param_dtype,
+                               device)
+        modality = {}
+        if cfg.family == "vlm":
+            modality["vis_emb"] = prng.normal(
+                key, (batch, cfg.vis_tokens, cfg.vis_dim))
+        if cfg.family == "encdec":
+            modality["enc_emb"] = prng.normal(
+                key, (batch, prompt_len, cfg.d_model))
+        return {"params": params, "modality": modality,
+                "tokens": prng.randint(key, (batch, prompt_len), 0,
+                                       cfg.vocab)}
     g = torch.Generator(device=device).manual_seed(seed)
     params = P.materialize(T.model_specs(cfg), g, cfg.param_dtype, device)
     tokens = torch.randint(0, cfg.vocab, (batch, prompt_len), generator=g,

@@ -10,7 +10,10 @@ mamba2-130m.  The vlm and encdec families get their stub modality input
 (vis_emb (batch, vis_tokens, vis_dim), enc_emb (batch, seq, d_model),
 standard normal) drawn anew each step from a generator seeded with
 ``derive_seed(seed, step)``, the counterpart of the reference's
-``fold_in(key, step)``.
+``fold_in(key, step)``.  `build(..., key=prng.key(seed))` makes the
+reference's draws instead: the params from that key, the modality inputs
+under ``fold_in(key, step)`` and the loop's faults from its keys
+(`LoopConfig.inject_keyed`).
 """
 from __future__ import annotations
 
@@ -22,6 +25,7 @@ import torch
 
 from ..checkpoint import Checkpointer
 from ..configs import get_config, list_archs
+from ..core import prng
 from ..core.seeds import derive_seed
 from ..data.synthetic import SyntheticLM
 from ..device import resolve_device
@@ -38,10 +42,12 @@ __all__ = ["build", "main"]
 
 
 def build(args, tracer: Tracer = NULL_TRACER,
-          cfg: Optional[ModelConfig] = None):
+          cfg: Optional[ModelConfig] = None,
+          key: Optional[torch.Tensor] = None):
     """(cfg, loop, n_params) for parsed CLI args.  `cfg` replaces the
     `--arch` / `--smoke` config (e.g. one cut in depth); the compute dtype
-    is still `--compute-dtype`."""
+    is still `--compute-dtype`.  A `core.prng` key draws as the reference's
+    `build` does from ``PRNGKey(seed)`` (module doc)."""
     device = resolve_device(args.device)
     if cfg is None:
         cfg = get_config(args.arch)
@@ -49,7 +55,10 @@ def build(args, tracer: Tracer = NULL_TRACER,
             cfg = cfg.smoke()
     cfg = cfg.replace(compute_dtype=args.compute_dtype)
 
-    g = torch.Generator(device=device).manual_seed(args.seed)
+    if key is not None:
+        key = key.to(device)
+    g = key if key is not None else \
+        torch.Generator(device=device).manual_seed(args.seed)
     params = P.materialize(TR.model_specs(cfg), g, args.param_dtype, device)
     n_params = P.count_params(TR.model_specs(cfg))
 
@@ -70,7 +79,9 @@ def build(args, tracer: Tracer = NULL_TRACER,
                                      cfg.vis_dim)),
                  "encdec": ("enc_emb", (args.batch, args.seq, cfg.d_model)),
                  }.get(cfg.family)
-        if shape is not None:
+        if shape is not None and key is not None:
+            b[shape[0]] = prng.normal(prng.fold_in(key, step), shape[1])
+        elif shape is not None:
             g = torch.Generator(device=device).manual_seed(
                 derive_seed(args.seed, step))
             b[shape[0]] = torch.randn(shape[1], generator=g, device=device)
@@ -82,6 +93,7 @@ def build(args, tracer: Tracer = NULL_TRACER,
                           scrub_every=args.ecc_scrub_every,
                           log_every=args.log_every,
                           inject_p_bit=args.inject_p_bit,
+                          inject_keyed=key is not None,
                           scheme=parse_scheme(args.scheme))
     loop = TrainLoop(train_step, state, batch_at, loop_cfg, ckpt=ckpt,
                      tracer=tracer)

@@ -17,7 +17,7 @@ from typing import Any, Optional, Tuple
 import numpy as np
 import torch
 
-from ..core import arena
+from ..core import arena, prng
 from ..core import tree as T
 
 __all__ = ["Spec", "layout", "materialize", "abstractify", "count_params",
@@ -62,21 +62,34 @@ def materialize(tree: Any, generator: torch.Generator,
     Same distributions as the reference (normal(0, scale); "scaled" is
     normal / sqrt(shape[0]), the reference's fan-in rule, which for stacked
     layer leaves is the layer count), drawn from `generator`, one leaf
-    after another in flatten order."""
+    after another in flatten order.  `generator` may be a `core.prng` key:
+    leaf i then takes the reference's draw under ``split(key, n)[i]``,
+    scaled in float32 as the reference scales it: its bits."""
     device = torch.device(device) if device is not None else generator.device
     spec = layout(tree, dtype)
     words = torch.zeros(spec.n_words, dtype=torch.int32, device=device)
     params = arena.unpack(words, spec)
-    for x, s in zip(T.leaves(params), T.leaves(tree)):
+    leaves, specs = T.leaves(params), T.leaves(tree)
+    keys = prng.split(generator, len(specs)) if prng.is_key(generator) \
+        else [None] * len(specs)
+    for x, s, k in zip(leaves, specs, keys):
         if s.init == "zeros":
             continue
         if s.init == "ones":
             x.fill_(1)
         elif s.init == "scaled":
             fan_in = s.shape[0] if len(s.shape) > 1 else max(s.shape[0], 1)
-            x.normal_(0.0, 1.0 / fan_in ** 0.5, generator=generator)
-        else:
+            if k is None:
+                x.normal_(0.0, 1.0 / fan_in ** 0.5, generator=generator)
+            else:   # the float32 root, exact; a tensor divisor, since CUDA
+                # divides by a host scalar through its reciprocal
+                root = torch.tensor(float(np.float32(np.sqrt(fan_in))),
+                                    device=x.device)
+                x.copy_(prng.normal(k, s.shape) / root)
+        elif k is None:
             x.normal_(0.0, s.scale, generator=generator)
+        else:
+            x.copy_(prng.normal(k, s.shape) * float(np.float32(s.scale)))
     return params
 
 

@@ -30,7 +30,7 @@ from typing import Any, Optional, Tuple
 
 import torch
 
-from ..core import arena
+from ..core import arena, prng
 from ..core import tree as T
 from ..core.bitops import as_u64, popcount32
 from ..core.reliability import ScrubReport
@@ -204,7 +204,9 @@ class Scheme:
     def corrupt_store(self, prot: Protected, model, generator: torch.Generator,
                       dt: float = 1.0) -> Protected:
         """Inject storage faults into every held data copy (payload first,
-        then TMR copies), in place; parity tables are left untouched."""
+        then TMR copies), in place; parity tables are left untouched.
+        `generator` may be a `core.prng` key: the TMR copies then take
+        ``split(key, 3)``, as the reference's do."""
         model.corrupt(prot.payload, generator, dt)
         return prot
 
@@ -525,8 +527,9 @@ class Tmr(Scheme):
 
     def corrupt_store(self, prot, model, generator, dt: float = 1.0):
         c1, c2 = prot.redundancy
-        for copy in (prot.payload, c1, c2):
-            model.corrupt(copy, generator, dt)
+        for copy, g in zip((prot.payload, c1, c2),
+                           prng.streams(generator, 3)):
+            model.corrupt(copy, g, dt)
         return prot
 
     def wrap(self, serve_fn, sequential: bool = False):
@@ -644,8 +647,9 @@ class Compose(Scheme):
 
     def corrupt_store(self, prot, model, generator, dt: float = 1.0):
         (c1, c2), _ = prot.redundancy
-        for copy in (prot.payload, c1, c2):
-            model.corrupt(copy, generator, dt)
+        for copy, g in zip((prot.payload, c1, c2),
+                           prng.streams(generator, 3)):
+            model.corrupt(copy, g, dt)
         return prot
 
     def overhead(self) -> CostReport:

@@ -21,8 +21,10 @@ arena -- which the train step updates in place and `Scheme.refresh`
 re-protects in place.  Injected faults are drawn from a `torch.Generator`
 on the params' device, seeded with ``derive_seed(inject_seed + step,
 total_restores)`` for transient models and with `inject_seed` for
-permanent ones: the reference's key discipline, the same distribution with
-other bits.  Scrub telemetry performs ONE host fetch per scrub (the
+permanent ones: the reference's key discipline, with other bits.  With
+``inject_keyed`` they are the reference's own draws: `core.prng` keys
+``PRNGKey(inject_seed)`` (permanent) or ``fold_in(PRNGKey(inject_seed +
+step), total_restores)``, on the params' device.  Scrub telemetry performs ONE host fetch per scrub (the
 counter triple); an optional `eval_fn` hook (e.g.
 `launch.engine.make_eval_hook`) fires every `eval_every` steps on the
 post-scrub params, its results kept on the device in `eval_history`.
@@ -37,7 +39,7 @@ import numpy as np
 import torch
 
 from ..checkpoint import Checkpointer
-from ..core import arena
+from ..core import arena, prng
 from ..core import tree as T
 from ..core.analytics import ScrubTrajectory
 from ..core.seeds import derive_seed
@@ -61,6 +63,9 @@ class LoopConfig:
                                   # eval_fn fires every this many steps
     inject_p_bit: float = 0.0     # simulated soft-error rate per scrub interval
     inject_seed: int = 0
+    inject_keyed: bool = False    # draw the reference's faults from a
+                                  # core.prng key (`_inject_key`) instead
+                                  # of the generator's sparse sampler
     fault_model: Optional[FaultModel] = None  # overrides inject_p_bit: any
                                   # repro_torch.faults model drives injection
     scheme: Optional[Scheme] = None  # protection scheme; None ->
@@ -195,6 +200,14 @@ class TrainLoop:
                                self.total_restores)
         return torch.Generator(device=self._device()).manual_seed(seed)
 
+    def _inject_key(self, model: FaultModel) -> torch.Tensor:
+        """The reference's `_inject_key`: a stable key for a permanent
+        model, else the step's key with the restore count folded in."""
+        if model.permanent:
+            return prng.key(self.cfg.inject_seed, self._device())
+        return prng.fold_in(prng.key(self.cfg.inject_seed + self.step,
+                                     self._device()), self.total_restores)
+
     def _resolved_model(self) -> Optional[FaultModel]:
         model = self.cfg.fault_model
         if model is None and self.cfg.inject_p_bit > 0:
@@ -218,8 +231,9 @@ class TrainLoop:
         # each copy's faults in turn from the generator, so TMR double
         # faults and uncorrectable words are reachable); dt=1: one model
         # time unit == one scrub interval
-        return self.scheme.corrupt_store(self.protected, model,
-                                         self._inject_generator(model),
+        source = self._inject_key(model) if self.cfg.inject_keyed \
+            else self._inject_generator(model)
+        return self.scheme.corrupt_store(self.protected, model, source,
                                          dt=1.0)
 
     def _scrub(self) -> bool:

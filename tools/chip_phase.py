@@ -19,6 +19,8 @@ after a change to one phase's code:
                                       # steps (run_dryrun_path: phase 15
                                       # (a)-(b); (c) runs inside 14, (d)
                                       # inside 13)
+    python3 tools/chip_phase.py 16    # the keyed draws against the CPU
+                                      # and jax's digests (run_prng_path)
 
 from the repo root.
 """
@@ -37,7 +39,8 @@ import chip_smoke as C  # noqa: E402  (puts src/ on the path)
 PHASES = {"10": C.run_train_path, "11": C.run_zoo_path,
           "12": C.run_family_path, "13": C.run_mesh_path,
           "13cd": C.run_mesh_one_shot, "14": C.run_train_mesh_path,
-          "14d": C.run_train_mesh_four, "15": C.run_dryrun_path}
+          "14d": C.run_train_mesh_four, "15": C.run_dryrun_path,
+          "16": C.run_prng_path}
 
 
 def main(argv=None) -> int:
