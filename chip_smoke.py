@@ -277,6 +277,23 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      same key; (d) a keyed `materialize` of that `smoke()` model on the
      card equal to the CPU's, bit for bit.  Each
      time is printed with the card's name and power limit.
+ 17. experts computed where they live and the store built from block
+     ranges (`run_expert_mesh_path`; `tools/chip_phase.py 17`): the keyed
+     fill rate of a 2^26-word range, then (a) phi3.5-moe at full width, 3
+     of 32 layers, on four gloo ranks sharing the card as 4x1 with its
+     experts over data (`arch_rules(arch, extra={"expert": ("data",),
+     "model_dim": ()})`), batch 4 x 256, gen 32, flash, under `off` and
+     `ecc` at p_bit 1e-9: each rank builds its store from its block range
+     of a keyed arena (`make_inputs(lazy=True)`), never the whole; gates:
+     tokens and counters equal one process's that holds the whole batch
+     and forms the same four token groups from the same key, first-step
+     logits within 1e-3 of the largest (printed), corrections > 0 and
+     uncorrectable 0, the largest storage each rank's build allocated
+     under the whole arena's (printed).  (b) runs on four cards alone
+     (`tools/chip_phase.py 17b`): llama4-maverick at full width, 2 of 48
+     layers, 4x1 over nccl under its serving rules, `off` / `ecc` /
+     `hsiao`, with the dry run's exchanges and generate peak, the strict
+     guard and a MoE layer recomputed from each rank's shard in turn.
 
 The second-to-last line is a JSON object of per-kernel numbers; the last is
 {"ok": true, "device": {...}}.  Times are CUDA-event means on this card
@@ -408,14 +425,19 @@ def main() -> int:
     torch.cuda.empty_cache()
     # 16. the keyed draws (its keyed stores' launches in its count)
     keyed = run_prng_path(torch, card, dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    # 17. experts where they live, the store from block ranges (its ranks'
+    # launches in its count; (b) needs four cards: tools/chip_phase.py 17b)
+    experts = run_expert_mesh_path(torch, card, dev)
     paths = (launches, server, netlist, campaigns, serve_rest, train, zoo,
-             families, mesh, keyed)
+             families, mesh, keyed, experts)
     for name, row in rows.items():
         row["launches"] = sum(p.get(name, 0) for p in paths)
         check(row["launches"] > 0, f"{name} never launched on the main path")
     log("launches by path (one-shot ecc+tmr-parallel / server, 4 runs / "
         "netlist / campaigns / phase 9 / train / zoo / families / mesh / "
-        "keyed): "
+        "keyed / experts): "
         + ", ".join(f"{name} " + "/".join(str(p.get(name, 0)) for p in paths)
                     for name in rows))
 
@@ -2899,6 +2921,7 @@ P4_PEAK_RATIO = {"off": 1.05, "ecc": 2.10, "ecc+tmr-parallel": 4.11}
 #: KV, hd), bf16, causal
 P11_FLASH = (("phi3.5-moe prefill", 4, 256, 32, 8, 128),
              ("phi3.5-moe admission", 1, 256, 32, 8, 128),
+             ("llama4-maverick prefill on a 4x1 rank", 1, 256, 40, 8, 128),
              ("qwen2.5-14b prefill", 4, 256, 40, 8, 128),
              ("nemotron-4-15b prefill", 4, 256, 48, 8, 128),
              ("deepseek-67b prefill", 4, 256, 64, 8, 128))
@@ -4305,9 +4328,9 @@ def run_mesh_one_shot(torch, card, dev):
     total = {}
     log(f"phase 13 (c) at {P13_DEPTH} layers: a copy is {copy:.2f} GB; "
         f"reckoned peaks alone off {1.05 * copy:.1f} / ecc "
-        f"{2.10 * copy:.1f} GB; on a mesh of n ranks each rank holds the "
-        f"params, a working copy and 1/n of a copy: about "
-        f"{2.2 * copy:.1f} GB a rank + its context")
+        f"{2.10 * copy:.1f} GB; on a 2x2 mesh each rank holds the "
+        f"params, its block range and its slice of every leaf (a quarter "
+        f"each): about {1.6 * copy:.1f} GB a rank + its context")
     torch.cuda.empty_cache()
     knobs = p13_knobs()
     alone = p13_one_shot(dev, None, cfg, runs, P13_GEN_C, True, knobs)
@@ -5550,6 +5573,499 @@ def run_prng_path(torch, card, dev):
 
     log(f"phase 16: {time.perf_counter() - t_path:.1f} s ({card})")
     return counts
+
+
+# ----------------------------------------------------------------------------
+# 17. experts computed where they live, the store built from block ranges
+# ----------------------------------------------------------------------------
+
+#: (a): phi3.5-moe at full width, (arch, layers of 32), four gloo ranks
+#: sharing the card as 4x1 with experts over data
+P17A = ("phi3.5-moe-42b-a6.6b", 3)
+#: (b): llama4-maverick at full width, one dense + MoE pair of its 48
+#: layers, 4x1 over nccl on four cards under its serving rules
+P17B = ("llama4-maverick-400b-a17b", 2)
+P17_BATCH, P17_PROMPT, P17_GEN = 4, 256, 32
+P17_P_BIT = 1e-9
+P17_SEED = 17
+#: bound on |meshed - one process| first-step logits and on (b)'s MoE
+#: layer, as a share of the one process's largest |value|: the ranks run
+#: the same products on the same per-expert shapes, so equality to the
+#: bit is expected and the difference is printed
+P17_REL = 1e-3
+#: a rank's card
+P17_CARD_BYTES = 80e9
+#: smoke configs (a CPU rehearsal; never on the card)
+P17_SMOKE = False
+
+
+def p17_config(arch: str, depth: int, flash: bool = True):
+    from repro_torch.configs import get_config
+    cfg = get_config(arch)
+    cfg = cfg.smoke() if P17_SMOKE else cfg.replace(n_layers=depth)
+    return cfg.replace(attention_impl="pallas") if flash else cfg
+
+
+def p17_knobs(strict: bool, moe_check: bool) -> dict:
+    """What the rank function takes from this module's settings (a
+    spawned rank imports the module afresh)."""
+    return {"p_bit": P17_P_BIT, "seed": P17_SEED, "batch": P17_BATCH,
+            "prompt": P17_PROMPT, "gen": P17_GEN, "strict": strict,
+            "moe_check": moe_check}
+
+
+def p17_moe_layer(torch, cfg, store, mesh, rules, seed):
+    """(b)'s MoE check on every rank: MoE layer 0 on this rank's row of a
+    seeded (n, S, D) input with its own experts (expert parallelism), and
+    the same layer recomputed here from every rank's expert shard in turn
+    (broadcast from its owner, E / n experts at a time) over the same n
+    token groups: each group routed, dispatched and combined alone, as
+    its rank does, the experts run on the n groups' stacked buffers, as
+    the owners run them.  Returns (mesh output of every row, the
+    recomputation), float32 on the host."""
+    import torch.distributed as dist
+    from repro_torch.launch.placement import gathered
+    from repro_torch.models import moe as M
+    from repro_torch.pshard import use_mesh_and_rules
+    n, k = mesh.size, mesh.rank
+    p = gathered(store)["layers"][0]["moe"]
+    g = torch.Generator(device=mesh.device).manual_seed(seed)
+    x = (torch.randn((n, P17_PROMPT, cfg.d_model), generator=g,
+                     device=mesh.device) / 4).to(cfg.cdtype)
+    with torch.no_grad(), use_mesh_and_rules(mesh, rules, batch_shards=n):
+        y = M.moe_apply(p, cfg, x[k:k + 1])[0]
+        ys = torch.cat(mesh.all_gather(y, ("data",)))
+        # each group's dispatch buffers, as its rank forms them
+        bufs = []
+        for r in range(n):
+            M.moe_apply(p, cfg, x[r:r + 1], experts=lambda b: (
+                bufs.append(b), torch.zeros_like(b))[1])
+        buf = torch.cat(bufs)                               # (n, E, C, D)
+        up, down = p["w_up"], p["w_down"]
+        el = up.shape[0]
+        outs = []
+        for s in range(n):
+            u = up.to(buf.dtype) if s == k else torch.empty(
+                up.shape, dtype=buf.dtype, device=up.device)
+            d = down.to(buf.dtype) if s == k else torch.empty(
+                down.shape, dtype=buf.dtype, device=down.device)
+            dist.broadcast(u, s)
+            dist.broadcast(d, s)
+            outs.append(M._ffn(
+                cfg, buf[:, s * el:(s + 1) * el].contiguous(), u, d))
+            del u, d
+        out = torch.cat(outs, dim=1)
+        ref = torch.cat([M.moe_apply(p, cfg, x[r:r + 1],
+                                     experts=lambda b: out[r:r + 1])[0]
+                         for r in range(n)])
+    return ys.float().cpu().numpy(), ref.float().cpu().numpy()
+
+
+def p17_rank(dev, cfg, rules, runs, knobs):
+    """One rank of a 4x1 world: per scheme the serve entry point on the
+    mesh from a `core.prng` key whose ranges the ranks draw alone
+    (`make_inputs(lazy=True)`; the clean run's tokens from the `off` run),
+    the largest storage the build allocated, the first-step logits, one
+    more guarded generate (host reads, collectives, its peak), and with
+    `moe_check` (b)'s MoE layer check on the `off` store."""
+    import torch
+    from repro_torch import kernels
+    from repro_torch.core import prng
+    from repro_torch.launch.mesh import collectives_issued, make_test_mesh
+    from repro_torch.launch.placement import LargestAllocation
+    from repro_torch.launch.serve import make_inputs, serve
+    from repro_torch.obs import count_host_transfers, fetch_telemetry
+    from repro_torch.reliability import parse_scheme
+    cuda = dev.type == "cuda"
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    mesh = make_test_mesh(4, 1, device=dev)
+    inputs = make_inputs(cfg, knobs["batch"], knobs["prompt"],
+                         prng.key(knobs["seed"], dev), dev, lazy=True)
+    batch = {"tokens": inputs["tokens"]}
+    out, clean = {}, None
+    for name in runs:
+        p_bit = knobs["p_bit"] if name != "off" else 0.0
+        if cuda:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launch_counts()
+        largest = LargestAllocation()
+        res = serve(cfg, inputs["params"], inputs["tokens"],
+                    parse_scheme(name), gen=knobs["gen"], p_bit=p_bit,
+                    seed=SEED, device=dev, mesh=mesh, rules=rules,
+                    reference=clean, watch_prepare=largest)
+        launches = kernels.launch_counts()
+        run_peak = torch.cuda.max_memory_allocated() if cuda else 0
+        eng, store = res["engine"], res["store"]
+        logits = p13_logits(torch, eng, store, batch)
+        sync()
+        if cuda:
+            torch.cuda.reset_peak_memory_stats()
+        c0 = collectives_issued()
+        with count_host_transfers(strict=knobs["strict"]) as timed:
+            toks, tel = eng.generate(store, batch)
+            sync()
+        collectives = collectives_issued() - c0
+        gen_peak = torch.cuda.max_memory_allocated() if cuda else 0
+        with count_host_transfers(strict=knobs["strict"]) as fetched:
+            fetch_telemetry(tel)
+        check(torch.equal(toks, res["tokens"]),
+              f"17 {name}: the guarded run's tokens differ")
+        out[name] = {
+            "tokens": res["tokens"].cpu().numpy(),
+            "stats": {q: np.asarray(v) for q, v in res["stats"].items()},
+            "logits": logits.cpu().numpy(), "tok_s": res["tok_s"],
+            "prepare_s": res["prepare_s"], "agreement": res["agreement"],
+            "syncs": (timed.syncs, fetched.syncs, timed.sites),
+            "collectives": collectives, "launches": launches,
+            "largest": largest.bytes, "run_peak": run_peak,
+            "gen_peak": gen_peak, "local_words": store.words.numel(),
+            "global_words": store.global_spec.n_words}
+        if name == "off":
+            clean = res["tokens"]
+            if knobs["moe_check"]:
+                out["moe"] = p17_moe_layer(torch, cfg, store, mesh, rules,
+                                           knobs["seed"] + 1)
+        del res, eng, store
+    return out
+
+
+def p17_range_kernels(torch, dev, n_words: int, what: str) -> None:
+    """The four block-code kernels at one rank's block range (`n_words`
+    random words, as a rank's build gives them to the kernels): each encode
+    bit for bit against its plain version, each scrub's counters on the
+    clean range against its plain version's, and every kernel timed
+    (CUDA events) beside its bound and its plain version's time.  Not
+    counted as the path's launches."""
+    from repro_torch.kernels import diag_parity as D
+    from repro_torch.kernels import hsiao_secded as H
+    g = torch.Generator(device=dev).manual_seed(SEED + 17)
+    words = random_words(torch, n_words, g, dev)
+    nb = n_words // 32
+    for names, enc, enc_ref, scrub, scrub_ref, rows, enc_ops, scrub_ops in (
+            (("encode_parity", "scrub"), D.encode_parity,
+             D.encode_parity_ref, D.scrub, D.scrub_ref, 3, 6, 8),
+            (("encode_hsiao", "scrub_hsiao"), H.encode_hsiao,
+             H.encode_hsiao_ref, H.scrub, H.scrub_hsiao_ref, 7, 21,
+             HSIAO_SCRUB_OPS_PER_WORD)):
+        parity = enc(words)
+        plain, enc_plain_ms = rank_ms(torch, dev, lambda: enc_ref(words))
+        check(torch.equal(parity, plain), f"{what}: {names[0]} kernel != "
+              f"plain version")
+        del plain
+        enc_ms = time_ms(torch, lambda: enc(words))
+        (_, _, counts_p), scrub_plain_ms = rank_ms(
+            torch, dev, lambda: scrub_ref(words, parity.clone()))
+        counts = scrub(words, parity)[2]
+        check(torch.equal(counts, counts_p) and counts.tolist() == [0, 0, 0],
+              f"{what}: scrub counts {counts.tolist()} on a clean range")
+        scrub_ms = time_ms(torch, lambda: scrub(words, parity))
+        eb = bound_ms(n_words * 4 + nb * rows * 4, enc_ops * n_words)
+        sb = bound_ms(n_words * 4 + nb * rows * 4, scrub_ops * n_words)
+        log(f"{what} ({n_words} words, {nb} blocks): {names[0]} kernel "
+            f"{enc_ms:.3f} ms, plain {enc_plain_ms:.1f} ms, bound "
+            f"{eb[0]:.3f} ms ({eb[1]}), bit-exact; {names[1]} kernel "
+            f"{scrub_ms:.3f} ms (clean range), plain "
+            f"{scrub_plain_ms:.1f} ms, bound {sb[0]:.3f} ms ({sb[1]})")
+        del parity
+    del words
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+
+
+def p17_alone(torch, cfg, rules, runs, dev):
+    """(a)'s comparison: one process holding every expert (the arena
+    materialized whole from the same key) that serves the whole batch,
+    forming the mesh's four token groups itself (`moe._dp_groups` under a
+    4x1 ambient mesh), and then each row alone (its one group, as a rank
+    holds it): per scheme tokens, counters and first-step logits of both."""
+    from repro_torch.core import prng
+    from repro_torch.launch.serve import make_inputs, serve
+    from repro_torch.pshard import AbstractMesh, use_mesh_and_rules
+    from repro_torch.reliability import parse_scheme
+    inputs = make_inputs(cfg, P17_BATCH, P17_PROMPT, prng.key(P17_SEED, dev),
+                         dev)
+    mesh = AbstractMesh((P17_BATCH, 1), ("data", "model"))
+    out, clean = {}, None
+
+    def one(name, tokens, ref):
+        res = serve(cfg, inputs["params"], tokens, parse_scheme(name),
+                    gen=P17_GEN, p_bit=P17_P_BIT if name != "off" else 0.0,
+                    seed=SEED, device=dev, reference=ref)
+        logits = p13_logits(torch, res["engine"], res["store"],
+                            {"tokens": tokens})
+        return res["tokens"], res["stats"], logits, res["tok_s"]
+
+    for name in runs:
+        with use_mesh_and_rules(mesh, rules):
+            toks, stats, logits, tok_s = one(name, inputs["tokens"], clean)
+        rows = []
+        with use_mesh_and_rules(mesh, rules, batch_shards=P17_BATCH):
+            for b in range(P17_BATCH):
+                rows.append(one(name, inputs["tokens"][b:b + 1],
+                                None if clean is None else clean[b:b + 1]))
+        out[name] = {
+            "tokens": toks.cpu().numpy(),
+            "stats": {q: np.asarray(v) for q, v in stats.items()},
+            "logits": logits.cpu().numpy(), "tok_s": tok_s,
+            "row_tokens": np.concatenate([r[0].cpu().numpy() for r in rows]),
+            "row_logits": np.concatenate([r[2].cpu().numpy()
+                                          for r in rows])}
+        clean = toks if clean is None else clean
+    return out
+
+
+def p17_range_words(cfg, n: int) -> int:
+    """Words of rank 0's block range of `cfg`'s arena on n ranks."""
+    from repro_torch.models.params import layout
+    from repro_torch.models.transformer import model_specs
+    return -(-layout(model_specs(cfg), cfg.param_dtype).n_blocks // n) * 32
+
+
+def p17_build_reckon(cfg, scheme: str, n: int) -> float:
+    """A 4x1 rank's build peak reckoned in bytes: its local arena (its
+    quarter of the experts, every other leaf whole), its block range, the
+    range's parity twice (the encode and the scrub's copy) and the
+    all-gather's n + 1 pieces (`placement.STEP` words each)."""
+    from repro_torch.core import tree as T
+    from repro_torch.launch.placement import STEP
+    from repro_torch.models.params import layout
+    from repro_torch.models.transformer import model_specs
+    specs = model_specs(cfg)
+    spec = layout(specs, cfg.param_dtype)
+    local = sum(math.prod(l.shape) // (n if "expert" in s.axes else 1)
+                for l, s in zip(spec.leaves, T.leaves(specs)))
+    rng = p17_range_words(cfg, n)
+    checks = {"ecc": 3, "hsiao": 7}.get(scheme, 0)
+    return 4 * (local + rng + 2 * rng * checks / 32 + (n + 1) * min(STEP,
+                                                                    rng))
+
+
+def p17_dry(cfg, scheme: str, rules):
+    """The dry run of a 4x1 rank's generate (`dryrun.engine_cell`, rank 0:
+    every rank's shards have its shapes), its blocked attention standing
+    for flash (``meta`` has no kernel)."""
+    from repro_torch.launch import dryrun as D
+    from repro_torch.launch.mesh import RecordingMesh
+    return D.engine_cell(cfg.replace(attention_impl="blocked"), scheme,
+                         RecordingMesh((4, 1), ("data", "model")),
+                         batch=P17_BATCH, prompt_len=P17_PROMPT, gen=P17_GEN,
+                         rules=rules)
+
+
+def p17_gates(what, ranks, runs, card: bool, alone=None, dry=None,
+              reckoned=None):
+    """Tokens against the clean run (and against one process's, with its
+    counters and logits), corrections > 0 and uncorrectable 0 under a
+    code, the host reads, on the `card` the largest allocation under the
+    whole arena (off it, a plain scrub's chunk of temporaries can outweigh
+    a smoke arena), and with `dry`, the exchanges exact, the generate's
+    peak within P15_PEAK_TOL of the dry run's and the run's under the
+    card."""
+    clean = ranks[0]["off"]["tokens"]
+    for k, r in enumerate(ranks):
+        for name in runs:
+            got = r[name]
+            tag = f"{what} {name} rank {k}"
+            check(np.array_equal(got["tokens"], clean),
+                  f"{tag}: tokens differ from the clean run's")
+            if name != "off":
+                check(int(got["stats"]["ecc_corrected"]) > 0 and
+                      int(got["stats"]["ecc_uncorrectable"]) == 0,
+                      f"{tag}: counters {got['stats']}")
+            timed, fetched, sites = got["syncs"]
+            check(timed == 0 and fetched == 1, f"{tag}: {timed} host reads "
+                  f"in the timed region {sites}, {fetched} for the fetch")
+            whole = 4 * got["global_words"]
+            check(not card or 0 < got["largest"] < whole,
+                  f"{tag}: the build allocated "
+                  f"{got['largest']} bytes at once, the arena is {whole}")
+            msg = (f"{tag}: prepare {got['prepare_s']:.2f} s, "
+                   f"{got['tok_s']:.1f} tok/s, largest allocation of the "
+                   f"build {got['largest'] / 1e9:.3f} GB of a "
+                   f"{whole / 1e9:.2f} GB arena, local store "
+                   f"{4 * got['local_words'] / 1e9:.2f} GB, run peak "
+                   f"{got['run_peak'] / 1e9:.3f} GB"
+                   + (f" (reckoned {reckoned[name] / 1e9:.3f})"
+                      if reckoned else "")
+                   + f", generate peak {got['gen_peak'] / 1e9:.3f} GB, "
+                   f"{got['collectives']} collectives in a generate, "
+                   f"counters { {q: int(v.sum()) for q, v in got['stats'].items()} }"
+                   f", launches {got['launches']}")
+            if alone is not None:
+                a = alone[name]
+                tol = P17_REL * float(np.abs(a["logits"]).max())
+                err = float(np.abs(got["logits"] - a["logits"]).max())
+                err_rows = float(np.abs(got["logits"]
+                                        - a["row_logits"]).max())
+                split = float(np.abs(a["row_logits"] - a["logits"]).max())
+                top2 = np.sort(a["logits"], axis=-1)[..., -2:]
+                gap = (top2[..., 1] - top2[..., 0]).reshape(-1)
+                same = (got["tokens"] == a["tokens"]).all(axis=1)
+                same_rows = (got["tokens"] == a["row_tokens"]).all(axis=1)
+                log(f"{tag}: first-step logits max abs err {err:.3g} "
+                    f"against the whole batch, {err_rows:.3g} against each "
+                    f"row alone (one process: rows alone against the batch "
+                    f"{split:.3g}; bound {tol:.3g}); tokens equal the "
+                    f"batch's in {int(same.sum())}/{same.size} rows, the "
+                    f"rows alone's in {int(same_rows.sum())}/"
+                    f"{same_rows.size} (top-two gaps "
+                    f"{np.round(gap, 3).tolist()}; one process "
+                    f"{a['tok_s']:.1f} tok/s)")
+                # the whole batch's 1,024-row products round otherwise
+                # than a rank's 256-row ones (bf16, cuBLAS's choice by
+                # shape): the exact comparison is each row served alone
+                # by the one process, whose tokens group is the rank's
+                check_same_run(got, a, tag, tokens=False)
+                check(err_rows <= tol, f"{tag}: logits differ from the rows "
+                      f"alone by {err_rows:.3g} > {tol:.3g}")
+                check(np.array_equal(got["tokens"], a["row_tokens"]),
+                      f"{tag}: tokens differ from the rows served alone")
+                msg += ("; tokens equal one process's rows served alone, "
+                        "counters equal its")
+            if dry is not None:
+                d = dry[name]
+                n = sum(d["collectives"]["per_op_count"].values())
+                check(n == got["collectives"], f"{tag}: the dry run records "
+                      f"{n} exchanges, the rank made {got['collectives']}")
+                check(got["run_peak"] < P17_CARD_BYTES,
+                      f"{tag}: run peak {got['run_peak'] / 1e9:.2f} GB")
+                if got["gen_peak"]:
+                    err = d["peak_bytes"] / got["gen_peak"] - 1
+                    check(abs(err) <= P15_PEAK_TOL, f"{tag}: the dry run's "
+                          f"generate peak {d['peak_bytes'] / 1e9:.3f} GB is "
+                          f"{100 * err:+.1f}% of the rank's")
+                    msg += (f"; dry run: generate peak "
+                            f"{d['peak_bytes'] / 1e9:.3f} GB ({100 * err:+.1f}"
+                            f"%), {n} exchanges {d['collectives']['per_op_count']}")
+            log(msg)
+
+
+def run_expert_mesh_path(torch, card, dev):
+    """Phase 17 (a) (`tools/chip_phase.py 17`): phi3.5-moe at full width,
+    P17A[1] layers, four gloo ranks sharing the card as 4x1 with experts
+    over data (its rules with ``expert`` over data and ``model_dim``
+    replicated), batch 4 x 256, gen 32, flash, under `off` and `ecc` at
+    p_bit 1e-9, every rank's store built from its block range of a keyed
+    arena, against one process with the whole batch forming the same four
+    token groups from the same key.  Returns the ranks' launches."""
+    from repro_torch.launch.mesh import spawn
+    from repro_torch.launch.specs import arch_rules
+    from repro_torch.models.params import fill_range
+    from repro_torch.models.transformer import model_specs
+    from repro_torch.core import prng
+    t_path = time.perf_counter()
+    cfg = p17_config(*P17A)
+    rules = arch_rules(cfg.name, extra={"expert": ("data",),
+                                        "model_dim": ()})
+    runs = ("off", "ecc")
+    # the keyed draw of a range, alone: the build's materialization rate
+    n = 1 << 26 if not P17_SMOKE else 1 << 12
+    buf = torch.empty(n, dtype=torch.int32, device=dev)
+    key = prng.key(P17_SEED, dev)
+    fill_range(model_specs(cfg), key, buf, 0)
+    _, ms = rank_ms(torch, dev, lambda: fill_range(model_specs(cfg), key,
+                                                   buf, n))
+    log(f"phase 17 (a): keyed fill of {n} arena words (normals) in "
+        f"{ms:.1f} ms ({n / ms / 1e6:.3f} G words/s) ({card})")
+    del buf
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    copy = p11_copy_bytes(cfg) / 1e9
+    log(f"phase 17 (a): {cfg.name} at {cfg.n_layers} layers, a copy is "
+        f"{copy:.2f} GB; each of 4 ranks builds its quarter range and holds "
+        f"a quarter of the experts")
+    p17_range_kernels(torch, dev, p17_range_words(cfg, 4),
+                      "phase 17 (a) a rank's range")
+    t0 = time.perf_counter()
+    ranks = spawn(p17_rank, 4, args=(cfg, rules, runs,
+                                     p17_knobs(False, False)),
+                  device=dev.type)
+    log(f"phase 17 (a): 4 gloo ranks in {time.perf_counter() - t0:.1f} s")
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    alone = p17_alone(torch, cfg, rules, runs, dev)
+    log(f"phase 17 (a): one process in {time.perf_counter() - t0:.1f} s")
+    p17_gates("phase 17 (a) 4x1 gloo", ranks, runs, dev.type == "cuda",
+              alone=alone)
+    total = {}
+    for k, r in enumerate(ranks):
+        for name in runs:
+            need = ["flash_attention"] + (["encode_parity", "scrub"]
+                                          if name == "ecc" else [])
+            check_launched(r[name]["launches"], need,
+                           f"phase 17 (a) {name} rank {k}")
+            add_launches(total, r[name]["launches"])
+    log(f"phase 17 (a): {time.perf_counter() - t_path:.1f} s, launches "
+        f"{total} ({card})")
+    return total
+
+
+def run_expert_mesh_four(torch, card, dev):
+    """Phase 17 (b) (`tools/chip_phase.py 17b`, four cards on one host):
+    llama4-maverick at full width, one dense + MoE pair, 4x1 over nccl
+    under its serving rules, batch 4 x 256, gen 32, flash, under `off`,
+    `ecc` and `hsiao` at p_bit 1e-9, every rank's store from its block
+    range of a keyed arena.  Gates: tokens equal the clean run's,
+    corrections > 0 and uncorrectable 0, run peaks under the card, the
+    generate's peak within 10% of the dry run's and its exchanges equal,
+    0 host reads in the timed region under the strict guard, and MoE
+    layer 0 against its recomputation from each rank's expert shard in
+    turn.  Returns the ranks' launches."""
+    from repro_torch.launch.mesh import spawn
+    from repro_torch.launch.specs import arch_rules
+    t_path = time.perf_counter()
+    check(dev.type != "cuda" or torch.cuda.device_count() >= 4,
+          "phase 17 (b) needs four cards")
+    cfg = p17_config(*P17B)
+    rules = arch_rules(cfg.name, serve=True)
+    runs = ("off", "ecc", "hsiao")
+    dry = {name: p17_dry(cfg, name, rules) for name in runs}
+    reckoned = {name: p17_build_reckon(cfg, name, 4) for name in runs}
+    copy = p11_copy_bytes(cfg) / 1e9
+    log(f"phase 17 (b): {cfg.name} at {cfg.n_layers} of 48 layers, the "
+        f"arena is {copy:.2f} GB; build peaks reckoned "
+        f"{ {q: round(v / 1e9, 3) for q, v in reckoned.items()} } GB a rank; "
+        f"dry-run generate peaks "
+        f"{ {q: round(d['peak_bytes'] / 1e9, 3) for q, d in dry.items()} } "
+        f"GB ({card})")
+    p17_range_kernels(torch, dev, p17_range_words(cfg, 4),
+                      "phase 17 (b) a rank's range")
+    t0 = time.perf_counter()
+    ranks = spawn(p17_rank, 4, args=(cfg, rules, runs,
+                                     p17_knobs(dev.type == "cuda", True)),
+                  device=dev.type)
+    log(f"phase 17 (b): 4 ranks in {time.perf_counter() - t0:.1f} s")
+    p17_gates("phase 17 (b) 4x1 nccl", ranks, runs, dev.type == "cuda",
+              dry=dry, reckoned=reckoned)
+    for k, r in enumerate(ranks):
+        ys, ref = r["moe"]
+        err = float(np.abs(ys - ref).max())
+        tol = P17_REL * float(np.abs(ref).max())
+        check(err <= tol, f"(b) rank {k}: MoE layer 0 differs from its "
+              f"recomputation by {err:.3g} > {tol:.3g}")
+        if k == 0:
+            log(f"phase 17 (b): MoE layer 0 on the mesh "
+                f"({cfg.moe_experts // 4} experts a rank) "
+                f"against its recomputation from each rank's shard in turn: "
+                f"max abs err {err:.3g} (bound {tol:.3g})")
+    total = {}
+    for k, r in enumerate(ranks):
+        for name in runs:
+            need = ["flash_attention"] + {
+                "ecc": ["encode_parity", "scrub"],
+                "hsiao": ["encode_hsiao", "scrub_hsiao"]}.get(name, [])
+            check_launched(r[name]["launches"], need,
+                           f"phase 17 (b) {name} rank {k}")
+            add_launches(total, r[name]["launches"])
+    log(f"phase 17 (b): {time.perf_counter() - t_path:.1f} s, launches "
+        f"{total} ({card})")
+    return total
 
 if __name__ == "__main__":
     sys.exit(main())

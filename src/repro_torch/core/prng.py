@@ -163,12 +163,15 @@ def _step(k: torch.Tensor) -> int:
     return CHUNK if k.device.type == "cuda" else min(CHUNK, CPU_CHUNK)
 
 
-def _fill(k: torch.Tensor, shape: Shape, dtype, draw) -> torch.Tensor:
+def _fill(k: torch.Tensor, shape: Shape, dtype, draw,
+          start: int = 0) -> torch.Tensor:
+    """`draw` of the bits of flat indices [start, start + prod(shape)),
+    chunk by chunk, shaped `shape`."""
     shape = _shape(shape)
     n = math.prod(shape)
     out = torch.empty(n, dtype=dtype, device=k.device)
-    for start, count in chunks(n, _step(k)):
-        out[start:start + count] = draw(_bits_range(k, start, count))
+    for s, count in chunks(n, _step(k)):
+        out[s:s + count] = draw(_bits_range(k, start + s, count))
     return out.reshape(shape)
 
 
@@ -333,14 +336,17 @@ _SQRT2_32 = float(np.float32(np.sqrt(2)))
 _NORMAL_LO = float(np.nextafter(np.float32(-1.0), np.float32(0.0)))
 
 
-def normal(k: torch.Tensor, shape: Shape = ()) -> torch.Tensor:
+def normal(k: torch.Tensor, shape: Shape = (), start: int = 0
+           ) -> torch.Tensor:
     """`jax.random.normal`, float32: ``sqrt(2) * erfinv(u)`` with u uniform
-    in (-1, 1) (module doc)."""
+    in (-1, 1) (module doc).  `start`: the draws of flat indices from
+    `start` on of a larger plane under the same key (a range of it drawn
+    alone)."""
     def draw(b):
         u = _unit(b) * 2.0 + _NORMAL_LO     # span 2.0: the product is exact
         u = torch.clamp_min(u, _NORMAL_LO)
         return _erfinv32(u) * _SQRT2_32
-    return _fill(k, shape, torch.float32, draw)
+    return _fill(k, shape, torch.float32, draw, start)
 
 
 def _pack(planes, shape, width: int, device) -> Tuple[torch.Tensor, ...]:
@@ -351,16 +357,17 @@ def _pack(planes, shape, width: int, device) -> Tuple[torch.Tensor, ...]:
 
 
 def word_plane(k: torch.Tensor, n_words: int, fn, *,
-               step: Optional[int] = None):
+               step: Optional[int] = None, start: int = 0):
     """Keyed boolean planes of shape (n_words, 32) packed into int32 words,
     LSB first (the reference's `pack_flip_mask` of planes drawn over
     ``(n_words, 32)``).  `fn` maps a chunk's 23-bit mantissas (the bits >>
     9, int64) to its booleans, or to a tuple of planes: one word tensor
-    each.  Computed `step` elements at a time, so no plane exists whole."""
+    each.  Computed `step` elements at a time, so no plane exists whole.
+    `start`: the words from word `start` on of a larger plane."""
     outs = []
     for w0, nw in list(chunks(n_words, max(1, (step or _step(k)) // 32))) \
             or [(0, 0)]:
-        planes = fn(_bits_range(k, w0 * 32, nw * 32) >> 9)
+        planes = fn(_bits_range(k, (start + w0) * 32, nw * 32) >> 9)
         single = isinstance(planes, torch.Tensor)
         outs.append(_pack((planes,) if single else planes, (nw,), 32,
                           k.device))

@@ -124,6 +124,38 @@ def _distinct_positions(total: int, p: float,
     return pos
 
 
+def _payload(mask: torch.Tensor, a: int, leaf) -> torch.Tensor:
+    """A word mask over words [a, a + len) of `leaf` with the unused top
+    half of an odd-length bf16 leaf's last word cleared (`corrupt_leaf_`
+    drops that half's flips)."""
+    n = math.prod(leaf.shape)
+    if leaf.dtype != torch.bfloat16 or n % 2 == 0 \
+            or a + mask.numel() < leaf.n_words:
+        return mask
+    mask = mask.clone()
+    mask[-1] &= 0xFFFF
+    return mask
+
+
+def _window_bits(pos: torch.Tensor, leaf, a: int, b: int):
+    """Positions among a leaf's stored bits (int16 halves for bf16, the
+    words otherwise) as (word index from a, bit in the int32 word, which
+    positions fall in its words [a, b)), the first two of those only."""
+    if leaf.dtype == torch.bfloat16:
+        half = pos // 16
+        word, bit = half // 2, (half % 2) * 16 + pos % 16
+    else:
+        word, bit = pos // 32, pos % 32
+    keep = (word >= a) & (word < b)
+    return word[keep] - a, bit[keep], keep
+
+
+def _leaf_bits(leaf) -> int:
+    """The stored bits of one leaf (`_bits_view`'s elements x width)."""
+    n = math.prod(leaf.shape)
+    return n * (16 if leaf.dtype == torch.bfloat16 else 32)
+
+
 def _xor_bits_(flat: torch.Tensor, elem: torch.Tensor,
                bit: torch.Tensor) -> None:
     """flat[elem] ^= 1 << bit for distinct (elem, bit) pairs, in place."""
@@ -245,22 +277,50 @@ class FaultModel:
             self.corrupt_leaf_(x, generator, dt)
         return params
 
-    def skip_leaf(self, x: torch.Tensor, generator: torch.Generator,
-                  dt: float = 1.0) -> None:
-        """Draw from `generator` exactly what `corrupt_leaf_(x)` draws,
-        leaving `x` as it is (here: corrupt a copy)."""
-        self.corrupt_leaf_(x.clone(), generator, dt)
-
     def skip(self, params: Any, generator: torch.Generator,
              dt: float = 1.0) -> None:
-        """Draw what `corrupt(params)` draws and apply none of it: a mesh
-        rank that does not hold a copy still advances the run's generator
-        past that copy's faults, so no draw depends on the rank.  A key
-        has no state to advance."""
-        if prng.is_key(generator):
-            return
-        for x in T.leaves(params):
-            self.skip_leaf(x, generator, dt)
+        """Draw what `corrupt(params)` draws and apply none of it (the
+        empty range of `corrupt_range`).  A key has no state to advance."""
+        self.corrupt_range(torch.empty(0, dtype=torch.int32),
+                           arena.arena_spec(params), 0, generator, dt)
+
+    def corrupt_range(self, words: torch.Tensor, spec: arena.ArenaSpec,
+                      lo: int, generator: torch.Generator,
+                      dt: float = 1.0) -> torch.Tensor:
+        """What `corrupt` does to words [lo, lo + words.numel()) of an
+        arena laid out as `spec`, done to `words` (int32, those words
+        alone; in place), and returned.  Every leaf draws what `corrupt`
+        draws for it, in flatten order -- a generator advances past the
+        leaves and positions outside the range too, a key is split once
+        per leaf -- and only what lands in the range is applied, so the
+        words equal that range of the whole corrupted arena whatever the
+        range: a mesh rank corrupts its block range without the rest of
+        the arena, and an empty range is `skip`."""
+        hi = lo + words.numel()
+        n = len(spec.leaves)
+        sources = prng.split(generator, n) if prng.is_key(generator) \
+            else [generator] * n
+        for leaf, g in zip(spec.leaves, sources):
+            a = min(max(lo - leaf.offset, 0), leaf.n_words)
+            b = min(max(hi - leaf.offset, a), leaf.n_words)
+            if a == b and prng.is_key(g):
+                continue                 # nothing to draw, nothing to skip
+            w = words[leaf.offset + a - lo:leaf.offset + b - lo] if b > a \
+                else words[:0]
+            self.corrupt_window_(w, a, leaf, g, dt)
+        return words
+
+    def corrupt_window_(self, w: torch.Tensor, a: int, leaf: arena.LeafSpec,
+                        generator: torch.Generator, dt: float = 1.0) -> None:
+        """Words [a, a + w.numel()) of one leaf's payload, corrupted in
+        place as `corrupt_leaf_` corrupts the whole leaf (the leaf's every
+        draw is made).  Here through `word_mask` over a whole leaf of
+        words, zero outside the window: a model whose draws follow the
+        flat index overrides it and draws the window alone."""
+        full = torch.zeros(leaf.n_words, dtype=torch.int32, device=w.device)
+        full[a:a + w.numel()] = w
+        mask = self.word_mask(generator, full, dt).to(w.device)
+        w ^= _payload(mask[a:a + w.numel()], a, leaf)
 
 
 class _IidFlips(FaultModel):
@@ -295,11 +355,21 @@ class _IidFlips(FaultModel):
             return super().corrupt_leaf_(x, generator, dt)
         flip_random_bits_(_bits_view(x), self._rate(dt), generator)
 
-    def skip_leaf(self, x, generator, dt: float = 1.0) -> None:
-        # the positions flip_random_bits_ would draw, none applied
-        bits = _bits_view(x)
-        _distinct_positions(bits.numel() * bits.element_size() * 8,
-                            self._rate(dt), generator)
+    def corrupt_window_(self, w, a, leaf, generator, dt: float = 1.0):
+        if prng.is_key(generator):
+            t = prng.threshold(self._rate(dt))
+            mask = prng.word_plane(generator.to(w.device), w.numel(),
+                                   lambda m: m < t, start=a)
+            w ^= _payload(mask, a, leaf)
+            return
+        # every position of the leaf drawn, those in the window flipped
+        pos = _distinct_positions(_leaf_bits(leaf), self._rate(dt),
+                                  generator)
+        if pos is not None and w.numel():
+            word, bit, _ = _window_bits(pos.to(w.device), leaf, a,
+                                        a + w.numel())
+            if word.numel():
+                _xor_bits_(w, word, bit)
 
     def gate_lane_masks(self, generator, n_gates: int, trials: int,
                         dt: float = 1.0):
@@ -473,9 +543,18 @@ class StuckAtFaults(FaultModel):
             return super().corrupt_leaf_(x, generator, dt)
         self._stick_flat_(_bits_view(x), generator)
 
-    def skip_leaf(self, x, generator, dt: float = 1.0) -> None:
-        bits = _bits_view(x)
-        self._defects(bits.numel() * bits.element_size() * 8, generator)
+    def corrupt_window_(self, w, a, leaf, generator, dt: float = 1.0):
+        if prng.is_key(generator):
+            sa0w, sa1w = prng.word_plane(generator.to(w.device), w.numel(),
+                                         self._planes, start=a)
+            w ^= _payload((w & sa0w) | (~w & sa1w), a, leaf)
+            return
+        found = self._defects(_leaf_bits(leaf), generator)
+        if found is not None and w.numel():
+            pos, one = (t.to(w.device) for t in found)
+            word, bit, keep = _window_bits(pos, leaf, a, a + w.numel())
+            if word.numel():
+                _stick_bits_(w, word, bit, one[keep])
 
     def gate_lane_masks(self, generator, n_gates: int, trials: int,
                         dt: float = 1.0):
@@ -531,12 +610,10 @@ class CompositeFault(FaultModel):
                         prng.streams(generator, len(self.models))):
             m.corrupt_leaf_(x, g, dt)
 
-    def skip_leaf(self, x, generator, dt: float = 1.0) -> None:
-        # a member after a stuck-at member sees the stuck bits, but no
-        # member's draws depend on the data: skipping each in turn draws
-        # what corrupting in turn draws
-        for m in self.models:
-            m.skip_leaf(x, generator, dt)
+    def corrupt_window_(self, w, a, leaf, generator, dt: float = 1.0):
+        for m, g in zip(self.models,
+                        prng.streams(generator, len(self.models))):
+            m.corrupt_window_(w, a, leaf, g, dt)
 
     @staticmethod
     def compose_lane_masks(pairs, n_gates: int, tw: int, device=None):

@@ -15,10 +15,11 @@ blocks are zero words with zero parity, syndrome-clean, and would add
 nothing to the counts.  On the card each rank launches the CUDA kernel on
 its range; on the CPU the plain version runs.
 
-Where every rank needs the whole repaired arena back (`shard_scrub`, the
-serving store's build in `launch.placement`), the ranks swap only their
-corrections -- word index and repaired value (`swap_fixes`) -- never the
-arena: the traffic follows the faults, not the arena's size.
+Where every rank needs the whole repaired arena back (`shard_scrub`),
+the ranks swap only their corrections -- word index and repaired value
+(`swap_fixes`) -- never the arena: the traffic follows the faults, not
+the arena's size.  The serving store's build (`launch.placement`) needs
+no swap: each rank scrubs the range it holds alone (`scrub_range`).
 """
 from __future__ import annotations
 

@@ -16,10 +16,12 @@ only where it divides, so every rank's shards have rank 0's shapes):
 * **inputs** -- `specs.abstract_inputs` (the reference's per-device
   shapes), laid out as the port holds them: a training rank gets the
   whole batch and splits its rows itself; a serving rank holds its params
-  in one arena (`placement.empty_store`) read through the whole-leaf
-  gather, and its own rows of the batch and of the cache, every position
-  of the cache (the port computes whole heads and whole sequences on every
-  rank, where GSPMD splits heads, ff and kv_seq);
+  in one arena (`placement.empty_store`) read through the gather
+  (`placement.gathered`: whole leaves, but a MoE layer's experts, which
+  stay this rank's and are computed where they live), and its own rows of
+  the batch and of the cache, every position of the cache (the port
+  computes whole heads and whole sequences on every rank, where GSPMD
+  splits heads, ff and kv_seq);
 * **memory** -- `MemoryTally`, a dispatch mode, tallies the live ``meta``
   storages, each rounded up to the CUDA caching allocator's 512 B:
   ``arg_bytes`` the inputs' storages, ``out_bytes`` the outputs', of which
@@ -226,7 +228,7 @@ def _whole(tree: Any, shards: Any, mesh, rules) -> Any:
 def _serving_params(cfg: ModelConfig, params: Any, mesh, rules):
     """(what a serving rank reads, its words): its shards of `params`
     (``meta``) in one arena, read as they are without a mesh, else through
-    the whole-leaf gather of a store (`placement.gathered`)."""
+    the gather of a store (`placement.gathered`: experts kept local)."""
     from ..core import arena
     from ..models.params import layout, partition_specs
     from ..models.transformer import model_specs
@@ -238,7 +240,8 @@ def _serving_params(cfg: ModelConfig, params: Any, mesh, rules):
         view, spec = arena.unpack(words, gspec), gspec
     else:
         store = PL.empty_store(gspec, T.leaves(partition_specs(
-            specs, mesh, rules)), mesh, None, device="meta")
+            specs, mesh, rules)), mesh, None, device="meta",
+            keep=PL.expert_dims(specs))
         words, view, spec = store.words, PL.gathered(store), store.spec
     got = [tuple(x.shape) for x in T.leaves(arena.unpack(words, spec))]
     want = [tuple(x.shape) for x in T.leaves(params)]
@@ -356,16 +359,18 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool,
 
 
 def engine_cell(cfg: ModelConfig, scheme_spec: str, mesh, *, batch: int,
-                prompt_len: int, gen: int) -> Dict[str, Any]:
+                prompt_len: int, gen: int,
+                rules: Optional[ShardingRules] = None) -> Dict[str, Any]:
     """One rank's `GenerationEngine.generate` on `mesh` (a
     `RecordingMesh`; the parallel disciplines fold a ("data", "model")
-    mesh's copy axis as the engine does) over a ``meta`` store of this
-    rank's copy-stacked shards (`optim.copy_stack_pspec`) and the whole
-    batch of token ids; `measure`'s keys."""
+    mesh's copy axis as the engine does) under `rules` over a ``meta``
+    store of this rank's copy-stacked shards (`optim.copy_stack_pspec`;
+    a MoE layer's experts kept local) and the whole batch of token ids;
+    `measure`'s keys."""
     from ..reliability import parse_scheme
     from .engine import GenerationEngine
     engine = GenerationEngine(cfg, parse_scheme(scheme_spec, impl=IMPL),
-                              gen=gen, mesh=mesh)
+                              gen=gen, mesh=mesh, rules=rules)
     store = engine_store(engine)
     tokens = torch.empty((batch, prompt_len), dtype=torch.int32,
                          device="meta")
@@ -380,12 +385,13 @@ def engine_store(engine):
     of the copies it holds (`launch.placement`)."""
     from ..models.params import layout
     from ..models.transformer import model_specs
-    from .placement import empty_store
+    from .placement import empty_store, expert_dims
     mesh = engine.exec_mesh
     specs, held = engine._placement(mesh)
     return empty_store(layout(model_specs(engine.cfg),
                               engine.cfg.param_dtype), specs, mesh, held,
-                       device="meta")
+                       device="meta",
+                       keep=expert_dims(model_specs(engine.cfg)))
 
 
 def run_engine_cell(arch: str, scheme_spec: str = "tmr-parallel",

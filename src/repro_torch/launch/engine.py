@@ -220,15 +220,21 @@ class GenerationEngine:
         words, spec = arena.words_of(store, copies=3 if self.copy_axis
                                      else 0)
         specs, held = self._placement(mesh)
-        return PL.place_store(words, spec, specs, mesh, held)
+        return PL.place_store(words, spec, specs, mesh, held,
+                              PL.expert_dims(model_specs(self.cfg)))
 
     def _prepare_mesh(self, params, generator, fault, dt, donate):
-        """`prepare` on the exec mesh by the plan of `launch.placement`."""
+        """`prepare` on the exec mesh by the plan of `launch.placement`
+        (`params` a clean-arena source there, or a params tree)."""
         scheme, mesh = self.scheme, self.exec_mesh
-        words, spec = arena.words_of(params)
+        if isinstance(params, (PL.KeyedParams, PL.WholeArena)):
+            source, spec = params, getattr(params, "spec", None)
+        else:
+            words, spec = arena.words_of(params)
+            source = PL.WholeArena(words)
         specs, held = self._placement(mesh)
-        if [s.shape for s in T.leaves(model_specs(self.cfg))] != \
-                [l.shape for l in spec.leaves]:
+        if spec is None or [s.shape for s in T.leaves(model_specs(
+                self.cfg))] != [l.shape for l in spec.leaves]:
             raise ValueError("params do not match the config's specs")
         ecc = scheme if isinstance(scheme, ArenaEcc) else \
             scheme.ecc if isinstance(scheme, Compose) else None
@@ -236,9 +242,10 @@ class GenerationEngine:
             tuple(a for a in mesh.axis_names if a != "copy")
         with use_mesh_and_rules(mesh, self.rules):
             store, counts = PL.build_store(
-                words, spec, specs, mesh, copies=3 if self.copy_axis else 1,
-                held=held, fault=fault, generator=generator, dt=dt, ecc=ecc,
-                scrub_axes=axes, donate=donate)
+                source, spec, specs, mesh,
+                copies=3 if self.copy_axis else 1, held=held, fault=fault,
+                generator=generator, dt=dt, ecc=ecc, scrub_axes=axes,
+                donate=donate, keep=PL.expert_dims(model_specs(self.cfg)))
         if counts is None:
             return store, {}
         return store, {"ecc_corrected": counts[0],
@@ -292,10 +299,20 @@ class GenerationEngine:
         storage-side protection.  Returns
         (store, prep telemetry): the store is a parameter tree of views
         into its arena -- (3, *shape) leaves for TMR and Compose.  On a
-        mesh it is this rank's `launch.placement.ShardedStore`, and
-        `donate` lets a rank that holds one copy build it in the params'
-        own arena (which it then no longer is)."""
+        mesh it is this rank's `launch.placement.ShardedStore`, built from
+        its block range (`params` may then be a `placement.KeyedParams`,
+        whose ranges are drawn alone, so no rank holds the whole arena),
+        and `donate` lets a rank that holds one copy build it in the
+        params' own arena (which it then no longer is)."""
         scheme = self.scheme
+        if isinstance(params, PL.KeyedParams):
+            if self.mesh is None:
+                raise ValueError("a KeyedParams source builds a store on a "
+                                 "mesh; one process materializes it whole")
+            if params.device != self.device:
+                raise ValueError(f"the source draws on {params.device}, the "
+                                 f"engine runs on {self.device}")
+            return self._prepare_mesh(params, generator, fault, dt, donate)
         words, spec = arena.words_of(params)
         if words.device != self.device:
             raise ValueError(f"params are on {words.device}, the engine runs "

@@ -3,50 +3,63 @@ builds each rank's shard, and how the model reads a sharded store.
 
 **Placement.**  Every leaf is placed as `pshard.spec_for` resolves its
 logical axes on the engine's exec mesh (FSDP ``model_dim`` over data,
-``ff``/``heads``/``vocab`` over model, small or odd dims replicated): a
-rank holds exactly its slice of every leaf (`pshard.shard_slices`), packed
-into a local arena of its own.  TMR copies ride the "copy" axis of a
-folded mesh (each copy group holds one copy) and are held by every rank
-otherwise (`optim.sharding_rules.copy_stack_pspec`).
+``ff``/``heads``/``vocab`` over model, ``expert`` over model or, under a
+config's serving rules, data; small or odd dims replicated): a rank holds
+exactly its slice of every leaf (`pshard.shard_slices`), packed into a
+local arena of its own.  TMR copies ride the "copy" axis of a folded mesh
+(each copy group holds one copy) and are held by every rank otherwise
+(`optim.sharding_rules.copy_stack_pspec`).
 
-**The build plan** (`build_store`).  Flattening sharded leaves into one
-arena is not left to DTensor's ``cat`` and bit views; the plan is explicit:
+**The build plan** (`build_store`).  No rank holds the whole clean arena
+or a whole working copy (unless its slice of every leaf is the whole
+leaf).  The clean arena comes from a source that fills any word range: a
+`KeyedParams` (a `core.prng` key, every draw a function of the leaf's key
+and the flat index, `params.fill_range`) or a `WholeArena` already in
+hand.  Rank r of the scrub group (the mesh axes a copy's block range is
+split over: every axis but a folded copy axis) owns the contiguous block
+range ``[lo, hi)`` of the global arena (`kernels.sharded.block_range`);
+copy by copy, in the unmeshed order, it
 
-1. every rank has the whole clean parameter arena (the caller's);
-2. ECC schemes encode the parity of this rank's contiguous block range of
-   the clean arena only (`kernels.sharded.block_range`);
-3. copy by copy, in the unmeshed order, the fault model draws the whole
-   copy's faults from the run's generator on every rank -- a copy this
-   rank does not hold is drawn and dropped (`FaultModel.skip`), so no draw
-   depends on rank or world size -- into one working arena;
-4. ECC schemes scrub this rank's block range of the working arena with
-   the kernel, then the ranks of the scrub group swap their (sparse)
-   corrections -- word index and repaired value, by an int64 / int32 SUM
-   all-reduce (`kernels.sharded.scrub_joined`, which `shard_scrub` runs
-   too) -- so every rank's working arena is the whole scrubbed copy;
-5. the rank copies its slice of every leaf into its local arena; the
-   scrub counts, summed over the scrub group by each scrub, are summed
-   over the remaining axes (a folded mesh's copy axis) once, at the end.
+1. fills its range from the source;
+2. under an ECC scheme, encodes the range's parity (once, from the first
+   clean range it fills);
+3. applies the faults that land in its range: the fault model draws the
+   whole copy's faults from the run's generator in order and keeps what
+   falls in the range (`FaultModel.corrupt_range`; a copy this rank does
+   not hold is drawn and dropped), so no draw depends on rank or world
+   size;
+4. under an ECC scheme, scrubs the range with the kernel
+   (`kernels.sharded.scrub_range`: counts summed over the scrub group);
+5. sends each word of its range to the ranks whose leaf slices hold it
+   (`_redistribute`): an exact all-gather of equal pieces of every rank's
+   range, `STEP` words a rank at a time (`launch.shards.Exchange`: where
+   the ranks share a card, through staging buffers they mapped once),
+   from which each rank keeps what its slices hold.
 
-At its peak a rank holds the clean arena, one working arena, its local
-arena, its range's parity and (in a scrub group of several ranks) a copy
-of its range from before the scrub.  When the rank's slice of every leaf is the
-whole leaf (a folded copy group of one rank) the working arena IS the
-local arena, and with ``donate`` (one held copy) the working arena is the
-caller's clean arena itself: the rank then holds one copy in all.
+The scrub counts are summed over the remaining axes (a folded mesh's copy
+axis) once, at the end.  At its peak a rank holds its local arena, one
+range, the range's parity and the gather's pieces.  When the scrub group
+is one rank its range is the whole arena and IS the local arena; with
+``donate`` (a `WholeArena`, one held copy) that is the caller's arena
+itself.
 
 **Reading** (`gathered`).  The model gets a lazy view of a store: a leaf
-is gathered whole when the layer reads it -- the explicit redistribute
+is gathered when the layer reads it -- the explicit redistribute
 (Shard -> Replicate) that DTensor's ``full_tensor()`` would do -- and
-dropped after.  Stacked layer leaves are gathered one layer at a time, so
-a rank holds its shards plus the leaves of the layer it runs (FSDP).  The
-gather is an int32 SUM all-reduce of this rank's slice placed into zeros
-(exact on every backend: gloo has no all-gather for CUDA tensors), except
-where several ranks share one card (gloo over CUDA, whose collectives
-stage through host memory): there every rank maps its peers' local arenas
-once, when the store is built (CUDA IPC handles swapped by one object
+dropped after, except along its kept dimensions (``keep``; the engine
+keeps a MoE leaf's ``expert`` dimension): there the layer gets this
+rank's experts alone and computes them where they live (`models.moe`,
+expert parallelism).  Stacked layer leaves are gathered one layer at a
+time, so a rank holds its shards plus the leaves of the layer it runs
+(FSDP).  The gather is an int32 SUM all-reduce of this rank's slice
+placed into zeros (exact on every backend: gloo has no all-gather for
+CUDA tensors), except where several ranks share one card (gloo over
+CUDA, whose collectives stage through host memory): there every rank
+maps its peers' local arenas once, when the store is built and if some
+leaf is gathered across them (CUDA IPC handles swapped by one object
 all-gather after a device sync), and a gather copies each peer's slice
-device to device.  The arenas are not written after they are built.
+device to device.  The arenas are not
+written after they are built.
 """
 from __future__ import annotations
 
@@ -55,15 +68,21 @@ import math
 from typing import Any, List, Optional, Sequence, Tuple
 
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
+from torch.utils._pytree import tree_flatten
 
 from ..core import arena, prng
 from ..core import tree as T
-from ..kernels.sharded import BLOCK, block_range, scrub_joined
+from ..kernels.sharded import BLOCK, block_range, scrub_range
 from ..pshard import shard_slices, spec_axes
 
-__all__ = ["ShardedStore", "build_store", "place_store", "empty_store",
-           "gathered", "replicate",
+__all__ = ["ShardedStore", "WholeArena", "KeyedParams", "build_store",
+           "place_store", "empty_store", "expert_dims", "gathered",
+           "replicate", "LargestAllocation",
            "exchange_copies", "row_split", "gather_rows", "local_elements"]
+
+#: words a rank contributes to each all-gather of `_redistribute`
+STEP = 1 << 26
 
 
 @dataclasses.dataclass
@@ -76,6 +95,8 @@ class ShardedStore:
     specs  : per-copy `spec_for` tuple of every leaf, flatten order.
     held   : the copy indices this rank holds, or None (no copy axis).
     mesh   : the exec mesh the store is placed on.
+    keep   : per leaf, the dimensions `gathered` does not gather (this
+             rank's slice along them is what the model reads).
     peers  : the other ranks' `words` mapped here (ranks sharing one card).
     """
 
@@ -85,6 +106,7 @@ class ShardedStore:
     specs: List[tuple]
     held: Optional[Tuple[int, ...]]
     mesh: Any
+    keep: List[Tuple[int, ...]] = dataclasses.field(default_factory=list)
     peers: Optional[dict] = None
 
     def slot(self, copy: Optional[int]) -> Optional[int]:
@@ -102,6 +124,83 @@ def local_elements(store: ShardedStore) -> int:
     copies = 1 if store.held is None else len(store.held)
     return copies * sum(math.prod(l.shape) for l in store.spec.leaves)
 
+
+def expert_dims(tree: Any) -> List[Tuple[int, ...]]:
+    """Per leaf of a Spec tree (flatten order), the dimensions whose
+    logical axis is ``expert``: the ``keep`` under which a MoE layer's
+    experts are computed where they live."""
+    return [tuple(d for d, a in enumerate(s.axes) if a == "expert")
+            for s in T.leaves(tree)]
+
+
+# -- the clean arena's sources ---------------------------------------------------
+
+class WholeArena:
+    """A clean arena already in hand: its (n_words,) int32 words."""
+
+    def __init__(self, words: torch.Tensor):
+        self.words = words
+        self.device = words.device
+
+    def fill(self, out: torch.Tensor, lo: int) -> None:
+        """out := words [lo, lo + out.numel())."""
+        out.copy_(self.words[lo:lo + out.numel()])
+
+
+class KeyedParams:
+    """The parameters `params.materialize(tree, key, dtype)` draws, never
+    drawn whole: `fill` draws any word range alone (`params.fill_range`).
+    `spec` is the arena's layout, `materialize()` the whole arena (one
+    process's reference)."""
+
+    words = None
+
+    def __init__(self, tree: Any, key: torch.Tensor, dtype: Any = "float32",
+                 device=None):
+        from ..models.params import layout
+        if not prng.is_key(key):
+            raise TypeError("KeyedParams draws from a core.prng key")
+        self.tree, self.dtype = tree, dtype
+        self.device = torch.device(device) if device is not None \
+            else key.device
+        self.key = key.to(self.device)
+        self.spec = layout(tree, dtype)
+
+    def fill(self, out: torch.Tensor, lo: int) -> None:
+        from ..models.params import fill_range
+        fill_range(self.tree, self.key, out, lo, self.dtype)
+
+    def materialize(self) -> Any:
+        from ..models.params import materialize
+        return materialize(self.tree, self.key, self.dtype, self.device)
+
+
+class LargestAllocation(TorchDispatchMode):
+    """A dispatch mode that records, in ``bytes``, the largest storage
+    any op allocates while it is active (outputs that share an input's
+    storage -- views, in-place ops -- allocate nothing): what a build
+    holds at most in one tensor."""
+
+    def __init__(self):
+        super().__init__()
+        self.bytes = 0
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        seen = {x.untyped_storage().data_ptr()
+                for x in _tensors((args, kwargs))}
+        for x in _tensors(out):
+            st = x.untyped_storage()
+            if st.data_ptr() not in seen:
+                self.bytes = max(self.bytes, st.nbytes())
+        return out
+
+
+def _tensors(tree) -> list:
+    return [x for x in tree_flatten(tree)[0] if isinstance(x, torch.Tensor)]
+
+
+# -- the build ------------------------------------------------------------------
 
 def _layout(global_spec: arena.ArenaSpec, specs, mesh):
     """(this rank's slice of every leaf, the local arena's layout): the
@@ -124,14 +223,16 @@ def _keep_slices(dst: torch.Tensor, lspec, src: torch.Tensor, global_spec,
         d.copy_(s[sl])
 
 
-def _store(local: torch.Tensor, lspec, global_spec, specs, mesh, held):
+def _store(local: torch.Tensor, lspec, global_spec, specs, mesh, held,
+           keep=None):
     """The ShardedStore over a (C, n) local arena (C = 1 without a copy
     axis), its peers mapped when the ranks share a card."""
     words = local.view(-1) if held is None else local
+    keep = list(keep) if keep is not None else [()] * len(specs)
     return _share(ShardedStore(words=words, spec=lspec,
                                global_spec=global_spec, specs=list(specs),
                                held=None if held is None else tuple(held),
-                               mesh=mesh))
+                               mesh=mesh, keep=keep))
 
 
 def copy_source(generator, i: int):
@@ -143,72 +244,162 @@ def copy_source(generator, i: int):
     return generator
 
 
-def build_store(words: torch.Tensor, global_spec: arena.ArenaSpec,
+def build_store(source, global_spec: arena.ArenaSpec,
                 specs: Sequence[tuple], mesh, *, copies: int,
                 held: Optional[Tuple[int, ...]], fault=None,
                 generator: Optional[torch.Generator] = None,
                 dt: float = 1.0, ecc=None, scrub_axes: Sequence[str] = (),
-                donate: bool = False):
+                donate: bool = False, keep=None):
     """This rank's `ShardedStore` of `copies` corrupted (and, with `ecc`,
-    scrubbed) copies of the clean arena `words`, by the plan of the module
-    doc.  `scrub_axes`: the mesh axes each copy's block range is split
-    over.  Returns (store, counts (3,) int32 summed over the mesh, or
-    None without `ecc`)."""
-    dev = words.device
+    scrubbed) copies of the clean arena of `source` (a `KeyedParams` or a
+    `WholeArena`), by the plan of the module doc.
+    `scrub_axes`: the mesh axes each copy's block range is split over;
+    `keep`: per leaf, the dimensions `gathered` leaves local.  Returns
+    (store, counts (3,) int32 summed over the mesh, or None without
+    `ecc`)."""
+    dev = source.device
     slices, lspec = _layout(global_spec, specs, mesh)
     held_set = (0,) if held is None else held
-    # the working arena: the caller's own when donated (one held copy)
-    if donate and len(held_set) == 1:
-        work = words
-    elif fault is None and ecc is None:
-        work = words                    # read only
-    else:
-        work = words.clone()
-    if lspec is global_spec and len(held_set) == 1:
-        local = work.view(1, -1)        # the working arena is the store
+    n = mesh.group_size(scrub_axes)
+    lo, hi = block_range(global_spec.n_blocks, n, mesh.index_in(scrub_axes))
+    whole = n <= 1                      # the range is the whole arena
+    if whole and len(held_set) == 1 and source.words is not None and \
+            (donate or (fault is None and ecc is None)):
+        local = source.words.view(1, -1)    # the caller's arena is the store
     else:
         local = torch.zeros((len(held_set), lspec.n_words),
                             dtype=torch.int32, device=dev)
-    total = None
+    rng = None if whole else torch.empty((hi - lo) * BLOCK,
+                                         dtype=torch.int32, device=dev)
+    parity = total = None
     if ecc is not None:
-        lo, hi = block_range(global_spec.n_blocks,
-                             mesh.group_size(scrub_axes),
-                             mesh.index_in(scrub_axes))
-        parity = ecc.encode_arena(words[lo * BLOCK:hi * BLOCK])
         total = torch.zeros(3, dtype=torch.int32, device=dev)
-    fresh = True
     for j in range(copies):
         if j not in held_set:
-            if fault is not None:
-                fault.skip(arena.unpack(words, global_spec),
-                           copy_source(generator, j), dt)
+            if fault is not None:       # drawn and dropped
+                fault.corrupt_range(local[0, :0], global_spec, 0,
+                                    copy_source(generator, j), dt)
             continue
-        if not fresh and work is not words:
-            work.copy_(words)
-        fresh = False
+        slot = held_set.index(j)
+        buf = local[slot] if whole else rng
+        if buf.data_ptr() != (source.words.data_ptr()
+                              if source.words is not None else -1):
+            source.fill(buf, lo * BLOCK)
+        if ecc is not None and parity is None:
+            parity = ecc.encode_arena(buf)
         if fault is not None:
-            fault.corrupt(arena.unpack(work, global_spec),
-                          copy_source(generator, j), dt)
+            fault.corrupt_range(buf, global_spec, lo * BLOCK,
+                                copy_source(generator, j), dt)
         if ecc is not None:
-            # this rank's range scrubbed by the kernel, the group's
-            # corrections swapped into the whole working arena
-            _, counts = scrub_joined(ecc.scrub_arena, mesh, scrub_axes,
-                                     work, parity.clone(), lo)
+            fixed, _, counts = scrub_range(ecc.scrub_arena, mesh, scrub_axes,
+                                           buf, parity.clone())
+            if fixed.data_ptr() != buf.data_ptr():
+                buf.copy_(fixed)
             total += counts
-        if local.data_ptr() != work.data_ptr():
-            _keep_slices(local[held_set.index(j)], lspec, work, global_spec,
-                         slices)
+        if not whole:
+            _redistribute(rng, lo * BLOCK, global_spec, local[slot], lspec,
+                          slices, mesh, scrub_axes)
+    del rng
     if total is not None:
         # summed over the scrub group by each scrub; the other axes (the
         # copy axis of a folded mesh) add the other copies' counts
         total = mesh.all_reduce(total, tuple(
             a for a in mesh.axis_names if a not in scrub_axes))
-    return _store(local, lspec, global_spec, specs, mesh, held), total
+    return _store(local, lspec, global_spec, specs, mesh, held, keep), total
+
+
+def _boxes(shape: Tuple[int, ...], a: int, b: int, at: int = 0):
+    """The flat element range [a, b) of a `shape` tensor as contiguous
+    boxes: (flat offset, a slice per dimension), in flat order."""
+    if a >= b:
+        return []
+    if not shape:
+        return [(at, ())]
+    inner = math.prod(shape[1:])
+    i0, r0 = divmod(a, inner)
+    i1, r1 = divmod(b, inner)
+    rest = tuple(slice(0, s) for s in shape[1:])
+    out = []
+    if r0:
+        stop = r1 if i1 == i0 else inner
+        out += [(o, (slice(i0, i0 + 1),) + sl) for o, sl in
+                _boxes(shape[1:], r0, stop, at + i0 * inner)]
+        if i1 == i0:
+            return out
+        i0 += 1
+    if i1 > i0:
+        out.append((at + i0 * inner, (slice(i0, i1),) + rest))
+    if r1:
+        out += [(o, (slice(i1, i1 + 1),) + sl) for o, sl in
+                _boxes(shape[1:], 0, r1, at + i1 * inner)]
+    return out
+
+
+def _bits(x: torch.Tensor) -> torch.Tensor:
+    """The same-width integer view of a leaf (exact copies of any bits)."""
+    return x.view(torch.int16 if x.element_size() == 2 else torch.int32)
+
+
+def _scatter(piece: torch.Tensor, g0: int, global_spec, dst: torch.Tensor,
+             lspec, slices) -> None:
+    """dst's leaves := what of this rank's slices lies in `piece`, the
+    global arena's words [g0, g0 + piece.numel())."""
+    g1 = g0 + piece.numel()
+    for leaf, ll, sl in zip(global_spec.leaves, lspec.leaves, slices):
+        a = min(max(g0 - leaf.offset, 0), leaf.n_words)
+        b = min(max(g1 - leaf.offset, a), leaf.n_words)
+        if a == b:
+            continue
+        n = math.prod(leaf.shape)
+        w = piece[leaf.offset + a - g0:leaf.offset + b - g0]
+        if leaf.dtype == torch.bfloat16:
+            e0, e1 = 2 * a, min(2 * b, n)
+            src = w.view(torch.int16)[:e1 - e0]
+        else:
+            e0, e1, src = a, b, w
+        out = _bits(arena.words_to_leaf(
+            dst[ll.offset:ll.offset + ll.n_words], ll))
+        for off, box in _boxes(leaf.shape, e0, e1):
+            meet = tuple(slice(max(x.start, y.start), min(x.stop, y.stop))
+                         for x, y in zip(box, sl))
+            if any(m.start >= m.stop for m in meet):
+                continue
+            ext = tuple(x.stop - x.start for x in box)
+            part = src[off - e0:off - e0 + math.prod(ext)].view(ext)
+            out[tuple(slice(m.start - y.start, m.stop - y.start)
+                      for m, y in zip(meet, sl))] = part[tuple(
+                          slice(m.start - x.start, m.stop - x.start)
+                          for m, x in zip(meet, box))]
+
+
+def _redistribute(rng: torch.Tensor, w0: int, global_spec, dst, lspec,
+                  slices, mesh, axes) -> None:
+    """Every rank of the scrub group (`axes`) sends each word of its range
+    (`rng`, from global word `w0`) to the ranks whose slices hold it: an
+    exact all-gather (`shards.Exchange`: a collective, or on a shared card
+    the peers' staging buffers) of `STEP`-word pieces of every range, from
+    which each rank keeps what its slices hold."""
+    from .shards import exchange_for
+    n = mesh.group_size(axes)
+    per = -(-global_spec.n_blocks // n) * BLOCK
+    starts = [min(global_spec.n_words, i * per) for i in range(n)]
+    sizes = [min(global_spec.n_words, s + per) - s for s in starts]
+    step = min(STEP, per)
+    piece = torch.zeros(step, dtype=torch.int32, device=rng.device)
+    ex = exchange_for(mesh)
+    for k in range(0, per, step):
+        m = max(0, min(step, rng.numel() - k))
+        piece[:m] = rng[k:k + m]
+        piece[m:] = 0
+        for i, (_, got) in enumerate(ex.parts(piece, axes)):
+            c = max(0, min(step, sizes[i] - k))
+            _scatter(got[:c], starts[i] + k, global_spec, dst, lspec,
+                     slices)
 
 
 def place_store(words: torch.Tensor, global_spec: arena.ArenaSpec,
                 specs: Sequence[tuple], mesh,
-                held: Optional[Tuple[int, ...]]) -> ShardedStore:
+                held: Optional[Tuple[int, ...]], keep=None) -> ShardedStore:
     """Place an already built store -- `words` (n_words,) or (3, n_words)
     -- on `mesh`: this rank's slices of the copies it holds, nothing drawn
     or scrubbed (a checkpoint restore, an externally built store)."""
@@ -218,24 +409,27 @@ def place_store(words: torch.Tensor, global_spec: arena.ArenaSpec,
                         device=words.device)
     for slot, row in enumerate(rows):
         _keep_slices(local[slot], lspec, row, global_spec, slices)
-    return _store(local, lspec, global_spec, specs, mesh, held)
+    return _store(local, lspec, global_spec, specs, mesh, held, keep)
 
 
 def empty_store(global_spec: arena.ArenaSpec, specs: Sequence[tuple], mesh,
-                held: Optional[Tuple[int, ...]], device=None) -> ShardedStore:
+                held: Optional[Tuple[int, ...]], device=None,
+                keep=None) -> ShardedStore:
     """A store of this rank's layout whose words are not set (the dry
     run's, on ``meta``: nothing is drawn, scrubbed or allocated)."""
     _, lspec = _layout(global_spec, specs, mesh)
     local = torch.empty((1 if held is None else len(held), lspec.n_words),
                         dtype=torch.int32, device=device or mesh.device)
-    return _store(local, lspec, global_spec, specs, mesh, held)
+    return _store(local, lspec, global_spec, specs, mesh, held, keep)
 
 
 def _share(store: ShardedStore) -> ShardedStore:
     """Map every other rank's local arena here when the ranks share one
-    card (module doc); collective."""
+    card and some leaf is gathered across them (module doc); collective."""
     mesh = store.mesh
-    if not mesh.shares_card:
+    if not mesh.shares_card or not any(
+            mesh.group_size(_gather_axes(store, li)) > 1
+            for li in range(len(store.specs))):
         return store
     import torch.distributed as dist
     from torch.multiprocessing.reductions import reduce_tensor
@@ -289,25 +483,44 @@ def _leaf_view(words: torch.Tensor, spec: arena.ArenaSpec, li: int,
                                leaf)
 
 
+def _gather_axes(store: ShardedStore, li: int) -> Tuple[str, ...]:
+    """The mesh axes leaf `li` is gathered over: those of every sharded
+    dimension but its kept ones."""
+    keep = store.keep[li] if store.keep else ()
+    return tuple(a for d, e in enumerate(store.specs[li]) if d not in keep
+                 for a in spec_axes(e))
+
+
 def _gather(store: ShardedStore, li: int, slot: Optional[int],
             idx: Tuple[int, ...]) -> torch.Tensor:
-    """Leaf `li` (at stacked index `idx`) whole, from the ranks of its
-    shard group."""
+    """Leaf `li` (at stacked index `idx`) from the ranks of its shard
+    group: whole, but along its kept dimensions, where it stays this
+    rank's slice."""
     mesh, spec = store.mesh, store.specs[li]
     shape = store.global_spec.leaves[li].shape
     local = _leaf_view(store.words, store.spec, li, slot)[idx]
-    axes = tuple(a for e in spec for a in spec_axes(e))
+    keep = store.keep[li] if store.keep else ()
+    axes = _gather_axes(store, li)
     if not axes or mesh.group_size(axes) <= 1:
         return local
     n = len(idx)
+
+    def placed(coords):
+        # the slice of a rank at `coords` in the gathered tensor: its own
+        # along the gathered dimensions, all of this rank's along the kept
+        sl = shard_slices(shape, spec, mesh, coords)
+        return tuple(slice(0, local.shape[d - n]) if d in keep else x
+                     for d, x in enumerate(sl))[n:]
+
+    full_shape = tuple(local.shape[d - n] if d in keep else shape[d]
+                       for d in range(n, len(shape)))
     if store.peers is None:
-        sl = shard_slices(shape, spec, mesh, mesh.coords)
-        return replicate(local, shape[n:], sl[n:], axes, mesh)
-    full = torch.empty(shape[n:], dtype=local.dtype, device=local.device)
+        return replicate(local, full_shape, placed(mesh.coords), axes, mesh)
+    full = torch.empty(full_shape, dtype=local.dtype, device=local.device)
     for r in mesh.group_ranks(axes):
         src = local if r == mesh.rank else \
             _leaf_view(store.peers[r], store.spec, li, slot)[idx]
-        full[shard_slices(shape, spec, mesh, mesh.coords_of(r))[n:]] = src
+        full[placed(mesh.coords_of(r))] = src
     return full
 
 
@@ -398,8 +611,9 @@ def _wrap(node):
 
 def gathered(store: ShardedStore, copy: Optional[int] = None):
     """The params tree the model reads from `store` (copy `copy` of a
-    copy-axis store): a lazy view whose leaves are gathered whole when
-    read and stacked layers one layer at a time (module doc)."""
+    copy-axis store): a lazy view whose leaves are gathered when read --
+    whole, but along their kept dimensions -- and stacked layers one layer
+    at a time (module doc)."""
     from ..models.transformer import STACKED
     slot = store.slot(copy)
     leaves = [_Leaf(store, li, slot)

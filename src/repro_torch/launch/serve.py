@@ -66,6 +66,7 @@ writes ``--trace`` and ``--metrics``:
 from __future__ import annotations
 
 import argparse
+import contextlib
 import time
 from typing import Any, Callable, Dict, Optional, Sequence
 
@@ -86,6 +87,7 @@ from ..reliability import (ArenaEcc, Compose, Scheme, Tmr, Unprotected,
 from .batching import BatchSpec, ContinuousBatcher, Request, poisson_trace
 from .engine import GenerationEngine, _sync
 from .mesh import make_test_mesh, parse_mesh, spawn
+from .placement import KeyedParams
 
 __all__ = ["serve", "serve_server", "make_inputs", "make_fault",
            "FAULTS", "main"]
@@ -132,7 +134,7 @@ def _write_records(tracer: Tracer, record: Dict[str, Any], kind: str,
 
 
 def make_inputs(cfg: ModelConfig, batch: int, prompt_len: int, seed,
-                device) -> Dict[str, Any]:
+                device, lazy: bool = False) -> Dict[str, Any]:
     """Random-init parameters (into an arena), prompt tokens and the stub
     modality inputs, drawn in that order from one generator seeded with
     `seed` on `device`: ``modality`` holds vis_emb (batch, vis_tokens,
@@ -141,12 +143,15 @@ def make_inputs(cfg: ModelConfig, batch: int, prompt_len: int, seed,
 
     `seed` may be a `core.prng` key instead: each draw then takes that one
     key, unsplit, as the reference's serve driver does (`materialize`,
-    `randint` for the prompts, `normal` for the modality inputs)."""
+    `randint` for the prompts, `normal` for the modality inputs).  With
+    `lazy` the params are then a `placement.KeyedParams`, never drawn
+    whole: a mesh's ranks draw their block ranges of them alone."""
     device = resolve_device(device)
     if prng.is_key(seed):
         key = seed.to(device)
-        params = P.materialize(T.model_specs(cfg), key, cfg.param_dtype,
-                               device)
+        params = KeyedParams(T.model_specs(cfg), key, cfg.param_dtype,
+                             device) if lazy else \
+            P.materialize(T.model_specs(cfg), key, cfg.param_dtype, device)
         modality = {}
         if cfg.family == "vlm":
             modality["vis_emb"] = prng.normal(
@@ -157,6 +162,8 @@ def make_inputs(cfg: ModelConfig, batch: int, prompt_len: int, seed,
         return {"params": params, "modality": modality,
                 "tokens": prng.randint(key, (batch, prompt_len), 0,
                                        cfg.vocab)}
+    if lazy:
+        raise ValueError("lazy params are drawn from a core.prng key")
     g = torch.Generator(device=device).manual_seed(seed)
     params = P.materialize(T.model_specs(cfg), g, cfg.param_dtype, device)
     tokens = torch.randint(0, cfg.vocab, (batch, prompt_len), generator=g,
@@ -179,7 +186,8 @@ def serve(cfg: ModelConfig, params: Any, tokens: torch.Tensor,
           trace_path: Optional[str] = None,
           metrics_path: Optional[str] = None, device=None,
           modality: Optional[Dict[str, torch.Tensor]] = None,
-          mesh=None, rules=None) -> Dict[str, Any]:
+          mesh=None, rules=None, reference: Optional[torch.Tensor] = None,
+          watch_prepare=None) -> Dict[str, Any]:
     """Prepare the scheme's store under `fault` at rate `p_bit`, run one
     untimed warmup generation and one timed one (chunked when `chunk`),
     fetch the telemetry once, and compare with a clean run.  Prints the
@@ -192,7 +200,13 @@ def serve(cfg: ModelConfig, params: Any, tokens: torch.Tensor,
     With `mesh` (this process is one of its ranks) the store is this
     rank's shard, built in the params' own arena where the rank holds one
     copy (`prepare(donate=True)`), so the clean run the agreement compares
-    with goes first; rank 0 alone prints and writes the files."""
+    with goes first; rank 0 alone prints and writes the files.  `params`
+    may then be a `placement.KeyedParams` (`make_inputs(lazy=True)`): no
+    rank holds them whole, and the clean run is a store built the same
+    way, without faults, served on the mesh.  `reference`: the clean
+    run's tokens when they are at hand (no clean run is made);
+    `watch_prepare`: a context manager entered around the store's build
+    (a `placement.LargestAllocation`, say)."""
     device = resolve_device(device if mesh is None else mesh.device)
     lead = mesh is None or mesh.rank == 0
     emit = _log if lead else _quiet
@@ -205,15 +219,23 @@ def serve(cfg: ModelConfig, params: Any, tokens: torch.Tensor,
                            device=device, cost_spec=cost_spec, mesh=mesh,
                            rules=rules)
     model = make_fault(fault, p_bit)
-    ref = None
-    if mesh is not None and p_bit:
+    ref = reference
+    if ref is None and p_bit and isinstance(params, KeyedParams):
+        # the clean run: a store of the same source without faults, on
+        # the mesh, dropped before the protected store is built
+        clean = GenerationEngine(cfg, gen=gen, execution=engine,
+                                 device=device, mesh=mesh, rules=rules)
+        ref = clean.generate(clean.prepare(params)[0], batch)[0]
+        del clean
+    elif ref is None and p_bit and mesh is not None:
         # every rank runs the clean reference on its own whole params
         # (no collective; the params are donated to the store below)
         ref = GenerationEngine(cfg, gen=gen, execution=engine,
                                device=device).generate(params, batch)[0]
     fault_gen = torch.Generator(device=device).manual_seed(seed + 100)
     t0 = time.perf_counter()
-    with tracer.trace("prepare", scheme=scheme.name):
+    with tracer.trace("prepare", scheme=scheme.name), \
+            (watch_prepare or contextlib.nullcontext()):
         store, prep = eng.prepare(params, generator=fault_gen, fault=model,
                                   donate=mesh is not None)
         _sync(device)

@@ -13,6 +13,15 @@ Supports llama4-style (128 experts, top-1, a shared expert, interleaved)
 and phi3.5-moe-style (16 experts, top-2) from the same code path.  The
 expert FFN is two plain batched products, as in the reference (which
 computes them outside any Pallas kernel).
+
+Where the layer gets this rank's experts alone (a serving store keeps the
+``expert`` axis local, `launch.placement`), the FFN runs where they live:
+the reference constrains the (G, E, C, D) dispatch buffer to ("batch",
+"expert", ...) so GSPMD computes each expert on its owner; here every
+rank's buffers are gathered over the expert axes, each rank computes its
+experts' rows of every group and the rows go back (`_expert_parallel`).
+Routing, dispatch and the combine stay per token group, and the combine
+adds at most top-k contributions onto zero, so it stays exact.
 """
 from __future__ import annotations
 
@@ -23,7 +32,7 @@ import torch
 import torch.nn.functional as F
 
 from ..pshard import (ambient_batch_shards, ambient_batch_sum,
-                      ambient_mesh, ambient_rules)
+                      ambient_mesh, ambient_rules, spec_axes, spec_for)
 from .config import ModelConfig
 from .nn import gelu, mlp_apply, mlp_specs
 from .params import Spec
@@ -105,13 +114,74 @@ def dispatch(expert_idx: torch.Tensor, n_experts: int, capacity: int):
     return order, sorted_tok, dest, keep
 
 
-def moe_apply(p: dict, cfg: ModelConfig,
-              x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+def _activate(cfg: ModelConfig, h: torch.Tensor) -> torch.Tensor:
+    """The expert FFN's activation of the up projection (E', ..., F)."""
+    f = cfg.moe_dff or cfg.d_ff
+    if cfg.act in ("swiglu", "geglu"):
+        act = F.silu if cfg.act == "swiglu" else gelu
+        return h[..., :f] * act(h[..., f:])
+    # the reference's ungated expert: relu2, else silu
+    return F.relu(h) ** 2 if cfg.act == "relu2" else F.silu(h)
+
+
+def _ffn(cfg: ModelConfig, x: torch.Tensor, w_up: torch.Tensor,
+         w_down: torch.Tensor) -> torch.Tensor:
+    """Two batched products of dispatch buffers x (G, E', C, D) under E'
+    experts' weights in x's dtype."""
+    h = _activate(cfg, torch.einsum("gecd,edf->gecf", x, w_up))
+    return torch.einsum("gecf,efd->gecd", h, w_down)
+
+
+def _experts(cfg: ModelConfig, expert_in: torch.Tensor, p) -> torch.Tensor:
+    """The expert FFN of dispatch buffers (G, E, C, D) under p's ``w_up``
+    and ``w_down``, each read once and in turn (a leaf gathered when read
+    is dropped before the next is read).  Where ``w_up`` holds E / n of
+    the experts, they are computed where they live
+    (`_expert_parallel`)."""
+    dt = expert_in.dtype
+    w_up = p["w_up"].to(dt)
+    if w_up.shape[0] != cfg.moe_experts:
+        return _expert_parallel(cfg, expert_in, w_up, p["w_down"].to(dt))
+    h = _activate(cfg, torch.einsum("gecd,edf->gecf", expert_in, w_up))
+    del w_up
+    return torch.einsum("gecf,efd->gecd", h, p["w_down"].to(dt))
+
+
+def _expert_parallel(cfg: ModelConfig, expert_in: torch.Tensor,
+                     w_up: torch.Tensor, w_down: torch.Tensor) -> torch.Tensor:
+    """The expert FFN where the experts live: `w_up` and `w_down` hold
+    this rank's E / n experts (its slice along the ``expert`` axes of the
+    ambient mesh, n ranks).  Every rank's dispatch buffers are gathered
+    over those axes (an exact all-gather, `launch.shards.Exchange`); the
+    rank runs its experts on every group's rows for them (n G rows of C
+    slots an expert, in the ranks' order) and the outputs are gathered
+    back, each rank keeping its own groups' rows of every expert.  Returns
+    (G, E, C, D) as `_experts` does."""
+    from ..launch.shards import exchange_for
+    mesh, E = ambient_mesh(), cfg.moe_experts
+    axes = spec_axes(spec_for((E,), ("expert",), mesh, ambient_rules())[0])
+    n, El = mesh.group_size(axes), w_up.shape[0]
+    if n * El != E:
+        raise ValueError(f"{El} local experts on an expert group of {n} "
+                         f"ranks: the layer has {E}")
+    k, G = mesh.index_in(axes), expert_in.shape[0]
+    ex = exchange_for(mesh)
+    rows = torch.cat([x[:, k * El:(k + 1) * El]
+                      for _, x in ex.parts(expert_in, axes)])
+    out = _ffn(cfg, rows, w_up, w_down)                     # (n G, El, C, D)
+    return torch.cat([y[k * G:(k + 1) * G]
+                      for _, y in ex.parts(out, axes)], dim=1)
+
+
+def moe_apply(p: dict, cfg: ModelConfig, x: torch.Tensor,
+              experts=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """x (B, S, D) -> (output (B, S, D), the Switch load-balance aux loss,
-    a 0-d fp32)."""
+    a 0-d fp32).  `experts`, when given, stands for the expert FFN: a
+    function of the dispatch buffers (G, E, C, D) to the experts' outputs
+    of the same shape (a check that applies the experts shard by
+    shard)."""
     B, S, D = x.shape
     E, K = cfg.moe_experts, cfg.moe_topk
-    f = cfg.moe_dff or cfg.d_ff
     T = B * S
     dt = x.dtype
     G = _dp_groups(T)
@@ -149,15 +219,9 @@ def moe_apply(p: dict, cfg: ModelConfig,
         .index_copy(0, dest[g], src[g]) for g in range(G)])
     expert_in = buf[:, :E * C].reshape(G, E, C, D)
 
-    # --- expert FFN ----------------------------------------------------------
-    h = torch.einsum("gecd,edf->gecf", expert_in, p["w_up"].to(dt))
-    if cfg.act in ("swiglu", "geglu"):
-        act = F.silu if cfg.act == "swiglu" else gelu
-        h = h[..., :f] * act(h[..., f:])
-    else:
-        # the reference's ungated expert: relu2, else silu
-        h = F.relu(h) ** 2 if cfg.act == "relu2" else F.silu(h)
-    expert_out = torch.einsum("gecf,efd->gecd", h, p["w_down"].to(dt))
+    # --- expert FFN: here, or where the experts live ---------------------------
+    expert_out = experts(expert_in) if experts is not None \
+        else _experts(cfg, expert_in, p)
 
     # --- combine, in the compute dtype ---------------------------------------
     rows = expert_out.reshape(G, E * C, D)

@@ -20,7 +20,8 @@ import torch
 from ..core import arena, prng
 from ..core import tree as T
 
-__all__ = ["Spec", "layout", "materialize", "abstractify", "count_params",
+__all__ = ["Spec", "layout", "materialize", "fill_range", "abstractify",
+           "count_params",
            "from_numpy", "train_state_from_reference", "partition_specs"]
 
 
@@ -77,20 +78,70 @@ def materialize(tree: Any, generator: torch.Generator,
             continue
         if s.init == "ones":
             x.fill_(1)
+        elif k is not None:
+            x.view(-1).copy_(_keyed(s, k, 0, x.numel()))
         elif s.init == "scaled":
-            fan_in = s.shape[0] if len(s.shape) > 1 else max(s.shape[0], 1)
-            if k is None:
-                x.normal_(0.0, 1.0 / fan_in ** 0.5, generator=generator)
-            else:   # the float32 root, exact; a tensor divisor, since CUDA
-                # divides by a host scalar through its reciprocal
-                root = torch.tensor(float(np.float32(np.sqrt(fan_in))),
-                                    device=x.device)
-                x.copy_(prng.normal(k, s.shape) / root)
-        elif k is None:
-            x.normal_(0.0, s.scale, generator=generator)
+            x.normal_(0.0, 1.0 / _fan_in(s) ** 0.5, generator=generator)
         else:
-            x.copy_(prng.normal(k, s.shape) * float(np.float32(s.scale)))
+            x.normal_(0.0, s.scale, generator=generator)
     return params
+
+
+def _fan_in(s: Spec) -> int:
+    return s.shape[0] if len(s.shape) > 1 else max(s.shape[0], 1)
+
+
+def _keyed(s: Spec, k: torch.Tensor, start: int, count: int) -> torch.Tensor:
+    """Flat elements [start, start + count) of a normal or scaled leaf
+    drawn under its key `k`, float32, as the reference scales them."""
+    x = prng.normal(k, count, start)
+    if s.init == "scaled":
+        # the float32 root, exact; a tensor divisor, since CUDA divides by
+        # a host scalar through its reciprocal
+        root = torch.tensor(float(np.float32(np.sqrt(_fan_in(s)))),
+                            device=x.device)
+        return x / root
+    return x * float(np.float32(s.scale))
+
+
+#: the most elements `fill_range` draws at once
+FILL_STEP = 1 << 26
+
+
+def fill_range(tree: Any, key: torch.Tensor, words: torch.Tensor, lo: int,
+               dtype: Any = "float32") -> None:
+    """Words [lo, lo + words.numel()) of the arena `materialize(tree, key,
+    dtype)` draws, into `words` (int32, on the key's device), with nothing
+    before them drawn: every keyed value is a function of (its leaf's key,
+    its flat index), so a range of the arena -- a mesh rank's block range
+    -- is drawn alone, `FILL_STEP` elements at a time.  Pad words are
+    zero.  A `torch.Generator` cannot fill the middle of a leaf without
+    drawing what comes before it, so this takes a key only."""
+    if not prng.is_key(key):
+        raise TypeError("fill_range draws from a core.prng key")
+    spec = layout(tree, dtype)
+    hi = lo + words.numel()
+    words.zero_()
+    specs = T.leaves(tree)
+    for s, leaf, k in zip(specs, spec.leaves, prng.split(key, len(specs))):
+        a = min(max(lo - leaf.offset, 0), leaf.n_words)
+        b = min(max(hi - leaf.offset, a), leaf.n_words)
+        if a == b or s.init == "zeros":
+            continue
+        w = words[leaf.offset + a - lo:leaf.offset + b - lo]
+        if leaf.dtype == torch.bfloat16:    # two halves a word, LSB first
+            n = 1
+            for d in leaf.shape:
+                n *= d
+            e0, e1 = 2 * a, min(2 * b, n)
+            x = w.view(torch.bfloat16)[:e1 - e0]
+        else:
+            e0, x = a, w.view(leaf.dtype)
+        if s.init == "ones":
+            x.fill_(1)
+            continue
+        for start, count in prng.chunks(x.numel(), FILL_STEP):
+            x[start:start + count] = _keyed(s, k, e0 + start, count)
 
 
 def abstractify(tree: Any, mesh, dtype: Any = "float32", rules=None) -> Any:

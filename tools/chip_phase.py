@@ -21,6 +21,13 @@ after a change to one phase's code:
                                       # inside 13)
     python3 tools/chip_phase.py 16    # the keyed draws against the CPU
                                       # and jax's digests (run_prng_path)
+    python3 tools/chip_phase.py 17    # experts where they live, stores
+                                      # from block ranges: phi3.5-moe on
+                                      # 4x1 gloo ranks of one card
+                                      # (run_expert_mesh_path)
+    python3 tools/chip_phase.py 17b   # llama4-maverick at full width on
+                                      # 4x1 over nccl (run_expert_mesh_four;
+                                      # needs four cards on one host)
 
 from the repo root.
 """
@@ -40,7 +47,8 @@ PHASES = {"10": C.run_train_path, "11": C.run_zoo_path,
           "12": C.run_family_path, "13": C.run_mesh_path,
           "13cd": C.run_mesh_one_shot, "14": C.run_train_mesh_path,
           "14d": C.run_train_mesh_four, "15": C.run_dryrun_path,
-          "16": C.run_prng_path}
+          "16": C.run_prng_path, "17": C.run_expert_mesh_path,
+          "17b": C.run_expert_mesh_four}
 
 
 def main(argv=None) -> int:
