@@ -225,8 +225,11 @@ Phases (any failure raises and exits non-zero; nothing is caught):
  13. the serving mesh (`run_mesh_path`; `tools/chip_phase.py 13`): the
      sharded scrubs against one launch, `serve --mesh 3x1` with folded TMR
      copies (`tmr-parallel` and `ecc+tmr-parallel` at 16 of 32 layers),
-     `--mesh 2x2` and `1x1` one-shot and the 2x1 server against the runs
-     alone, and the transfer guard;
+     `--mesh 2x2` and `1x1` one-shot (weights at std 0.02; the 2x2
+     ranks split heads, ff and vocab: their fp32 logits within 1e-5 of
+     one process's, their bf16 logits within twice the bf16 run alone's
+     distance of the fp32 run alone's) and the 2x1 server against the
+     runs alone, and the transfer guard;
  14. the training step on a mesh (`run_train_mesh_path`; `tools/
      chip_phase.py 14`, and `14d` on four cards): `make_train_step(
      param_pspecs, grad_dtype)` on four gloo ranks sharing the card --
@@ -293,7 +296,31 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      (`tools/chip_phase.py 17b`): llama4-maverick at full width, 2 of 48
      layers, 4x1 over nccl under its serving rules, `off` / `ecc` /
      `hsiao`, with the dry run's exchanges and generate peak, the strict
-     guard and a MoE layer recomputed from each rank's shard in turn.
+     guard and a MoE layer recomputed from whole leaves.
+     (a) and phase 13 (c) also hold each `ecc` rank's generate peak
+     within its parity of the `off` rank's (the dropped `off` store is
+     freed: no peer maps a store's arena, `launch.placement`).
+ 18. heads, ff and vocab computed where they live on the serving mesh
+     (`run_tensor_mesh_path`; `tools/chip_phase.py 18`): flash timed at a
+     rank's new head counts; then (a) fp32 compute, gloo ranks sharing the
+     card, batch 4 x 256, gen 8, flash, `off` / `ecc` at p_bit 1e-9 from a
+     keyed arena of weights at std 0.02 (`TAME_STD`, the cross-checks'
+     scale; 13 (c) draws its weights so too): phi3-mini at 4 layers as
+     1x2 and 2x2, phi3.5-moe at 3
+     of 32 layers as 2x2 with experts over data and ff over model; gates:
+     tokens and counters equal one process's that serves each data
+     group's rows from the same key, every step's first logits within
+     1e-5 of the largest, every read of a wq / wkv / wo / w_up / w_down /
+     head its 1 / model slice and nothing from that read to the next as
+     large as the whole leaf, the exchanges of a generate as the dry run
+     records them, the `ecc` generate peaks within the parity of `off`'s.
+     (b) runs on four cards alone (`tools/chip_phase.py 18b`, nccl):
+     llama4-maverick at full width, 2 of 48 layers, as 2x2 under its
+     serving rules (`off` / `ecc` / `hsiao`, gen 32, bf16), counters equal
+     phase 17 (b)'s, MoE layer 0 no further from its fp32 recomputation
+     from whole leaves (ff slices joined) than twice the bf16
+     recomputation, and phi3-mini at full width and depth as 1x4 (`ecc`),
+     with the dry run's exchanges and generate peak and the reads' gates.
 
 The second-to-last line is a JSON object of per-kernel numbers; the last is
 {"ok": true, "device": {...}}.  Times are CUDA-event means on this card
@@ -301,6 +328,7 @@ The second-to-last line is a JSON object of per-kernel numbers; the last is
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import subprocess
@@ -430,14 +458,19 @@ def main() -> int:
     # 17. experts where they live, the store from block ranges (its ranks'
     # launches in its count; (b) needs four cards: tools/chip_phase.py 17b)
     experts = run_expert_mesh_path(torch, card, dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    # 18. heads, ff and vocab where they live (its ranks' launches in its
+    # count; (b) needs four cards: tools/chip_phase.py 18b)
+    tensor = run_tensor_mesh_path(torch, card, dev)
     paths = (launches, server, netlist, campaigns, serve_rest, train, zoo,
-             families, mesh, keyed, experts)
+             families, mesh, keyed, experts, tensor)
     for name, row in rows.items():
         row["launches"] = sum(p.get(name, 0) for p in paths)
         check(row["launches"] > 0, f"{name} never launched on the main path")
     log("launches by path (one-shot ecc+tmr-parallel / server, 4 runs / "
         "netlist / campaigns / phase 9 / train / zoo / families / mesh / "
-        "keyed / experts): "
+        "keyed / experts / tensor): "
         + ", ".join(f"{name} " + "/".join(str(p.get(name, 0)) for p in paths)
                     for name in rows))
 
@@ -2946,16 +2979,17 @@ def reckon(cfg, schemes, what="", phase="11"):
             f"{s} {P4_PEAK_RATIO[s] * copy:.1f} GB" for s in schemes))
 
 
-def check_flash_zoo(torch, dev):
-    """Flash against its plain version at the phase's hd=128 GQA shapes,
-    timed with SDPA beside it (not counted as the path's launches)."""
+def check_flash_zoo(torch, dev, shapes=None):
+    """Flash against its plain version at the phase's hd=128 GQA shapes
+    (or `shapes`), timed with SDPA beside it (not counted as the path's
+    launches)."""
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import (flash_attention,
                                                      flash_attention_ref)
 
     g = torch.Generator(device=dev).manual_seed(SEED + 11)
     worst = 0.0
-    for what, B, S, H, KV, hd in P11_FLASH:
+    for what, B, S, H, KV, hd in shapes or P11_FLASH:
         q, k, v = (torch.randn((B, S, h, hd), device=dev, generator=g)
                    .to(torch.bfloat16) for h in (H, KV, KV))
         got = flash_attention(q, k, v, causal=True)
@@ -3789,13 +3823,25 @@ P13_FOLD = (("tmr-parallel", 16), ("ecc+tmr-parallel", 16))
 P13_DEPTH = 4
 P13_GEN_C = 4
 P13_MESHES = ((2, 2), (1, 1))
-#: (c)'s bound on |meshed - unmeshed| first-step logits, as a share of
-#: the unmeshed run's largest |logit|: the 2x2 ranks' two-row batch slices
-#: could take other cuBLAS algorithms than the whole batch (bf16 products,
-#: fp32 sums), so near-ties could flip a token.  On an H100 both the 2x2
-#: and the 1x1 worlds have given logits equal to the bit (PERF.md, phase
-#: 13); the 1x1 rank, whose slice is the whole batch, is held to that
-P13_LOGIT_REL = 1e-3
+#: (c)'s runs: `off` and `ecc` in the serving precision (bf16), and `off`
+#: in fp32 compute (``@float32``), the reference both are held to
+P13_RUNS_C = ("off", "ecc", "off@float32")
+P13_REF_C = "off@float32"
+#: (c)'s bound on |meshed - unmeshed| first-step logits in fp32, as a
+#: share of the unmeshed run's largest |logit| (18 (a)'s): the 2x2 ranks
+#: compute their heads and ff slices, whose products the card's GEMMs
+#: tile otherwise, and sum the partial products in rank order
+P13_LOGIT_REL = 1e-5
+#: (c)'s bf16 gate: a 2x2 rank's |bf16 - fp32 unmeshed| first-step logits
+#: at most this multiple of the unmeshed bf16 run's own |bf16 - fp32
+#: unmeshed|.  In bf16 each rank rounds its partial product before the
+#: ordered sum, one rounding more than the whole product has; the fp32
+#: runs, within 1e-5, show that the split changes nothing else.  The
+#: bound holds the bf16 mesh to the rounding of the same model unmeshed,
+#: which the run measures, not to the mesh itself.  The 1x1 rank, whose
+#: slice is the whole batch and which splits nothing, is held to the bit
+#: in both precisions
+P13_BF16_RATIO = 2.0
 #: the planted flips of (a): single flips in distinct blocks, two flips in
 #: two words of one block, two flips in one word
 P13_PLANTS = (4096, 64, 64)
@@ -4125,6 +4171,25 @@ def p13_logits(torch, eng, store, batch):
     return eng._join(store, rows, logits.float(), {})[0]
 
 
+#: the weights' scale where a check holds a mesh's logits to one
+#: process's, the cross-checks' (ROADMAP C, "Reference precision"): at the
+#: init's "scaled" rule (normal / sqrt of a stacked leaf's layer count)
+#: attention amplifies a product's reassociation -- the column slice of a
+#: product that the card's GEMM tiles otherwise (`tools/tp_reassociation.
+#: py`) -- past any bound a check could hold in fp32
+TAME_STD = 0.02
+
+
+def tame_specs(cfg):
+    """`cfg`'s Spec tree with every drawn leaf normal(0, TAME_STD)."""
+    from repro_torch.core import tree as T
+    from repro_torch.models.params import Spec
+    from repro_torch.models.transformer import model_specs
+    return T.map_tree(
+        lambda s: s if s.init in ("zeros", "ones") else
+        Spec(s.shape, s.axes, "normal", TAME_STD, s.dtype), model_specs(cfg))
+
+
 def p13_knobs() -> dict:
     """What the rank functions take from this module's settings (a
     spawned rank imports the module afresh)."""
@@ -4143,18 +4208,28 @@ def p13_one_shot(dev, shape, cfg, runs, gen: int, strict: bool, knobs):
     from repro_torch.launch.serve import make_inputs, serve
     from repro_torch.obs import count_host_transfers, fetch_telemetry
     from repro_torch.reliability import parse_scheme
+    from repro_torch.models.params import materialize
     mesh = make_test_mesh(*shape, device=dev) if shape else None
     out = {}
     for name in runs:
-        p_bit = knobs["p_bit"] if name != "off" else 0.0
+        # "scheme@dtype": the scheme in that compute dtype
+        scheme, _, dtype = name.partition("@")
+        run_cfg = cfg.replace(compute_dtype=dtype) if dtype else cfg
+        p_bit = knobs["p_bit"] if scheme != "off" else 0.0
         inputs = make_inputs(cfg, knobs["batch"], knobs["prompt"], SEED, dev)
+        # every rank and run draws the same weights at TAME_STD: the
+        # logits gates hold the 2x2 ranks' split products to one
+        # process's
+        inputs["params"] = materialize(
+            tame_specs(cfg), torch.Generator(device=dev).manual_seed(SEED),
+            cfg.param_dtype, dev)
         batch = {"tokens": inputs["tokens"]}
         if dev.type == "cuda":
             torch.cuda.empty_cache()
             torch.cuda.reset_peak_memory_stats()
         kernels.reset_launch_counts()
-        res = serve(cfg, inputs["params"], inputs["tokens"],
-                    parse_scheme(name), gen=gen, p_bit=p_bit, seed=SEED,
+        res = serve(run_cfg, inputs["params"], inputs["tokens"],
+                    parse_scheme(scheme), gen=gen, p_bit=p_bit, seed=SEED,
                     device=dev, mesh=mesh)
         launches = kernels.launch_counts()
         eng, store = res["engine"], res["store"]
@@ -4162,6 +4237,10 @@ def p13_one_shot(dev, shape, cfg, runs, gen: int, strict: bool, knobs):
         # (d) one more generate from serve's store (warmed up by serve)
         if dev.type == "cuda":
             torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() \
+            if dev.type == "cuda" else 0
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats()
         c0 = collectives_issued()
         with count_host_transfers(strict=strict) as timed:
             toks, tel = eng.generate(store, batch)
@@ -4179,12 +4258,34 @@ def p13_one_shot(dev, shape, cfg, runs, gen: int, strict: bool, knobs):
             "syncs": (timed.syncs, fetched.syncs, timed.sites),
             "collectives": collectives,
             "launches": launches,
-            "peak": torch.cuda.max_memory_allocated()
+            "peak": max(peak, torch.cuda.max_memory_allocated())
+            if dev.type == "cuda" else 0,
+            "gen_peak": torch.cuda.max_memory_allocated()
             if dev.type == "cuda" else 0,
             "mesh": "single" if mesh is None else
             res["engine"].exec_mesh.describe()}
-        del res, eng, store, inputs
+        del res, eng, store, inputs, toks, tel
     return out
+
+
+def check_peaks_within_parity(what, ranks, cfg, n: int,
+                              runs=("off", "ecc")) -> None:
+    """Every `ecc` rank's generate peak within its parity (3/32 of its
+    block range of `cfg`'s arena over n ranks) of the matching `off`
+    rank's: the `off` store, dropped, is freed (a store whose arena peers
+    had mapped through CUDA IPC stayed allocated on its owner;
+    `launch.placement`)."""
+    off, ecc = runs
+    parity = 4 * 3 * p17_range_words(cfg, n) // 32
+    for k, r in enumerate(ranks):
+        a, b = r[off]["gen_peak"], r[ecc]["gen_peak"]
+        check(abs(b - a) <= parity, f"{what} rank {k}: the {ecc} generate "
+              f"peak {b / 1e9:.3f} GB is not within its parity "
+              f"{parity / 1e9:.3f} GB of the {off} rank's {a / 1e9:.3f} GB")
+    log(f"{what}: {ecc} generate peaks "
+        f"{[round(r[ecc]['gen_peak'] / 1e9, 3) for r in ranks]} GB within "
+        f"the parity {parity / 1e9:.3f} GB of {off}'s "
+        f"{[round(r[off]['gen_peak'] / 1e9, 3) for r in ranks]}")
 
 
 def p13_server(dev, shape, cfg, n_requests: int, knobs):
@@ -4316,15 +4417,18 @@ def run_folded_tmr(torch, card, dev):
 
 def run_mesh_one_shot(torch, card, dev):
     """(c) and (d): the one-shot serve at P13_DEPTH layers of phi3-mini's
-    width under off and ecc, with the flash kernel (phase 4's setting),
-    alone and on each of P13_MESHES; the server under ecc alone and on a
-    2x1 world.  Returns the meshed ranks' launches (the runs alone are
-    the comparison, not the mesh)."""
+    width with the flash kernel (phase 4's setting), under off and ecc in
+    bf16 and off in fp32 (P13_RUNS_C), alone and on each of P13_MESHES;
+    the server under ecc alone and on a 2x1 world.  The 2x2 ranks' fp32
+    logits are held to one process's within P13_LOGIT_REL, their bf16
+    logits to the fp32 run alone within P13_BF16_RATIO times the bf16 run
+    alone's own distance.  Returns the meshed ranks' launches (the runs
+    alone are the comparison, not the mesh)."""
     from repro_torch.launch.mesh import backend_for, spawn
     t_c = time.perf_counter()
     cfg = p13_config(P13_DEPTH).replace(attention_impl="pallas")
     copy = p11_copy_bytes(cfg) / 1e9
-    runs = ("off", "ecc")
+    runs = P13_RUNS_C
     total = {}
     log(f"phase 13 (c) at {P13_DEPTH} layers: a copy is {copy:.2f} GB; "
         f"reckoned peaks alone off {1.05 * copy:.1f} / ecc "
@@ -4350,35 +4454,57 @@ def run_mesh_one_shot(torch, card, dev):
         for r in ranks:
             for name in runs:
                 add_launches(total, r[name]["launches"])
+    ref = alone[P13_REF_C]["logits"]
     for name in runs:
         a = alone[name]
         top2 = np.sort(a["logits"], axis=-1)[..., -2:]
         gap = (top2[..., 1] - top2[..., 0]).reshape(-1)
-        tol = P13_LOGIT_REL * float(np.abs(a["logits"]).max())
+        if name == P13_REF_C:
+            tol = P13_LOGIT_REL * float(np.abs(a["logits"]).max())
+            near = tol              # a bound on |meshed - alone|
+        else:
+            # the bf16 run alone's own rounding, against fp32 alone
+            base = float(np.abs(a["logits"] - ref).max())
+            tol = P13_BF16_RATIO * base
+            near = tol + base
         for shape, ranks in meshed.items():
             for k, r in enumerate(ranks):
                 got = r[name]
                 what = f"(c) {name} {shape[0]}x{shape[1]} rank {k}"
                 check_same_run(got, a, what, tokens=False)
                 err = float(np.abs(got["logits"] - a["logits"]).max())
-                bound = 0.0 if shape == (1, 1) else tol
-                check(err <= bound, f"{what}: logits differ by {err:.3g} > "
-                      f"{bound:.3g}")
+                if shape == (1, 1):
+                    gated, bound = err, 0.0
+                elif name == P13_REF_C:
+                    gated, bound = err, tol
+                else:
+                    gated, bound = float(np.abs(got["logits"] - ref).max()), tol
+                check(gated <= bound, f"{what}: logits differ by "
+                      f"{gated:.3g} > {bound:.3g}")
                 same = (got["tokens"] == a["tokens"]).all(axis=1)
-                clear = gap > 2 * tol
+                clear = gap > 2 * near
                 check(same[clear].all(), f"{what}: tokens differ in rows "
                       f"whose top-two gap {gap} is clear of the tolerance")
                 if shape[1] == 1:
                     check(np.array_equal(got["tokens"], a["tokens"]),
                           f"{what}: tokens differ at model=1")
                 if k == 0:
-                    log(f"{what}: logits max abs err {err:.3g} (bound "
-                        f"{bound:.3g}), tokens equal "
+                    held = (f"logits max abs err {err:.3g} against alone's"
+                            if name == P13_REF_C or shape == (1, 1) else
+                            f"logits max abs err {gated:.3g} against fp32 "
+                            f"alone's ({gated / base:.3f}x the bf16 run "
+                            f"alone's {base:.3g}), {err:.3g} against bf16 "
+                            f"alone's")
+                    log(f"{what}: {held} (bound {bound:.3g}), tokens equal "
                         f"in {int(same.sum())}/{same.size} rows (top-two "
                         f"gaps {np.round(gap, 3).tolist()}), counters "
                         f"{ {q: int(v.sum()) for q, v in got['stats'].items()} }"
                         f", {got['tok_s']:.1f} tok/s ({a['tok_s']:.1f} "
                         f"alone), mesh {got['mesh']}")
+    if dev.type == "cuda":
+        for shape, ranks in meshed.items():
+            check_peaks_within_parity(f"phase 13 (c) {shape[0]}x{shape[1]}",
+                                      ranks, cfg, shape[0] * shape[1])
     # (d) the guard: no host read in the timed region, one for the fetch
     issued = {}
     for shape, ranks in [(None, [alone])] + list(meshed.items()):
@@ -5614,51 +5740,127 @@ def p17_knobs(strict: bool, moe_check: bool) -> dict:
             "moe_check": moe_check}
 
 
+#: bytes of whole experts (as stored) each step of the MoE check gathers
+#: over every owner
+P17_MOE_STEP_BYTES = 4e9
+
+
 def p17_moe_layer(torch, cfg, store, mesh, rules, seed):
-    """(b)'s MoE check on every rank: MoE layer 0 on this rank's row of a
-    seeded (n, S, D) input with its own experts (expert parallelism), and
-    the same layer recomputed here from every rank's expert shard in turn
-    (broadcast from its owner, E / n experts at a time) over the same n
-    token groups: each group routed, dispatched and combined alone, as
-    its rank does, the experts run on the n groups' stacked buffers, as
-    the owners run them.  Returns (mesh output of every row, the
-    recomputation), float32 on the host."""
-    import torch.distributed as dist
+    """(b)'s MoE check on every rank: MoE layer 0 on its data group's row
+    of a seeded (d, S, D) input with its own experts and, where ``ff`` is
+    on model, its ff slice of each (expert and tensor parallelism), and
+    the same layer recomputed here with no mesh from whole leaves: the
+    shared expert gathered whole, the routed experts gathered a few at a
+    time from every owner (its model group's ff slices joined), each of
+    the d token groups routed, dispatched and combined alone, as its
+    ranks do, the experts run on the d groups' stacked buffers.  Returns
+    (mesh output of every row, the recomputation, the recomputation in
+    fp32 where ff is split, else None), float32 on the host."""
+    import dataclasses
+    from repro_torch.core import tree as T
     from repro_torch.launch.placement import gathered
     from repro_torch.models import moe as M
-    from repro_torch.pshard import use_mesh_and_rules
-    n, k = mesh.size, mesh.rank
+    from repro_torch.models.transformer import model_specs
+    from repro_torch.pshard import split_of, use_mesh_and_rules
+    d, row = mesh.shape["data"], mesh.coords["data"]
     p = gathered(store)["layers"][0]["moe"]
+    # layer 0's specs: the stacked layer dimension dropped
+    specs = T.map_tree(lambda sp: dataclasses.replace(
+        sp, shape=sp.shape[1:], axes=sp.axes[1:]),
+        model_specs(cfg)["layers"]["moe"])
     g = torch.Generator(device=mesh.device).manual_seed(seed)
-    x = (torch.randn((n, P17_PROMPT, cfg.d_model), generator=g,
+    x = (torch.randn((d, P17_PROMPT, cfg.d_model), generator=g,
                      device=mesh.device) / 4).to(cfg.cdtype)
-    with torch.no_grad(), use_mesh_and_rules(mesh, rules, batch_shards=n):
-        y = M.moe_apply(p, cfg, x[k:k + 1])[0]
+
+    def whole(t, spec, dims):
+        # this rank's slice joined with its peers' along `dims` (by
+        # position: the order of the ranks of each dimension's axes)
+        for dim in dims:
+            lead = t.dim() - len(spec.shape)
+            if t.shape[dim] == spec.shape[dim - lead]:
+                continue
+            axes = split_of(spec.shape, spec.axes, dim - lead)[0]
+            t = torch.cat(mesh.all_gather(t, axes), dim=dim)
+        return t
+
+    with torch.no_grad(), use_mesh_and_rules(mesh, rules, batch_shards=d):
+        y = M.moe_apply(p, cfg, x[row:row + 1])[0]
         ys = torch.cat(mesh.all_gather(y, ("data",)))
-        # each group's dispatch buffers, as its rank forms them
-        bufs = []
-        for r in range(n):
-            M.moe_apply(p, cfg, x[r:r + 1], experts=lambda b: (
-                bufs.append(b), torch.zeros_like(b))[1])
-        buf = torch.cat(bufs)                               # (n, E, C, D)
-        up, down = p["w_up"], p["w_down"]
-        el = up.shape[0]
-        outs = []
-        for s in range(n):
-            u = up.to(buf.dtype) if s == k else torch.empty(
-                up.shape, dtype=buf.dtype, device=up.device)
-            d = down.to(buf.dtype) if s == k else torch.empty(
-                down.shape, dtype=buf.dtype, device=down.device)
-            dist.broadcast(u, s)
-            dist.broadcast(d, s)
-            outs.append(M._ffn(
-                cfg, buf[:, s * el:(s + 1) * el].contiguous(), u, d))
-            del u, d
-        out = torch.cat(outs, dim=1)
-        ref = torch.cat([M.moe_apply(p, cfg, x[r:r + 1],
-                                     experts=lambda b: out[r:r + 1])[0]
-                         for r in range(n)])
-    return ys.float().cpu().numpy(), ref.float().cpu().numpy()
+        # every leaf whole but the routed experts (joined below)
+        paths = T.paths(specs)
+        pw = T.unflatten(paths, [
+            p[q[0]] if q in (("w_up",), ("w_down",)) else
+            whole(p[q[0]] if len(q) == 1 else p[q[0]][q[1]], sp,
+                  range(len(sp.shape)))
+            for q, sp in zip(paths, T.leaves(specs))])
+        su, sd = specs["w_up"], specs["w_down"]
+        split_ff = split_of(sd.shape, sd.axes, 1)[1] > 1
+    up, down = p["w_up"], p["w_down"]
+    el = up.shape[0]
+    size = up.element_size() * math.prod(su.shape[1:]) \
+        + down.element_size() * math.prod(sd.shape[1:])
+    step = max(1, min(el, int(P17_MOE_STEP_BYTES // (d * size))))
+    # each group's dispatch buffers, as its ranks form them
+    bufs = []
+    for r in range(d):
+        M.moe_apply(pw, cfg, x[r:r + 1], experts=lambda b: (
+            bufs.append(b), torch.zeros_like(b))[1])
+    buf = torch.cat(bufs)                                   # (d, E, C, D)
+    dtypes = (x.dtype,) + ((torch.float32,) if split_ff else ())
+    outs = {dt: torch.empty(buf.shape, dtype=dt, device=buf.device)
+            for dt in dtypes}
+    for a in range(0, el, step):
+        with use_mesh_and_rules(mesh, rules, batch_shards=d):
+            u = whole(up[a:a + step], su, (2,))
+            w = whole(down[a:a + step], sd, (1,))
+            us = mesh.all_gather(u, ("data",))
+            ws = mesh.all_gather(w, ("data",))
+        del u, w
+        for s in range(d):
+            e = slice(s * el + a, s * el + a + us[s].shape[0])
+            for dt in dtypes:
+                outs[dt][:, e] = M._ffn(cfg, buf[:, e].to(dt), us[s].to(dt),
+                                        ws[s].to(dt))
+        del us, ws
+
+    def recompute(dt):
+        # the leaves as stored, or (exactly) in fp32
+        pd = pw if dt == x.dtype else T.map_tree(lambda t: t.to(dt), pw)
+        return torch.cat([M.moe_apply(pd, cfg, x[r:r + 1].to(dt),
+                                      experts=lambda b: outs[dt][r:r + 1])[0]
+                          for r in range(d)]).float().cpu().numpy()
+
+    return (ys.float().cpu().numpy(), recompute(x.dtype),
+            recompute(torch.float32) if split_ff else None)
+
+
+def p17_moe_gate(what, ranks) -> None:
+    """MoE layer 0 of every rank against its recomputation from whole
+    leaves (`p17_moe_layer`): where ff is split, the rank's output no
+    further from the fp32 recomputation than P13_BF16_RATIO times the
+    bf16 recomputation is (the split rounds its partial sums once more),
+    else within P17_REL of the bf16 recomputation."""
+    for k, r in enumerate(ranks):
+        ys, ref, ref32 = r["moe"]
+        err = float(np.abs(ys - ref).max())
+        if ref32 is None:
+            tol = P17_REL * float(np.abs(ref).max())
+            check(err <= tol, f"{what} rank {k}: MoE layer 0 differs from "
+                  f"its recomputation by {err:.3g} > {tol:.3g}")
+            msg = f"max abs err {err:.3g} (bound {tol:.3g})"
+        else:
+            base = float(np.abs(ref - ref32).max())
+            got = float(np.abs(ys - ref32).max())
+            tol = P13_BF16_RATIO * base
+            check(got <= tol, f"{what} rank {k}: MoE layer 0 is {got:.3g} "
+                  f"from its fp32 recomputation, > {P13_BF16_RATIO} x the "
+                  f"bf16 recomputation's {base:.3g}")
+            msg = (f"max abs err {got:.3g} against the fp32 recomputation "
+                   f"({got / base:.3f}x the bf16 recomputation's {base:.3g};"
+                   f" bound {tol:.3g}), {err:.3g} against the bf16 one, of "
+                   f"a largest |value| {float(np.abs(ref32).max()):.3g}")
+        log(f"{what} rank {k}: MoE layer 0 against its recomputation from "
+            f"whole leaves: {msg}")
 
 
 def p17_rank(dev, cfg, rules, runs, knobs):
@@ -5672,7 +5874,8 @@ def p17_rank(dev, cfg, rules, runs, knobs):
     from repro_torch import kernels
     from repro_torch.core import prng
     from repro_torch.launch.mesh import collectives_issued, make_test_mesh
-    from repro_torch.launch.placement import LargestAllocation
+    from repro_torch.launch.placement import (KeyedParams, LargestAllocation,
+                                              LeafReads)
     from repro_torch.launch.serve import make_inputs, serve
     from repro_torch.obs import count_host_transfers, fetch_telemetry
     from repro_torch.reliability import parse_scheme
@@ -5682,9 +5885,13 @@ def p17_rank(dev, cfg, rules, runs, knobs):
         if cuda:
             torch.cuda.synchronize()
 
-    mesh = make_test_mesh(4, 1, device=dev)
+    mesh = make_test_mesh(*knobs.get("shape", (4, 1)), device=dev)
     inputs = make_inputs(cfg, knobs["batch"], knobs["prompt"],
                          prng.key(knobs["seed"], dev), dev, lazy=True)
+    if knobs.get("tame"):
+        inputs["params"] = KeyedParams(tame_specs(cfg),
+                                       prng.key(knobs["seed"], dev),
+                                       cfg.param_dtype, dev)
     batch = {"tokens": inputs["tokens"]}
     out, clean = {}, None
     for name in runs:
@@ -5706,7 +5913,9 @@ def p17_rank(dev, cfg, rules, runs, knobs):
         if cuda:
             torch.cuda.reset_peak_memory_stats()
         c0 = collectives_issued()
-        with count_host_transfers(strict=knobs["strict"]) as timed:
+        reads = LeafReads() if knobs.get("reads") else None
+        with count_host_transfers(strict=knobs["strict"]) as timed, \
+                (reads or contextlib.nullcontext()):
             toks, tel = eng.generate(store, batch)
             sync()
         collectives = collectives_issued() - c0
@@ -5724,13 +5933,15 @@ def p17_rank(dev, cfg, rules, runs, knobs):
             "collectives": collectives, "launches": launches,
             "largest": largest.bytes, "run_peak": run_peak,
             "gen_peak": gen_peak, "local_words": store.words.numel(),
-            "global_words": store.global_spec.n_words}
+            "global_words": store.global_spec.n_words,
+            "reads": None if reads is None else p18_reads(
+                cfg, store, reads.reads)}
         if name == "off":
             clean = res["tokens"]
             if knobs["moe_check"]:
                 out["moe"] = p17_moe_layer(torch, cfg, store, mesh, rules,
                                            knobs["seed"] + 1)
-        del res, eng, store
+        del res, eng, store, toks, tel
     return out
 
 
@@ -5845,15 +6056,18 @@ def p17_build_reckon(cfg, scheme: str, n: int) -> float:
                                                                     rng))
 
 
-def p17_dry(cfg, scheme: str, rules):
-    """The dry run of a 4x1 rank's generate (`dryrun.engine_cell`, rank 0:
-    every rank's shards have its shapes), its blocked attention standing
-    for flash (``meta`` has no kernel)."""
+def p17_dry(cfg, scheme: str, rules, shape=(4, 1), gen=P17_GEN,
+            peer_views=False):
+    """The dry run of a `shape` rank's generate (`dryrun.engine_cell`,
+    rank 0: every rank's shards have its shapes), its blocked attention
+    standing for flash (``meta`` has no kernel); `peer_views` for ranks
+    sharing one card."""
     from repro_torch.launch import dryrun as D
     from repro_torch.launch.mesh import RecordingMesh
     return D.engine_cell(cfg.replace(attention_impl="blocked"), scheme,
-                         RecordingMesh((4, 1), ("data", "model")),
-                         batch=P17_BATCH, prompt_len=P17_PROMPT, gen=P17_GEN,
+                         RecordingMesh(shape, ("data", "model"),
+                                       peer_views=peer_views),
+                         batch=P17_BATCH, prompt_len=P17_PROMPT, gen=gen,
                          rules=rules)
 
 
@@ -5987,6 +6201,8 @@ def run_expert_mesh_path(torch, card, dev):
                   device=dev.type)
     log(f"phase 17 (a): 4 gloo ranks in {time.perf_counter() - t0:.1f} s")
     if dev.type == "cuda":
+        check_peaks_within_parity("phase 17 (a)", ranks, cfg, 4)
+    if dev.type == "cuda":
         torch.cuda.empty_cache()
     t0 = time.perf_counter()
     alone = p17_alone(torch, cfg, rules, runs, dev)
@@ -6015,8 +6231,8 @@ def run_expert_mesh_four(torch, card, dev):
     corrections > 0 and uncorrectable 0, run peaks under the card, the
     generate's peak within 10% of the dry run's and its exchanges equal,
     0 host reads in the timed region under the strict guard, and MoE
-    layer 0 against its recomputation from each rank's expert shard in
-    turn.  Returns the ranks' launches."""
+    layer 0 against its recomputation from whole leaves (`p17_moe_gate`).
+    Returns the ranks' launches."""
     from repro_torch.launch.mesh import spawn
     from repro_torch.launch.specs import arch_rules
     t_path = time.perf_counter()
@@ -6043,17 +6259,7 @@ def run_expert_mesh_four(torch, card, dev):
     log(f"phase 17 (b): 4 ranks in {time.perf_counter() - t0:.1f} s")
     p17_gates("phase 17 (b) 4x1 nccl", ranks, runs, dev.type == "cuda",
               dry=dry, reckoned=reckoned)
-    for k, r in enumerate(ranks):
-        ys, ref = r["moe"]
-        err = float(np.abs(ys - ref).max())
-        tol = P17_REL * float(np.abs(ref).max())
-        check(err <= tol, f"(b) rank {k}: MoE layer 0 differs from its "
-              f"recomputation by {err:.3g} > {tol:.3g}")
-        if k == 0:
-            log(f"phase 17 (b): MoE layer 0 on the mesh "
-                f"({cfg.moe_experts // 4} experts a rank) "
-                f"against its recomputation from each rank's shard in turn: "
-                f"max abs err {err:.3g} (bound {tol:.3g})")
+    p17_moe_gate("phase 17 (b) 4x1 nccl", ranks)
     total = {}
     for k, r in enumerate(ranks):
         for name in runs:
@@ -6064,6 +6270,276 @@ def run_expert_mesh_four(torch, card, dev):
                            f"phase 17 (b) {name} rank {k}")
             add_launches(total, r[name]["launches"])
     log(f"phase 17 (b): {time.perf_counter() - t_path:.1f} s, launches "
+        f"{total} ({card})")
+    return total
+
+
+# ----------------------------------------------------------------------------
+# 18. heads, ff and vocab computed where they live on the serving mesh
+# ----------------------------------------------------------------------------
+
+#: (a): (arch, layers, meshes, rules beyond the arch's), gloo ranks
+#: sharing the card, fp32 compute (the CPU test's logits bound holds)
+P18A = (("phi3-mini-3.8b", 4, ((1, 2), (2, 2)), {}),
+        ("phi3.5-moe-42b-a6.6b", 3, ((2, 2),),
+         {"expert": ("data",), "ff": ("model",), "model_dim": ()}))
+#: (b): (arch, layers, mesh, runs), four cards over nccl, each arch's
+#: serving rules, bf16 compute
+P18B = (("llama4-maverick-400b-a17b", 2, (2, 2), ("off", "ecc", "hsiao")),
+        ("phi3-mini-3.8b", 32, (1, 4), ("off", "ecc")))
+P18A_GEN = 8
+#: (a)'s bound on |meshed - one process| logits, a share of the largest
+P18_REL = 1e-5
+#: the leaves whose head, ff or vocab dimension the rules put on model
+P18_SPLIT = ("wq", "wkv", "wo", "w_up", "w_down", "head")
+#: phase 17 (b)'s counters (corrected, parity fixed, uncorrectable) on
+#: the same arena, key and faults (PERF.md): a total over the
+#: ranks, whatever their block ranges
+P17B_COUNTERS = (621, 0, 0)
+#: flash at a rank's heads: (what, B, S, H, KV, hd)
+P18_FLASH = (("a maverick 2x2 rank", 2, 256, 20, 4, 128),
+             ("a phi3-mini 1x4 rank", 4, 256, 8, 8, 96),
+             ("a phi3-mini 2x2 rank", 2, 256, 16, 16, 96))
+#: smoke configs (a CPU rehearsal; never on the card)
+P18_SMOKE = False
+
+
+def p18_config(arch: str, depth: int, compute_dtype=None):
+    from repro_torch.configs import get_config
+    cfg = get_config(arch)
+    cfg = cfg.smoke() if P18_SMOKE else cfg.replace(n_layers=depth)
+    cfg = cfg.replace(attention_impl="pallas")
+    return cfg.replace(compute_dtype=compute_dtype) if compute_dtype else cfg
+
+
+def p18_reads(cfg, store, reads) -> dict:
+    """A rank's reads of the `P18_SPLIT` leaves in a generate
+    (`placement.LeafReads`): each must be its 1 / model slice along every
+    head, ff or vocab dimension, and allocate nothing as large as the
+    whole layer's leaf (in the params' dtype) from that read to the next.
+    Returns the reads counted, the first of each kind of violation and
+    the largest window with its leaf."""
+    from repro_torch.core import tree as T
+    from repro_torch.models.transformer import model_specs
+    specs = T.leaves(model_specs(cfg))
+    paths = store.global_spec.paths
+    n_model = store.mesh.shape["model"]
+    elem = 4 if cfg.param_dtype == "float32" else 2
+    whole_read, large, n, top = [], [], 0, (0, "")
+    for li, shape, largest in reads:
+        path = paths[li]
+        if path[-1] not in P18_SPLIT:
+            continue
+        spec, lead = specs[li], len(shape) - len(specs[li].shape)
+        whole = elem * math.prod(spec.shape[-lead:])
+        dims = [d for d, a in enumerate(spec.axes)
+                if a in ("heads", "kv_heads", "ff", "vocab")]
+        n += 1
+        what = ("/".join(path), shape, largest, whole)
+        if not all(shape[d + lead] * n_model == spec.shape[d]
+                   for d in dims):
+            whole_read.append(what)
+        if largest >= whole:
+            large.append(what)
+        top = max(top, (largest, "/".join(path)))
+    return {"n": n, "whole": whole_read[:5], "large": large[:5],
+            "largest": top}
+
+
+def p18_alone(torch, cfg, rules, runs, shape, gen, dev, seed=P17_SEED):
+    """(a)'s comparison: one process holding every expert (the arena drawn
+    whole from the same key, at TAME_STD) that serves each data group's
+    rows alone,
+    as that group's ranks hold them (`moe._dp_groups` under an ambient
+    `shape` mesh with no processes): per scheme the tokens, counters and
+    first-step logits of the rows in order."""
+    from repro_torch.core import prng
+    from repro_torch.launch.placement import KeyedParams
+    from repro_torch.launch.serve import make_inputs, serve
+    from repro_torch.pshard import AbstractMesh, use_mesh_and_rules
+    from repro_torch.reliability import parse_scheme
+    key = prng.key(seed, dev)
+    inputs = make_inputs(cfg, P17_BATCH, P17_PROMPT, key, dev, lazy=True)
+    inputs["params"] = KeyedParams(tame_specs(cfg), key, cfg.param_dtype,
+                                   dev).materialize()
+    mesh = AbstractMesh(shape, ("data", "model"))
+    d = shape[0]
+    per = P17_BATCH // d
+    out, clean = {}, None
+    for name in runs:
+        parts = []
+        for g in range(d):
+            rows = slice(g * per, (g + 1) * per)
+            tokens = inputs["tokens"][rows]
+            with use_mesh_and_rules(mesh, rules, batch_shards=d):
+                res = serve(cfg, inputs["params"], tokens, parse_scheme(name),
+                            gen=gen, p_bit=P17_P_BIT if name != "off" else 0.0,
+                            seed=SEED, device=dev,
+                            reference=None if clean is None else clean[rows])
+                logits = p13_logits(torch, res["engine"], res["store"],
+                                    {"tokens": tokens})
+            parts.append((res["tokens"], res["stats"], logits, res["tok_s"]))
+            del res
+        toks = torch.cat([p[0] for p in parts])
+        # one store serves every group: its counters once, the tokens all
+        stats = {q: np.asarray(v) for q, v in parts[0][1].items()}
+        stats["tokens_emitted"] = np.asarray(toks.numel(), np.int32)
+        out[name] = {
+            "tokens": toks.cpu().numpy(), "stats": stats,
+            "logits": torch.cat([p[2] for p in parts]).cpu().numpy(),
+            "tok_s": sum(p[3] for p in parts) / d}
+        clean = toks if clean is None else clean
+    return out
+
+
+def p18_gates(what, ranks, runs, shape, dry, card: bool, alone=None):
+    """Phase 17's gates (tokens against the clean run, counters, host
+    reads, the build's largest allocation under the arena; over nccl the
+    dry run's exchanges exact and its generate peak within P15_PEAK_TOL),
+    then the reads' (`p18_reads`); with `alone` (ranks sharing the card:
+    no peak gate) the exchanges equal the dry run's, tokens and counters
+    equal one process's and logits within P18_REL of its largest."""
+    p17_gates(what, ranks, runs, card, dry=None if alone else dry)
+    for k, r in enumerate(ranks):
+        for name in runs:
+            got, tag = r[name], f"{what} {name} rank {k}"
+            if alone is not None:
+                want = sum(dry[name]["collectives"]["per_op_count"].values())
+                check(got["collectives"] == want, f"{tag}: the dry run "
+                      f"records {want} exchanges, the rank made "
+                      f"{got['collectives']}")
+            reads = got["reads"]
+            check(reads["n"] > 0 and not reads["whole"], f"{tag}: reads of "
+                  f"whole leaves {reads['whole']}")
+            # off the card a smoke leaf weighs less than the activations
+            check(not card or not reads["large"], f"{tag}: windows as "
+                  f"large as the whole leaf {reads['large']}")
+            msg = (f"{tag}: {reads['n']} reads of {P18_SPLIT}, each a "
+                   f"1/{shape[1]} slice; largest window "
+                   f"{reads['largest'][0] / 1e6:.1f} MB "
+                   f"({reads['largest'][1]})")
+            if alone is not None:
+                a = alone[name]
+                tol = P18_REL * float(np.abs(a["logits"]).max())
+                err = float(np.abs(got["logits"] - a["logits"]).max())
+                check_same_run(got, a, tag, tokens=True)
+                check(err <= tol, f"{tag}: logits differ from one process's "
+                      f"by {err:.3g} > {tol:.3g}")
+                msg += (f"; tokens and counters equal one process's, logits "
+                        f"max abs err {err:.3g} (bound {tol:.3g}), "
+                        f"{got['tok_s']:.1f} tok/s ({a['tok_s']:.1f} one "
+                        f"process)")
+            log(msg)
+
+
+def p18_world(torch, dev, cfg, rules, runs, shape, gen, strict, peer_views,
+              tame=False, moe_check=False, seed=P17_SEED):
+    """One world of `shape` (`p17_rank` with the reads recorded; with
+    `tame`, weights at TAME_STD; with `moe_check`, MoE layer 0 against
+    its recomputation from whole leaves) and its dry run: (ranks, dry run
+    per scheme)."""
+    from repro_torch.launch.mesh import backend_for, spawn
+    n = shape[0] * shape[1]
+    dry = {name: p17_dry(cfg, name, rules, shape, gen, peer_views)
+           for name in runs}
+    knobs = {**p17_knobs(strict, moe_check), "gen": gen, "shape": shape,
+             "reads": True, "tame": tame, "seed": seed}
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ranks = spawn(p17_rank, n, args=(cfg, rules, runs, knobs),
+                  device=dev.type)
+    log(f"phase 18 {cfg.name} {shape[0]}x{shape[1]}: {n} ranks "
+        f"({backend_for(dev, n)}) in {time.perf_counter() - t0:.1f} s; dry "
+        f"run generate peaks "
+        f"{ {q: round(d['peak_bytes'] / 1e9, 3) for q, d in dry.items()} } "
+        f"GB, exchanges "
+        f"{ {q: d['collectives']['per_op_count'] for q, d in dry.items()} }")
+    return ranks, dry
+
+
+def run_tensor_mesh_path(torch, card, dev):
+    """Phase 18 (a) (`tools/chip_phase.py 18`): flash at a rank's heads,
+    then each P18A config on each of its meshes, four or two gloo ranks
+    sharing the card, against one process (module doc).  Returns the
+    ranks' launches."""
+    from repro_torch.launch.specs import arch_rules
+    t_path = time.perf_counter()
+    worst = check_flash_zoo(torch, dev, P18_FLASH)
+    log(f"phase 18: flash at a rank's heads, max abs err {worst:.3g} "
+        f"({card})")
+    total, runs = {}, ("off", "ecc")
+    for arch, depth, meshes, extra in P18A:
+        cfg = p18_config(arch, depth, "float32")
+        rules = arch_rules(arch, extra=extra)
+        for shape in meshes:
+            ranks, dry = p18_world(torch, dev, cfg, rules, runs, shape,
+                                   P18A_GEN, False, True, tame=True)
+            t0 = time.perf_counter()
+            alone = p18_alone(torch, cfg, rules, runs, shape, P18A_GEN, dev)
+            log(f"phase 18 (a) {arch} {shape[0]}x{shape[1]}: one process in "
+                f"{time.perf_counter() - t0:.1f} s")
+            what = f"phase 18 (a) {arch} {shape[0]}x{shape[1]} gloo"
+            p18_gates(what, ranks, runs, shape, dry, dev.type == "cuda",
+                      alone)
+            if dev.type == "cuda":
+                check_peaks_within_parity(what, ranks, cfg,
+                                          shape[0] * shape[1])
+            for k, r in enumerate(ranks):
+                for name in runs:
+                    need = ["flash_attention"] + (
+                        ["encode_parity", "scrub"] if name == "ecc" else [])
+                    if dev.type == "cuda":
+                        check_launched(r[name]["launches"], need,
+                                       f"{what} {name} rank {k}")
+                    add_launches(total, r[name]["launches"])
+            if dev.type == "cuda":
+                torch.cuda.empty_cache()
+    log(f"phase 18 (a): {time.perf_counter() - t_path:.1f} s, launches "
+        f"{total} ({card})")
+    return total
+
+
+def run_tensor_mesh_four(torch, card, dev):
+    """Phase 18 (b) (`tools/chip_phase.py 18b`, four cards on one host):
+    each P18B config on its mesh over nccl under its serving rules, bf16,
+    batch 4 x 256, gen 32, from a keyed arena (module doc); maverick's
+    counters equal phase 17 (b)'s.  Returns the ranks' launches."""
+    from repro_torch.launch.specs import arch_rules
+    t_path = time.perf_counter()
+    check(dev.type != "cuda" or torch.cuda.device_count() >= 4,
+          "phase 18 (b) needs four cards")
+    total = {}
+    for arch, depth, shape, runs in P18B:
+        cfg = p18_config(arch, depth)
+        rules = arch_rules(arch, serve=True)
+        copy = p11_copy_bytes(cfg) / 1e9
+        log(f"phase 18 (b): {arch} at {cfg.n_layers} layers as "
+            f"{shape[0]}x{shape[1]}, the arena is {copy:.2f} GB ({card})")
+        moe = cfg.moe_experts > 0
+        ranks, dry = p18_world(torch, dev, cfg, rules, runs, shape, P17_GEN,
+                               dev.type == "cuda", False, moe_check=moe)
+        what = f"phase 18 (b) {arch} {shape[0]}x{shape[1]} nccl"
+        p18_gates(what, ranks, runs, shape, dry, dev.type == "cuda")
+        if moe:
+            p17_moe_gate(what, ranks)
+        for k, r in enumerate(ranks):
+            for name in runs:
+                if arch.startswith("llama4") and name != "off" and \
+                        not P18_SMOKE:
+                    got = tuple(int(r[name]["stats"][q]) for q in (
+                        "ecc_corrected", "ecc_parity_fixed",
+                        "ecc_uncorrectable"))
+                    check(got == P17B_COUNTERS, f"{what} {name} rank {k}: "
+                          f"counters {got}, phase 17 (b)'s {P17B_COUNTERS}")
+                need = ["flash_attention"] + {
+                    "ecc": ["encode_parity", "scrub"],
+                    "hsiao": ["encode_hsiao", "scrub_hsiao"]}.get(name, [])
+                if dev.type == "cuda":
+                    check_launched(r[name]["launches"], need,
+                                   f"{what} {name} rank {k}")
+                add_launches(total, r[name]["launches"])
+    log(f"phase 18 (b): {time.perf_counter() - t_path:.1f} s, launches "
         f"{total} ({card})")
     return total
 

@@ -320,7 +320,7 @@ class ContinuousBatcher:
         self.engine = GenerationEngine(cfg, scheme, gen=spec.gen_cap,
                                        cache_len=spec.cache_tokens,
                                        device=device, mesh=mesh, rules=rules,
-                                       fold=False)
+                                       fold=False, in_place=False)
         self.device = self.engine.device
         self.scheme = self.engine.scheme
         self._copy = self.engine.copy_axis

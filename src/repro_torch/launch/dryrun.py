@@ -17,11 +17,12 @@ only where it divides, so every rank's shards have rank 0's shapes):
   shapes), laid out as the port holds them: a training rank gets the
   whole batch and splits its rows itself; a serving rank holds its params
   in one arena (`placement.empty_store`) read through the gather
-  (`placement.gathered`: whole leaves, but a MoE layer's experts, which
-  stay this rank's and are computed where they live), and its own rows of
-  the batch and of the cache, every position of the cache (the port
-  computes whole heads and whole sequences on every rank, where GSPMD
-  splits heads, ff and kv_seq);
+  (`placement.gathered`: every dimension `placement.local_dims` keeps --
+  heads, KV heads, ff, vocab on model, a MoE layer's experts -- stays
+  this rank's slice and is computed where it lives, the rest is gathered
+  whole), and its own rows of the batch and of the cache: its KV heads
+  where the heads split (`attention.head_split`), every position (GSPMD
+  also splits kv_seq);
 * **memory** -- `MemoryTally`, a dispatch mode, tallies the live ``meta``
   storages, each rounded up to the CUDA caching allocator's 512 B:
   ``arg_bytes`` the inputs' storages, ``out_bytes`` the outputs', of which
@@ -241,7 +242,7 @@ def _serving_params(cfg: ModelConfig, params: Any, mesh, rules):
     else:
         store = PL.empty_store(gspec, T.leaves(partition_specs(
             specs, mesh, rules)), mesh, None, device="meta",
-            keep=PL.expert_dims(specs))
+            keep=PL.local_dims(cfg, mesh, rules))
         words, view, spec = store.words, PL.gathered(store), store.spec
     got = [tuple(x.shape) for x in T.leaves(arena.unpack(words, spec))]
     want = [tuple(x.shape) for x in T.leaves(params)]
@@ -263,6 +264,7 @@ def lower(cfg: ModelConfig, shape: ShapeSpec, mesh=None,
     prefill and decode: `make_prefill_step` / `make_decode_step` on this
     rank's rows."""
     from ..data.synthetic import make_batch_specs
+    from ..models.attention import head_split
     from ..models.params import abstractify, partition_specs
     from ..models.steps import (make_decode_step, make_prefill_step,
                                 make_train_step)
@@ -310,9 +312,13 @@ def lower(cfg: ModelConfig, shape: ShapeSpec, mesh=None,
                                                      batch_shards=pieces):
                 return step(view, batch)
         return thunk, (words, batch), inp
-    step = make_decode_step(cfg)
-    cache = abstractify(cache_specs(cfg, rows, shape.seq, mem_len=mem_len),
-                        None, cfg.cdtype)
+    step = make_decode_step(cfg, logits=False)
+    heads = cfg.n_kv
+    if mesh is not None:
+        with use_mesh_and_rules(mesh, rules):
+            heads //= head_split(cfg)
+    cache = abstractify(cache_specs(cfg, rows, shape.seq, mem_len=mem_len,
+                                    heads=heads), None, cfg.cdtype)
     token = torch.empty((rows, 1), dtype=torch.int32, device="meta")
 
     def thunk():
@@ -365,7 +371,7 @@ def engine_cell(cfg: ModelConfig, scheme_spec: str, mesh, *, batch: int,
     `RecordingMesh`; the parallel disciplines fold a ("data", "model")
     mesh's copy axis as the engine does) under `rules` over a ``meta``
     store of this rank's copy-stacked shards (`optim.copy_stack_pspec`;
-    a MoE layer's experts kept local) and the whole batch of token ids;
+    `placement.local_dims` kept local) and the whole batch of token ids;
     `measure`'s keys."""
     from ..reliability import parse_scheme
     from .engine import GenerationEngine
@@ -385,13 +391,12 @@ def engine_store(engine):
     of the copies it holds (`launch.placement`)."""
     from ..models.params import layout
     from ..models.transformer import model_specs
-    from .placement import empty_store, expert_dims
+    from .placement import empty_store
     mesh = engine.exec_mesh
     specs, held = engine._placement(mesh)
     return empty_store(layout(model_specs(engine.cfg),
                               engine.cfg.param_dtype), specs, mesh, held,
-                       device="meta",
-                       keep=expert_dims(model_specs(engine.cfg)))
+                       device="meta", keep=engine.keep(mesh))
 
 
 def run_engine_cell(arch: str, scheme_spec: str = "tmr-parallel",

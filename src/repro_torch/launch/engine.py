@@ -35,10 +35,15 @@
   process is one of its ranks), `prepare` places the store by the
   logical-axis rules, each rank holding only its slice of every leaf, and
   runs every arena scrub on the rank's block range with summed counters
-  (`launch.placement`).  The batch is split over the batch axes; the
-  model reads each leaf gathered whole when a layer runs (FSDP).  The
-  parallel and semi disciplines fold the copy axis onto data-replica
-  groups when ``data % 3 == 0`` (`launch.mesh.fold_copy_axis`): each copy
+  (`launch.placement`).  The batch is split over the batch axes.  Every
+  axis the rules put on a mesh axis that no batch axis shares (heads,
+  KV heads, ff, vocab on model), and a MoE layer's experts, are computed
+  where they live (`placement.local_dims`; column- and row-parallel
+  products summed in rank order, the KV cache a rank's own heads, the
+  greedy token from every rank's vocab columns); the rest of each leaf
+  is gathered whole when a layer reads it (FSDP).  The parallel and semi
+  disciplines fold the copy axis onto data-replica groups when ``data %
+  3 == 0`` (`launch.mesh.fold_copy_axis`): each copy
   group runs its own copy's forward, and the per-step token ids (and, with
   `vote_cache`, the caches) are gathered over the copy axis into the
   `tmr_vote` kernel.  Tokens and counters equal the unmeshed engine's
@@ -117,6 +122,11 @@ class GenerationEngine:
     fold       : fold the copy axis of parallel/semi TMR onto data-replica
                  groups when the mesh allows (the batcher, which keeps
                  every copy on every rank, turns it off).
+    in_place   : on a mesh, compute every axis the rules keep local where
+                 it lives (`placement.local_dims`); False computes only
+                 the experts there and gathers the rest whole (the
+                 batcher alone, whose paged pool holds whole heads,
+                 until its pool splits by head: ROADMAP A8).
     """
 
     def __init__(self, cfg: ModelConfig, scheme: Optional[Scheme] = None, *,
@@ -124,7 +134,7 @@ class GenerationEngine:
                  vote_every: int = 0, vote_cache: bool = False,
                  execution: str = "scan", device=None, cost_spec=None,
                  mesh=None, rules: Optional[ShardingRules] = None,
-                 fold: bool = True):
+                 fold: bool = True, in_place: bool = True):
         if execution not in ("scan", "loop"):
             raise ValueError(f"execution must be 'scan' or 'loop', "
                              f"got {execution!r}")
@@ -138,6 +148,7 @@ class GenerationEngine:
         self.mesh = mesh
         self.rules = rules if rules is not None else DEFAULT_RULES
         self.fold = bool(fold)
+        self.in_place = bool(in_place)
         self.cfg = cfg
         self.scheme = scheme if scheme is not None else Unprotected()
         if vote_every or vote_cache:
@@ -198,6 +209,13 @@ class GenerationEngine:
                 return folded
         return self.mesh
 
+    def keep(self, mesh):
+        """Per leaf, the dimensions a rank of `mesh` computes where they
+        live (`placement.local_dims`, or the experts' alone)."""
+        if self.in_place:
+            return PL.local_dims(self.cfg, mesh, self.rules)
+        return PL.expert_dims(model_specs(self.cfg))
+
     def _placement(self, mesh):
         """(per-copy spec of every leaf in flatten order, the copies this
         rank holds or None) on `mesh`."""
@@ -221,7 +239,7 @@ class GenerationEngine:
                                      else 0)
         specs, held = self._placement(mesh)
         return PL.place_store(words, spec, specs, mesh, held,
-                              PL.expert_dims(model_specs(self.cfg)))
+                              self.keep(mesh))
 
     def _prepare_mesh(self, params, generator, fault, dt, donate):
         """`prepare` on the exec mesh by the plan of `launch.placement`
@@ -245,7 +263,7 @@ class GenerationEngine:
                 source, spec, specs, mesh,
                 copies=3 if self.copy_axis else 1, held=held, fault=fault,
                 generator=generator, dt=dt, ecc=ecc, scrub_axes=axes,
-                donate=donate, keep=PL.expert_dims(model_specs(self.cfg)))
+                donate=donate, keep=self.keep(mesh))
         if counts is None:
             return store, {}
         return store, {"ecc_corrected": counts[0],
@@ -369,7 +387,7 @@ class GenerationEngine:
     def _steps(self, prompt_len: int):
         cache_len = self.cache_len or (prompt_len + self.gen)
         return (make_prefill_step(self.cfg, cache_len=cache_len),
-                make_decode_step(self.cfg))
+                make_decode_step(self.cfg, logits=False))
 
     def _batch(self, batch: Dict[str, torch.Tensor]):
         return {k: v.to(self.device) for k, v in batch.items()}

@@ -46,20 +46,27 @@ itself.
 **Reading** (`gathered`).  The model gets a lazy view of a store: a leaf
 is gathered when the layer reads it -- the explicit redistribute
 (Shard -> Replicate) that DTensor's ``full_tensor()`` would do -- and
-dropped after, except along its kept dimensions (``keep``; the engine
-keeps a MoE leaf's ``expert`` dimension): there the layer gets this
-rank's experts alone and computes them where they live (`models.moe`,
-expert parallelism).  Stacked layer leaves are gathered one layer at a
-time, so a rank holds its shards plus the leaves of the layer it runs
-(FSDP).  The gather is an int32 SUM all-reduce of this rank's slice
-placed into zeros (exact on every backend: gloo has no all-gather for
-CUDA tensors), except where several ranks share one card (gloo over
-CUDA, whose collectives stage through host memory): there every rank
-maps its peers' local arenas once, when the store is built and if some
-leaf is gathered across them (CUDA IPC handles swapped by one object
-all-gather after a device sync), and a gather copies each peer's slice
-device to device.  The arenas are not
-written after they are built.
+dropped after, except along its kept dimensions (``keep``: the engine
+keeps `local_dims`, every dimension split over mesh axes no batch axis
+shares -- heads, KV heads, ff, vocab on model -- and a MoE leaf's
+``expert`` dimension): there the layer gets this rank's slice alone and
+computes it where it lives (`models.moe` expert parallelism, the column-
+and row-parallel products of `models.nn` / `models.attention` /
+`models.steps`).  Stacked layer leaves are gathered one layer at a time,
+so a rank holds its shards plus the leaves of the layer it runs (FSDP
+over what is left).  The gather is an int32 SUM all-reduce of this
+rank's slice placed into zeros (exact on every backend: gloo has no
+all-gather for CUDA tensors), except where several ranks share one card
+(gloo over
+CUDA, whose collectives stage through host memory): there each rank
+posts its slice to the staging buffer its peers mapped once a mesh and
+reads theirs device to device (`launch.shards.Exchange`).  No peer maps
+a store's arena: a tensor that peers mapped through CUDA IPC stayed
+allocated on its owner after every side dropped it and the IPC memory
+was collected, on every rank where the peers dropped first, and on two
+ranks of four where the owner dropped first (`tools/ipc_release.py`:
+PyTorch 2.11, four ranks of an H100).  No order freed it on every rank,
+so a dropped store could stay on the card.
 """
 from __future__ import annotations
 
@@ -77,8 +84,9 @@ from ..kernels.sharded import BLOCK, block_range, scrub_range
 from ..pshard import shard_slices, spec_axes
 
 __all__ = ["ShardedStore", "WholeArena", "KeyedParams", "build_store",
-           "place_store", "empty_store", "expert_dims", "gathered",
-           "replicate", "LargestAllocation",
+           "place_store", "empty_store", "expert_dims", "local_dims",
+           "gathered", "replicate", "LargestAllocation",
+           "LeafReads",
            "exchange_copies", "row_split", "gather_rows", "local_elements"]
 
 #: words a rank contributes to each all-gather of `_redistribute`
@@ -97,7 +105,6 @@ class ShardedStore:
     mesh   : the exec mesh the store is placed on.
     keep   : per leaf, the dimensions `gathered` does not gather (this
              rank's slice along them is what the model reads).
-    peers  : the other ranks' `words` mapped here (ranks sharing one card).
     """
 
     words: torch.Tensor
@@ -107,7 +114,6 @@ class ShardedStore:
     held: Optional[Tuple[int, ...]]
     mesh: Any
     keep: List[Tuple[int, ...]] = dataclasses.field(default_factory=list)
-    peers: Optional[dict] = None
 
     def slot(self, copy: Optional[int]) -> Optional[int]:
         """Index of `copy` in the local copy axis (None: no copy axis)."""
@@ -131,6 +137,39 @@ def expert_dims(tree: Any) -> List[Tuple[int, ...]]:
     experts are computed where they live."""
     return [tuple(d for d, a in enumerate(s.axes) if a == "expert")
             for s in T.leaves(tree)]
+
+
+#: the keys under which a serving rank still reads its leaves gathered
+#: whole (but their experts): cross-attention's, and the RG-LRU's
+#: (``temporal``); an SSM family's every leaf
+GATHERED = ("xattn", "temporal")
+
+
+def local_dims(cfg, mesh, rules) -> List[Tuple[int, ...]]:
+    """Per leaf of `cfg`'s params (flatten order), the dimensions a
+    serving rank keeps local and computes where they live on `mesh` under
+    `rules`: every dimension split over a group of more than one rank
+    whose mesh axes are disjoint from the batch's (``heads``,
+    ``kv_heads``, ``ff``, ``vocab`` on ``model``; FSDP's ``model_dim``
+    over data stays gathered), and the expert dimensions -- but only the
+    expert dimensions of the `GATHERED` leaves and of an SSM."""
+    from ..models.params import partition_specs
+    from ..models.transformer import model_specs
+    specs = model_specs(cfg)
+    batch = set(rules.axes_for("batch"))
+    out = []
+    for path, s, spec, experts in zip(
+            T.paths(specs), T.leaves(specs),
+            T.leaves(partition_specs(specs, mesh, rules)),
+            expert_dims(specs)):
+        if cfg.family == "ssm" or set(path) & set(GATHERED):
+            out.append(experts)
+            continue
+        out.append(tuple(
+            d for d, e in enumerate(spec) if d in experts or (
+                spec_axes(e) and not set(spec_axes(e)) & batch
+                and math.prod(mesh.shape[a] for a in spec_axes(e)) > 1)))
+    return out
 
 
 # -- the clean arena's sources ---------------------------------------------------
@@ -192,12 +231,44 @@ class LargestAllocation(TorchDispatchMode):
         for x in _tensors(out):
             st = x.untyped_storage()
             if st.data_ptr() not in seen:
-                self.bytes = max(self.bytes, st.nbytes())
+                self._allocated(st.nbytes())
         return out
+
+    def _allocated(self, nbytes: int) -> None:
+        self.bytes = max(self.bytes, nbytes)
 
 
 def _tensors(tree) -> list:
     return [x for x in tree_flatten(tree)[0] if isinstance(x, torch.Tensor)]
+
+
+#: the `LeafReads` that are recording
+_READS: list = []
+
+
+class LeafReads(LargestAllocation):
+    """`LargestAllocation` by leaf read: ``reads`` lists, for every leaf a
+    model reads from a store (`gathered`) while it is active, [leaf index,
+    the shape read, the largest storage allocated from the start of that
+    read to the start of the next] -- what a rank materializes of each
+    leaf, and at most while it computes with it."""
+
+    def __init__(self):
+        super().__init__()
+        self.reads: List[list] = []
+
+    def __enter__(self):
+        _READS.append(self)
+        return super().__enter__()
+
+    def __exit__(self, *exc):
+        _READS.remove(self)
+        return super().__exit__(*exc)
+
+    def _allocated(self, nbytes: int) -> None:
+        super()._allocated(nbytes)
+        if self.reads:
+            self.reads[-1][2] = max(self.reads[-1][2], nbytes)
 
 
 # -- the build ------------------------------------------------------------------
@@ -226,13 +297,13 @@ def _keep_slices(dst: torch.Tensor, lspec, src: torch.Tensor, global_spec,
 def _store(local: torch.Tensor, lspec, global_spec, specs, mesh, held,
            keep=None):
     """The ShardedStore over a (C, n) local arena (C = 1 without a copy
-    axis), its peers mapped when the ranks share a card."""
+    axis)."""
     words = local.view(-1) if held is None else local
     keep = list(keep) if keep is not None else [()] * len(specs)
-    return _share(ShardedStore(words=words, spec=lspec,
-                               global_spec=global_spec, specs=list(specs),
-                               held=None if held is None else tuple(held),
-                               mesh=mesh, keep=keep))
+    return ShardedStore(words=words, spec=lspec, global_spec=global_spec,
+                        specs=list(specs),
+                        held=None if held is None else tuple(held),
+                        mesh=mesh, keep=keep)
 
 
 def copy_source(generator, i: int):
@@ -423,25 +494,6 @@ def empty_store(global_spec: arena.ArenaSpec, specs: Sequence[tuple], mesh,
     return _store(local, lspec, global_spec, specs, mesh, held, keep)
 
 
-def _share(store: ShardedStore) -> ShardedStore:
-    """Map every other rank's local arena here when the ranks share one
-    card and some leaf is gathered across them (module doc); collective."""
-    mesh = store.mesh
-    if not mesh.shares_card or not any(
-            mesh.group_size(_gather_axes(store, li)) > 1
-            for li in range(len(store.specs))):
-        return store
-    import torch.distributed as dist
-    from torch.multiprocessing.reductions import reduce_tensor
-    # the arena is complete on the card before any peer reads it
-    torch.cuda.synchronize(store.words.device)
-    handles = [None] * mesh.size
-    dist.all_gather_object(handles, reduce_tensor(store.words))
-    store.peers = {r: fn(*args) for r, (fn, args) in enumerate(handles)
-                   if r != mesh.rank}
-    return store
-
-
 # -- reading a sharded store ----------------------------------------------------
 
 def _as_int32(full: torch.Tensor) -> Tuple[torch.Tensor, bool]:
@@ -514,12 +566,11 @@ def _gather(store: ShardedStore, li: int, slot: Optional[int],
 
     full_shape = tuple(local.shape[d - n] if d in keep else shape[d]
                        for d in range(n, len(shape)))
-    if store.peers is None:
+    if not mesh.shares_card:
         return replicate(local, full_shape, placed(mesh.coords), axes, mesh)
+    from .shards import exchange_for
     full = torch.empty(full_shape, dtype=local.dtype, device=local.device)
-    for r in mesh.group_ranks(axes):
-        src = local if r == mesh.rank else \
-            _leaf_view(store.peers[r], store.spec, li, slot)[idx]
+    for r, src in exchange_for(mesh).parts(local.contiguous(), axes):
         full[placed(mesh.coords_of(r))] = src
     return full
 
@@ -547,7 +598,12 @@ class _Leaf(Lazy):
         return _Leaf(self.store, self.li, self.slot, self.idx + idx)
 
     def get(self) -> torch.Tensor:
-        return _gather(self.store, self.li, self.slot, self.idx)
+        for r in _READS:
+            r.reads.append([self.li, None, 0])
+        x = _gather(self.store, self.li, self.slot, self.idx)
+        for r in _READS:
+            r.reads[-1][1] = tuple(x.shape)
+        return x
 
 
 class View(dict):

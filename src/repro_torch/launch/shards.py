@@ -123,7 +123,8 @@ class Exchange:
         import torch.distributed as dist
         from torch.multiprocessing.reductions import reduce_tensor
         dev = self.mesh.device
-        # nobody reads the old halves any more
+        # nobody reads the old halves any more (they may stay allocated:
+        # the peers mapped them and drop first, `launch.placement`)
         torch.cuda.synchronize(dev)
         self.mesh.barrier()
         self._peers = {}

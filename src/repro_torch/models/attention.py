@@ -6,18 +6,25 @@ CUDA flash kernel (``attention_impl="pallas"``, the reference's name, forward
 only as the reference's Pallas kernel is) -- plus single-token decode
 against a KV cache.  `blocked_attention` carries the reference's recompute
 backward as a `torch.autograd.Function`, in plain PyTorch as the
-reference's is in `jnp`."""
+reference's is in `jnp`.
+
+Self-attention on a serving rank whose store keeps the head columns
+local (`launch.placement.local_dims`) runs its own heads: ``wq`` / ``wkv``
+column-parallel (``[k | v]`` re-aligned), the rank's KV cache holding its
+KV heads, ``wo`` row-parallel and the ordered sum (`_project_qkv`,
+`_out`).  Cross-attention reads its leaves gathered whole."""
 from __future__ import annotations
 
 from typing import Optional
 
 import torch
 
+from ..pshard import local_split, model_columns, realign, split_of
 from .config import ModelConfig
-from .nn import rms_norm, rope
+from .nn import rms_norm, rope, row_parallel
 from .params import Spec
 
-__all__ = ["attn_specs", "attention", "self_attention",
+__all__ = ["attn_specs", "attention", "self_attention", "head_split",
            "decode_self_attention", "cross_attn_specs", "cross_attention",
            "blocked_attention", "naive_attention", "NEG_INF"]
 
@@ -197,15 +204,48 @@ def attn_specs(cfg: ModelConfig) -> dict:
     return specs
 
 
+def head_split(cfg: ModelConfig) -> int:
+    """Into how many ranks' heads a serving rank's self-attention splits
+    on the ambient mesh and rules where its store keeps the head columns
+    local (`_project_qkv`): the ranks of the ``heads`` axes, when
+    ``kv_heads`` is split over the same axes and both head counts divide;
+    else 1, every rank running every head."""
+    H, KV, hd = cfg.n_heads, cfg.n_kv, cfg.head_dim
+    axes, n, _ = split_of((cfg.d_model, H * hd), ("model_dim", "heads"), 1)
+    kv_axes = split_of((cfg.d_model, 2 * KV * hd),
+                       ("model_dim", "kv_heads"), 1)[0]
+    ok = axes and kv_axes == axes and H % n == 0 and KV % n == 0
+    return n if ok else 1
+
+
 def _project_qkv(p, cfg: ModelConfig, x, positions):
+    """q (B,S,H',hd), k and v (B,S,KV',hd) after RoPE: every head (H' =
+    H, KV' = KV), or this rank's where ``wq`` / ``wkv`` hold its slice of
+    the head columns over n ranks and n divides H and KV (H' = H / n, KV'
+    = KV / n; `wkv`'s packed ``[k | v]`` re-aligned by `pshard.realign`).
+    Where the slices fall elsewhere, the projections are still computed
+    in place and their columns gathered whole."""
     B, S, _ = x.shape
     H, KV, hd = cfg.n_heads, cfg.n_kv, cfg.head_dim
     dt = x.dtype
-    q = x @ p["wq"].to(dt)
-    kv = x @ p["wkv"].to(dt)
+    wq = p["wq"]
+    qs = local_split(wq, (cfg.d_model, H * hd), ("model_dim", "heads"), 1)
+    q = x @ wq.to(dt)
+    del wq
+    wkv = p["wkv"]
+    kvs = local_split(wkv, (cfg.d_model, 2 * KV * hd),
+                      ("model_dim", "kv_heads"), 1)
+    kv = x @ wkv.to(dt)
+    del wkv
     if cfg.qkv_bias:
         q = q + p["bq"].to(dt)
         kv = kv + p["bkv"].to(dt)
+    n = head_split(cfg) if qs[0] and kvs[0] else 1
+    if n > 1:
+        kv = realign(kv, kvs[0], 2)
+        H, KV = H // n, KV // n
+    else:
+        q, kv = model_columns(q, qs[0]), model_columns(kv, kvs[0])
     q = rope(q.reshape(B, S, H, hd), positions, cfg.rope_theta)
     k = rope(kv[..., :KV * hd].reshape(B, S, KV, hd), positions,
              cfg.rope_theta)
@@ -221,7 +261,21 @@ def self_attention(p, cfg: ModelConfig, x, *, causal=True, window=0):
     positions = torch.arange(S, device=x.device)[None, :]
     q, k, v = _project_qkv(p, cfg, h, positions)
     o = attention(q, k, v, cfg, causal=causal, window=window)
-    return o.reshape(B, S, -1) @ p["wo"].to(x.dtype), (k, v)
+    return _out(p, cfg, o.reshape(B, S, -1)), (k, v)
+
+
+def _out(p, cfg: ModelConfig, o):
+    """o (B,S,H'·hd) @ ``wo``: where ``wo`` holds this rank's slice of the
+    head rows, a row-parallel product (o's columns of those rows, when o
+    holds every head) and the ordered sum over the ranks
+    (`nn.row_parallel`)."""
+    wo = p["wo"]
+    axes, _, k = local_split(wo, (cfg.n_heads * cfg.head_dim, cfg.d_model),
+                             ("heads", "model_dim"), 0)
+    rows = wo.shape[0]
+    if axes and o.shape[-1] != rows:
+        o = o[..., k * rows:(k + 1) * rows]
+    return row_parallel(o, wo, axes)
 
 
 def decode_self_attention(p, cfg: ModelConfig, x, cache_k, cache_v, pos, *,
@@ -236,7 +290,7 @@ def decode_self_attention(p, cfg: ModelConfig, x, cache_k, cache_v, pos, *,
     buffer (scalar `pos` only).  Returns (output, cache_k, cache_v)."""
     h = rms_norm(x, p["ln"], cfg.norm_eps)
     B = h.shape[0]
-    H, KV, hd = cfg.n_heads, cfg.n_kv, cfg.head_dim
+    hd = cfg.head_dim
     S = cache_k.shape[1]
     per_row = pos.ndim == 1
     if per_row and window:
@@ -266,6 +320,7 @@ def decode_self_attention(p, cfg: ModelConfig, x, cache_k, cache_v, pos, *,
         cache_v.index_copy_(1, slot, v.to(cache_v.dtype))
         kc, vc = cache_k, cache_v
         vmask = torch.arange(S, device=x.device) <= pos
+    H, KV = q.shape[2], k.shape[2]      # this rank's heads
     qg = q.reshape(B, 1, KV, H // KV, hd).float()
     scores = torch.einsum("bqkgd,bskd->bkgqs", qg, kc.float()) / hd ** 0.5
     scores = torch.where(vmask, scores, NEG_INF)
@@ -273,7 +328,7 @@ def decode_self_attention(p, cfg: ModelConfig, x, cache_k, cache_v, pos, *,
     probs = e / e.sum(-1, keepdim=True)
     o = torch.einsum("bkgqs,bskd->bqkgd", probs, vc.float())
     o = o.reshape(B, 1, H * hd).to(x.dtype)
-    return o @ p["wo"].to(x.dtype), cache_k, cache_v
+    return _out(p, cfg, o), cache_k, cache_v
 
 
 def cross_attn_specs(cfg: ModelConfig, mem_dim: Optional[int] = None) -> dict:

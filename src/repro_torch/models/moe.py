@@ -21,7 +21,13 @@ the reference constrains the (G, E, C, D) dispatch buffer to ("batch",
 rank's buffers are gathered over the expert axes, each rank computes its
 experts' rows of every group and the rows go back (`_expert_parallel`).
 Routing, dispatch and the combine stay per token group, and the combine
-adds at most top-k contributions onto zero, so it stays exact.
+adds at most top-k contributions onto zero, so it stays exact.  Where
+the experts' ``w_up`` / ``w_down`` also hold this rank's slice of ``ff``
+(a serving store's rules put ``ff`` on ``model``), each rank's experts
+are column-parallel, then row-parallel, each expert's gated halves
+re-aligned and the partial outputs summed in rank order over the ``ff``
+axes (`_down`) before they go back; the shared expert is the dense
+MLP's (`nn.mlp_apply`).
 """
 from __future__ import annotations
 
@@ -32,9 +38,10 @@ import torch
 import torch.nn.functional as F
 
 from ..pshard import (ambient_batch_shards, ambient_batch_sum,
-                      ambient_mesh, ambient_rules, spec_axes, spec_for)
+                      ambient_mesh, ambient_rules, local_split, model_sum,
+                      spec_axes, spec_for)
 from .config import ModelConfig
-from .nn import gelu, mlp_apply, mlp_specs
+from .nn import ff_columns, gelu, mlp_apply, mlp_specs
 from .params import Spec
 
 __all__ = ["moe_specs", "moe_apply", "route", "dispatch"]
@@ -115,21 +122,47 @@ def dispatch(expert_idx: torch.Tensor, n_experts: int, capacity: int):
 
 
 def _activate(cfg: ModelConfig, h: torch.Tensor) -> torch.Tensor:
-    """The expert FFN's activation of the up projection (E', ..., F)."""
-    f = cfg.moe_dff or cfg.d_ff
+    """The expert FFN's activation of the up projection (E', ..., F), or
+    of this rank's slice of each gated half."""
     if cfg.act in ("swiglu", "geglu"):
         act = F.silu if cfg.act == "swiglu" else gelu
+        f = h.shape[-1] // 2
         return h[..., :f] * act(h[..., f:])
     # the reference's ungated expert: relu2, else silu
     return F.relu(h) ** 2 if cfg.act == "relu2" else F.silu(h)
 
 
+def _up(cfg: ModelConfig, x: torch.Tensor, w_up: torch.Tensor):
+    """The activated up projection of dispatch buffers x (G, E', C, D)
+    and the axes the down projection's partial products are summed over:
+    where ``w_up`` holds this rank's slice of the ``ff`` columns, each
+    expert's gated halves are re-aligned (`nn.ff_columns`)."""
+    E, f = cfg.moe_experts, cfg.moe_dff or cfg.d_ff
+    gated = cfg.act in ("swiglu", "geglu")
+    up = local_split(w_up, (E, cfg.d_model, 2 * f if gated else f),
+                     ("expert", "model_dim", "ff"), 2)
+    h, down = ff_columns(torch.einsum("gecd,edf->gecf", x, w_up), up,
+                         (E, f, cfg.d_model), ("expert", "ff", "model_dim"),
+                         1, 2 if gated else 1)
+    return _activate(cfg, h), down
+
+
+def _down(h: torch.Tensor, w_down: torch.Tensor, down) -> torch.Tensor:
+    """The down projection of activated (G, E', C, F') rows in h's dtype;
+    where ``w_down`` holds this rank's ``ff`` rows (`down`, their axes),
+    the ranks' partials added in rank order in fp32, rounded once
+    (`pshard.model_sum`)."""
+    return model_sum(torch.einsum("gecf,efd->gecd", h, w_down.to(h.dtype)),
+                     down)
+
+
 def _ffn(cfg: ModelConfig, x: torch.Tensor, w_up: torch.Tensor,
          w_down: torch.Tensor) -> torch.Tensor:
     """Two batched products of dispatch buffers x (G, E', C, D) under E'
-    experts' weights in x's dtype."""
-    h = _activate(cfg, torch.einsum("gecd,edf->gecf", x, w_up))
-    return torch.einsum("gecf,efd->gecd", h, w_down)
+    experts' weights in x's dtype (row-parallel, then the ordered sum,
+    where the weights hold this rank's ``ff`` slice)."""
+    h, down = _up(cfg, x, w_up.to(x.dtype))
+    return _down(h, w_down, down)
 
 
 def _experts(cfg: ModelConfig, expert_in: torch.Tensor, p) -> torch.Tensor:
@@ -141,16 +174,17 @@ def _experts(cfg: ModelConfig, expert_in: torch.Tensor, p) -> torch.Tensor:
     dt = expert_in.dtype
     w_up = p["w_up"].to(dt)
     if w_up.shape[0] != cfg.moe_experts:
-        return _expert_parallel(cfg, expert_in, w_up, p["w_down"].to(dt))
-    h = _activate(cfg, torch.einsum("gecd,edf->gecf", expert_in, w_up))
+        return _expert_parallel(cfg, expert_in, w_up, p["w_down"])
+    h, down = _up(cfg, expert_in, w_up)
     del w_up
-    return torch.einsum("gecf,efd->gecd", h, p["w_down"].to(dt))
+    return _down(h, p["w_down"], down)
 
 
 def _expert_parallel(cfg: ModelConfig, expert_in: torch.Tensor,
                      w_up: torch.Tensor, w_down: torch.Tensor) -> torch.Tensor:
-    """The expert FFN where the experts live: `w_up` and `w_down` hold
-    this rank's E / n experts (its slice along the ``expert`` axes of the
+    """The expert FFN where the experts live: `w_up` (in the compute
+    dtype) and `w_down` (as stored) hold this rank's E / n experts (its
+    slice along the ``expert`` axes of the
     ambient mesh, n ranks).  Every rank's dispatch buffers are gathered
     over those axes (an exact all-gather, `launch.shards.Exchange`); the
     rank runs its experts on every group's rows for them (n G rows of C

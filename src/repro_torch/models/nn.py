@@ -11,11 +11,14 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from ..pshard import (local_split, model_columns, model_sum, realign,
+                      split_of)
 from .config import ModelConfig
 from .params import Spec
 
 __all__ = ["rms_norm", "layer_norm", "rope", "act_fn", "gelu", "mlp_specs",
-           "mlp_apply", "embed_specs", "softmax_xent"]
+           "mlp_apply", "ff_columns", "row_parallel", "embed_specs",
+           "softmax_xent"]
 
 
 def rms_norm(x: torch.Tensor, scale: torch.Tensor,
@@ -79,17 +82,54 @@ def mlp_specs(cfg: ModelConfig, d_ff: Optional[int] = None) -> dict:
             "w_down": Spec((f, d), ("ff", "model_dim"))}
 
 
+def ff_columns(h: torch.Tensor, up: tuple, down_whole: tuple,
+               down_logical: tuple, down_dim: int, segments: int):
+    """The up projection's output `h` made what the down projection
+    reads, when the up projection's ``ff`` columns are this rank's slice
+    (`up`, its `pshard.local_split`): where the down projection's ``ff``
+    rows (dimension `down_dim` of `down_whole`) are split over the same
+    axes, this rank's slice of each of the `segments` packed parts
+    (``[u | g]``: `pshard.realign`), else the whole columns.  Returns (h,
+    the axes the down projection's partial products are summed over)."""
+    axes = up[0]
+    if not axes:
+        return h, ()
+    if split_of(down_whole, down_logical, down_dim)[0] == axes:
+        return realign(h, axes, segments), axes
+    return model_columns(h, axes), ()
+
+
 def mlp_apply(p: dict, cfg: ModelConfig, x: torch.Tensor,
               d_ff: Optional[int] = None) -> torch.Tensor:
+    """The MLP of x (..., D).  Where a serving rank's ``w_up`` holds its
+    slice of the ``ff`` columns (`launch.placement.local_dims`), it is a
+    column-parallel product, the gated halves re-aligned (`ff_columns`),
+    then a row-parallel ``w_down`` and the ordered sum over the ranks
+    (`row_parallel`)."""
     f = d_ff or cfg.d_ff
     dt = x.dtype
-    h = x @ p["w_up"].to(dt)
-    if cfg.act in ("swiglu", "geglu"):
+    gated = cfg.act in ("swiglu", "geglu")
+    w_up = p["w_up"]
+    up = local_split(w_up, (cfg.d_model, 2 * f if gated else f),
+                     ("model_dim", "ff"), 1)
+    h = x @ w_up.to(dt)
+    del w_up
+    h, down = ff_columns(h, up, (f, cfg.d_model), ("ff", "model_dim"), 0,
+                         2 if gated else 1)
+    if gated:
         act = F.silu if cfg.act == "swiglu" else gelu
-        h = h[..., :f] * act(h[..., f:])
+        half = h.shape[-1] // 2
+        h = h[..., :half] * act(h[..., half:])
     else:
         h = act_fn(cfg.act, h)
-    return h @ p["w_down"].to(dt)
+    return row_parallel(h, p["w_down"], down)
+
+
+def row_parallel(h: torch.Tensor, w: torch.Tensor, axes) -> torch.Tensor:
+    """h @ w in h's dtype; over `axes` (w holds this rank's rows) the sum
+    of every rank's partial product, added in rank order in fp32 and
+    rounded once (`pshard.model_sum`)."""
+    return model_sum(h @ w.to(h.dtype), axes)
 
 
 def embed_specs(cfg: ModelConfig) -> dict:

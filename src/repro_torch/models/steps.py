@@ -25,7 +25,8 @@ from ..core import tree as T
 from ..optim import (AdamWConfig, adamw_update, compress_decompress,
                      init_error_state, init_opt_state)
 from .config import ModelConfig
-from ..pshard import ambient_mesh, ambient_rules, use_mesh_and_rules
+from ..pshard import (ambient_mesh, ambient_rules, local_split,
+                      model_columns, use_mesh_and_rules, vocab_greedy)
 from .transformer import STACKED, decode_step, forward, prefill
 
 __all__ = ["head_weights", "chunked_xent", "make_loss_fn", "make_train_step",
@@ -289,7 +290,13 @@ def init_train_state(params, grad_compression: bool = False) -> dict:
 
 
 def _logits_last(params, cfg: ModelConfig, hidden: torch.Tensor):
-    return (hidden @ head_weights(params, cfg).to(hidden.dtype)).float()
+    """(fp32 logits of `hidden`, the axes their columns are split over):
+    this rank's ``vocab`` columns where a serving store keeps the head's
+    slice local (a column-parallel head), else every column and ()."""
+    head = head_weights(params, cfg)
+    axes = local_split(head, (cfg.d_model, cfg.padded_vocab),
+                       ("model_dim", "vocab"), 1)[0]
+    return (hidden @ head.to(hidden.dtype)).float(), axes
 
 
 def _greedy(logits: torch.Tensor) -> torch.Tensor:
@@ -297,22 +304,29 @@ def _greedy(logits: torch.Tensor) -> torch.Tensor:
 
 
 def make_prefill_step(cfg: ModelConfig, cache_len: Optional[int] = None):
-    """prefill_step(params, batch) -> (next_token (B,1), logits, cache)."""
+    """prefill_step(params, batch) -> (next_token (B,1), logits, cache);
+    a column-parallel head's logits are gathered whole."""
 
     def prefill_step(params, batch):
         h_last, cache = prefill(params, cfg, batch, cache_len)
-        logits = _logits_last(params, cfg, h_last)
+        logits = model_columns(*_logits_last(params, cfg, h_last))
         return _greedy(logits), logits, cache
 
     return prefill_step
 
 
-def make_decode_step(cfg: ModelConfig):
-    """decode_fn(params, token (B,1), cache) -> (next_token, logits, cache)."""
+def make_decode_step(cfg: ModelConfig, logits: bool = True):
+    """decode_fn(params, token (B,1), cache) -> (next_token, logits,
+    cache).  Without `logits` the logits are None, and a column-parallel
+    head's token is picked from every rank's columns
+    (`pshard.vocab_greedy`) without building the whole row."""
 
     def decode_fn(params, token, cache):
         h, cache = decode_step(params, cfg, token, cache)
-        logits = _logits_last(params, cfg, h)
-        return _greedy(logits), logits, cache
+        part, axes = _logits_last(params, cfg, h)
+        if not logits:
+            return vocab_greedy(part, axes), None, cache
+        whole = model_columns(part, axes)
+        return _greedy(whole), whole, cache
 
     return decode_fn

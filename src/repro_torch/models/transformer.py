@@ -139,15 +139,18 @@ def model_specs(cfg: ModelConfig) -> dict:
 
 
 def cache_specs(cfg: ModelConfig, batch: int, cache_len: int,
-                mem_len: int = 0) -> dict:
+                mem_len: int = 0, heads: Optional[int] = None) -> dict:
     """Decode-cache Spec tree.  mem_len: the cross-attention memory's
-    length (image tokens, encoder frames) for vlm and encdec."""
+    length (image tokens, encoder frames) for vlm and encdec; heads: the
+    self-attention KV heads the cache holds (default all; a serving
+    rank's own, `attention.head_split`)."""
     KV, hd = cfg.n_kv, cfg.head_dim
     kv_axes = (None, "batch", "kv_seq", "kv_heads", None)
 
     def kv(n_layers, length, names=("k", "v")):
-        return {n: Spec((n_layers, batch, length, KV, hd), kv_axes, "zeros")
-                for n in names}
+        n_kv = (heads or KV) if names == ("k", "v") else KV
+        return {n: Spec((n_layers, batch, length, n_kv, hd), kv_axes,
+                        "zeros") for n in names}
 
     specs: Dict[str, Any] = {"pos": Spec((), (), "zeros", dtype="int32")}
     if cfg.family in ("dense", "moe"):
@@ -412,8 +415,10 @@ def prefill(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
     x = _embed(params, cfg, tokens)
     dev, KV, hd = x.device, cfg.n_kv, cfg.head_dim
 
-    def kv_buffers(n_layers, length):
-        shape = (n_layers, B, length, KV, hd)
+    def kv_buffers(n_layers, length, heads=KV):
+        # `heads`: the first layer's k's, this rank's KV heads where a
+        # serving store keeps them local (`attention._project_qkv`)
+        shape = (n_layers, B, length, heads, hd)
         return (torch.zeros(shape, dtype=cfg.cdtype, device=dev),
                 torch.zeros(shape, dtype=cfg.cdtype, device=dev))
 
@@ -421,11 +426,13 @@ def prefill(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
     cache: Dict[str, Any] = {"pos": torch.full((), S, dtype=torch.int32,
                                                device=dev)}
     if cfg.family in ("dense", "moe"):
-        ck, cv = kv_buffers(cfg.n_layers, cache_len)
+        ck = cv = None
         for l, (wl, is_moe) in enumerate(_schedule(params, cfg)):
             a, (k, v) = self_attention(wl["attn"], cfg, x)
             x = x + a
             x = _moe_res(cfg, x, wl)[0] if is_moe else _mlp_res(cfg, x, wl)
+            if ck is None:
+                ck, cv = kv_buffers(cfg.n_layers, cache_len, k.shape[2])
             ck[l, :, :S] = k
             cv[l, :, :S] = v
         cache.update(k=ck, v=cv)
@@ -442,7 +449,7 @@ def prefill(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
     elif cfg.family == "hybrid":
         _, _, n_r, n_a = hybrid_counts(cfg)
         W = _ring_len(cfg, cache_len)
-        ck, cv = kv_buffers(n_a, W)
+        ck = cv = None
         convs, hs = [], []
         for kind, i in _hybrid_schedule(cfg):
             if kind == "R":
@@ -456,19 +463,23 @@ def prefill(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
                 a, (k, v) = self_attention(wl["attn"], cfg, x,
                                            window=cfg.local_window)
                 x = _mlp_res(cfg, x + a, wl)
+                if ck is None:
+                    ck, cv = kv_buffers(n_a, W, k.shape[2])
                 if cfg.local_window and S >= W:
                     ck[i] = _ring_from_prefill(k, W, S)
                     cv[i] = _ring_from_prefill(v, W, S)
                 else:
                     ck[i, :, :S] = k
                     cv[i, :, :S] = v
+        if ck is None:
+            ck, cv = kv_buffers(n_a, W)
         cache.update(k=ck, v=cv, rg={"conv": torch.stack(convs),
                                      "h": torch.stack(hs)})
     elif cfg.family == "vlm":
         mem = batch["vis_emb"]
         every = cfg.cross_attn_every
         nb = cfg.n_layers // every
-        ck, cv = kv_buffers(nb * (every - 1), cache_len)
+        ck = cv = None
         xks, xvs = [], []
         for bi in range(nb):
             wx = _layer(params["x_layers"], bi)
@@ -480,16 +491,23 @@ def prefill(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
                 ws = _layer(params["self_layers"], bi, si)
                 a, (k, v) = self_attention(ws["attn"], cfg, x)
                 x = _mlp_res(cfg, x + a, ws)
+                if ck is None:
+                    ck, cv = kv_buffers(nb * (every - 1), cache_len,
+                                        k.shape[2])
                 ck[bi * (every - 1) + si, :, :S] = k
                 cv[bi * (every - 1) + si, :, :S] = v
+        if ck is None:
+            ck, cv = kv_buffers(nb * (every - 1), cache_len)
         cache.update(k=ck, v=cv, xk=torch.stack(xks), xv=torch.stack(xvs))
     elif cfg.family == "encdec":
         mem = _encode(params, cfg, batch["enc_emb"], remat=False)
-        ck, cv = kv_buffers(cfg.n_layers, cache_len)
+        ck = cv = None
         xks, xvs = [], []
         for i in range(cfg.n_layers):
             wl = _layer(params["dec_layers"], i)
             a, (k, v) = self_attention(wl["attn"], cfg, x)
+            if ck is None:
+                ck, cv = kv_buffers(cfg.n_layers, cache_len, k.shape[2])
             x = x + a
             xk, xv = _precompute_cross_kv(wl["xattn"], cfg, mem)
             x = x + cross_attention(wl["xattn"], cfg, x, mem)

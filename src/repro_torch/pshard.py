@@ -18,6 +18,19 @@ and `to_placements` turns that tuple into DTensor placements (`Shard`,
 The port runs one process per mesh position, so a plain tensor under a
 mesh is that process's local value; `constrain` redistributes a DTensor
 and leaves a plain tensor as it is.
+
+**Computing an axis where it lives.**  Where a serving rank's leaf holds
+its slice of an axis that no batch axis splits (``heads``, ``kv_heads``,
+``ff``, ``vocab`` on ``model``; `launch.placement.local_dims`), the model
+computes that slice and the ranks of the axis's group meet in three
+exchanges, each an exact all-gather (`launch.shards.Exchange`):
+`model_sum` (the partial products of a row-parallel product, added in
+rank order in fp32 and rounded once, so every rank holds the same bits),
+`realign` (a column-parallel activation whose whole is several packed
+segments, ``[u | g]`` or ``[k | v]``, cut so that a rank holds its slice
+of each) and `vocab_greedy` (the greedy token from every rank's columns,
+as `torch.argmax` of the whole row picks it).  `local_split` tells a
+model whether a leaf holds a slice, by its shape.
 """
 from __future__ import annotations
 
@@ -32,7 +45,8 @@ __all__ = ["ShardingRules", "DEFAULT_RULES", "AbstractMesh", "ambient_mesh",
            "capture", "use_mesh_and_rules",
            "spec_for", "named_sharding", "to_placements", "shard_slices",
            "constrain",
-           "constrain_tree", "spec_axes"]
+           "constrain_tree", "spec_axes", "split_of", "local_split",
+           "model_sum", "model_columns", "realign", "vocab_greedy"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -276,3 +290,133 @@ def constrain_tree(tree, spec_tree):
             return x
         return x.redistribute(mesh.device_mesh, to_placements(s, mesh))
     return T.map_tree(one, tree, spec_tree)
+
+
+# -- computing an axis where it lives (module doc) -----------------------------
+
+def split_of(whole: Sequence[int], logical: Sequence[Optional[str]],
+             dim: int) -> Tuple[Tuple[str, ...], int, int]:
+    """(axes, n, k): the mesh axes dimension `dim` of a `whole`-shaped
+    tensor with these logical axes is split over on the ambient mesh and
+    rules, their rank count and this rank's index among them (((), 1, 0)
+    without a mesh or a split)."""
+    mesh = ambient_mesh()
+    if mesh is None:
+        return (), 1, 0
+    axes = spec_axes(spec_for(whole, logical, mesh, ambient_rules())[dim])
+    if not axes or mesh.group_size(axes) <= 1:
+        return (), 1, 0
+    return axes, mesh.group_size(axes), mesh.index_in(axes)
+
+
+def local_split(w, whole: Sequence[int], logical: Sequence[Optional[str]],
+                dim: int) -> Tuple[Tuple[str, ...], int, int]:
+    """`split_of` for a leaf `w` of a `whole`-shaped tensor: ((), 1, 0)
+    when `w` holds the whole dimension `dim` (a leaf gathered whole, or no
+    mesh), else the split its slice is this rank's of."""
+    if w.shape[dim] == whole[dim]:
+        return (), 1, 0
+    axes, n, k = split_of(whole, logical, dim)
+    if n * w.shape[dim] != whole[dim]:
+        raise ValueError(f"a leaf of {tuple(w.shape)} is no rank's slice of "
+                         f"{tuple(whole)} over {axes or 'no axes'}")
+    return axes, n, k
+
+
+def _exchange():
+    from .launch.shards import exchange_for
+    return exchange_for(ambient_mesh())
+
+
+#: the bytes of a rank's part in one exchange of the model group: a
+#: larger activation goes in row chunks, so that at most the group's parts
+#: of one chunk are in flight (a long prefill's would be n times the
+#: activation)
+PART_BYTES = 1 << 26
+
+
+def _row_chunks(x, width: int):
+    """x as rows (..., last dim) and the row slices each exchange takes,
+    an out-tensor's rows being `width` wide."""
+    rows = x.reshape(-1, x.shape[-1])
+    step = max(1, PART_BYTES // max(1, width * rows.element_size()))
+    return rows, [slice(a, a + step) for a in range(0, rows.shape[0], step)]
+
+
+def model_sum(x, axes: Sequence[str]):
+    """The sum over the ranks of `axes` of every rank's partial `x`, added
+    in rank order in fp32 and rounded once to x's dtype: the same bits on
+    every rank.  `x` itself over no axes."""
+    if not axes:
+        return x
+    rows, chunks = _row_chunks(x, x.shape[-1])
+    if len(chunks) == 1:
+        return _exchange().sum(x, axes).to(x.dtype)
+    out = rows.new_empty(rows.shape)
+    for sl in chunks:
+        out[sl] = _exchange().sum(rows[sl], axes)
+    return out.view(x.shape)
+
+
+def model_columns(x, axes: Sequence[str]):
+    """The whole last dimension of which `x` holds this rank's contiguous
+    slice (the ranks of `axes` in order); `x` itself over no axes."""
+    import torch
+    if not axes:
+        return x
+    n = ambient_mesh().group_size(axes)
+    rows, chunks = _row_chunks(x, x.shape[-1])
+    if len(chunks) == 1:
+        return torch.cat([p for _, p in _exchange().parts(x, axes)], dim=-1)
+    out = rows.new_empty((rows.shape[0], n * rows.shape[1]))
+    for sl in chunks:
+        torch.cat([p for _, p in _exchange().parts(rows[sl], axes)], dim=-1,
+                  out=out[sl])
+    return out.view(*x.shape[:-1], out.shape[-1])
+
+
+def realign(x, axes: Sequence[str], segments: int):
+    """A column-parallel activation cut by segment: `x` holds this rank's
+    contiguous n-th of a whole last dimension packed as `segments` equal
+    parts (``[u | g]``, ``[k | v]``); returns this rank's n-th of each
+    part, in part order, contiguous."""
+    import torch
+    if not axes or segments == 1:
+        return x
+    mesh = ambient_mesh()
+    n, k = mesh.group_size(axes), mesh.index_in(axes)
+    part = x.shape[-1] * n // segments
+    w = part // n
+    rows, chunks = _row_chunks(x, x.shape[-1])
+    out = rows.new_empty(rows.shape)
+    for sl in chunks:
+        whole = torch.cat([p for _, p in _exchange().parts(rows[sl], axes)],
+                          dim=-1)
+        torch.cat([whole[:, s * part + k * w:s * part + (k + 1) * w]
+                   for s in range(segments)], dim=-1, out=out[sl])
+    return out.view(x.shape)
+
+
+def vocab_greedy(logits, axes: Sequence[str]):
+    """The greedy token (int32, logits' shape without the last axis) of a
+    row whose columns are split over the ranks of `axes`: each rank's
+    largest value and its first index, then the largest over the ranks in
+    column order, a tie to the lowest index and a NaN taken as the
+    largest -- `torch.argmax` of the whole row, without it."""
+    import torch
+    i = torch.argmax(logits, dim=-1)
+    if not axes:
+        return i.to(torch.int32)
+    v = torch.gather(logits.float(), -1, i[..., None])[..., 0]
+    width = logits.shape[-1]
+    pair = torch.stack([v.view(torch.int32), i.to(torch.int32)])
+    best = at = None
+    for r, (_, part) in enumerate(_exchange().parts(pair, axes)):
+        pv, pi = part[0].view(torch.float32), part[1] + r * width
+        if best is None:
+            best, at = pv.clone(), pi
+            continue
+        take = (pv > best) | (torch.isnan(pv) & ~torch.isnan(best))
+        best = torch.where(take, pv, best)
+        at = torch.where(take, pi, at)
+    return at

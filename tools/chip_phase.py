@@ -28,6 +28,16 @@ after a change to one phase's code:
     python3 tools/chip_phase.py 17b   # llama4-maverick at full width on
                                       # 4x1 over nccl (run_expert_mesh_four;
                                       # needs four cards on one host)
+    python3 tools/chip_phase.py 18    # heads, ff and vocab where they
+                                      # live: phi3-mini on 1x2 and 2x2,
+                                      # phi3.5-moe on 2x2, gloo ranks of
+                                      # one card (run_tensor_mesh_path)
+    python3 tools/chip_phase.py 18b   # llama4-maverick at full width on
+                                      # 2x2 and phi3-mini at full depth on
+                                      # 1x4 over nccl (run_tensor_mesh_four;
+                                      # needs four cards on one host)
+    python3 tools/chip_phase.py 18b --arch llama4-maverick-400b-a17b
+                                      # one of 18b's two worlds
 
 from the repo root.
 """
@@ -48,13 +58,18 @@ PHASES = {"10": C.run_train_path, "11": C.run_zoo_path,
           "13cd": C.run_mesh_one_shot, "14": C.run_train_mesh_path,
           "14d": C.run_train_mesh_four, "15": C.run_dryrun_path,
           "16": C.run_prng_path, "17": C.run_expert_mesh_path,
-          "17b": C.run_expert_mesh_four}
+          "17b": C.run_expert_mesh_four, "18": C.run_tensor_mesh_path,
+          "18b": C.run_tensor_mesh_four}
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("phase", choices=sorted(PHASES))
+    ap.add_argument("--arch", choices=[c[0] for c in C.P18B],
+                    help="18b: run this arch's world alone")
     args = ap.parse_args(argv)
+    if args.arch:
+        C.P18B = tuple(c for c in C.P18B if c[0] == args.arch)
     import torch
     if not torch.cuda.is_available():
         print("chip_phase: no CUDA device", file=sys.stderr)
